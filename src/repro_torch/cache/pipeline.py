@@ -1,0 +1,213 @@
+"""`DiffusionPipeline` — the one-object facade over calibrate → schedule →
+execute::
+
+    pipe = DiffusionPipeline(cfg, solvers.ddim(50), "smoothcache:alpha=0.18",
+                             cfg_scale=1.5)
+    art = pipe.calibrate(params, gen, batch=10, cond_args={"label": labels})
+    pipe.save_artifact("dit_xl_ddim50.cache.json")
+    ...
+    serve = DiffusionPipeline(cfg, solvers.ddim(50), "smoothcache:alpha=0.18",
+                              cfg_scale=1.5)
+    serve.load_artifact("dit_xl_ddim50.cache.json", strict=True)
+    x = serve.generate(params, gen2, batch, label=labels)
+
+The calibration result is a serializable :class:`CacheArtifact`, so a
+serving process loads it and never recalibrates.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+
+from repro_torch.cache import registry
+from repro_torch.cache.artifact import CacheArtifact
+from repro_torch.cache.policy import AdaptivePolicy, CachePolicy
+from repro_torch.core import calibration as calibration_lib
+from repro_torch.core import plan as plan_lib
+from repro_torch.core import solvers as solvers_lib
+from repro_torch.core.executor import SmoothCacheExecutor
+from repro_torch.core.schedule import Schedule
+
+_UNSET = object()
+
+
+class DiffusionPipeline:
+    """Owns an executor + a :class:`CachePolicy` + (optionally) a resolved
+    :class:`CacheArtifact`, and exposes calibrate/generate.  Runs on
+    ``cuda`` unless ``device="cpu"`` is passed."""
+
+    def __init__(self, cfg, solver, policy: Union[str, dict, CachePolicy]
+                 = "none", *, cfg_scale: Optional[float] = None,
+                 device=None):
+        if isinstance(solver, str):
+            raise TypeError(
+                f"solver must be a Solver object, e.g. "
+                f"solvers.{solver}(num_steps); got the string {solver!r}")
+        self.policy = registry.get(policy)
+        self.executor = SmoothCacheExecutor(cfg, solver, cfg_scale=cfg_scale,
+                                            device=device)
+        self.artifact: Optional[CacheArtifact] = None
+        self.per_sample: Optional[Dict[str, np.ndarray]] = None
+        self._schedule: Optional[Schedule] = None
+        self._plan: Optional[plan_lib.ExecutionPlan] = None
+        self._proxy_map: Optional[calibration_lib.ProxyMap] = None
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def cfg(self):
+        return self.executor.cfg
+
+    @property
+    def solver(self) -> solvers_lib.Solver:
+        return self.executor.solver
+
+    @property
+    def schedule(self) -> Optional[Schedule]:
+        """The resolved schedule, if calibration/preparation has run."""
+        return self._schedule
+
+    @property
+    def plan(self) -> Optional[plan_lib.ExecutionPlan]:
+        """Segmentation/liveness analysis of the resolved schedule (loaded
+        from the artifact when serving, derived once otherwise)."""
+        if self._plan is None and self._schedule is not None:
+            self._plan = self.executor.plan_for(self._schedule)
+        return self._plan
+
+    @property
+    def proxy_map(self) -> Optional[calibration_lib.ProxyMap]:
+        return self._proxy_map
+
+    # -- calibration ---------------------------------------------------------
+
+    def calibrate(self, params, generator, batch: int = 8, *,
+                  cond_args: Optional[Dict] = None,
+                  k_max: Optional[int] = None) -> CacheArtifact:
+        """Run one uncached calibration pass (paper uses 10 samples), resolve
+        the policy's schedule, and return a serializable artifact.  Also
+        stores per-sample curves on ``self.per_sample``."""
+        k = k_max if k_max is not None else max(self.policy.k_max, 1)
+        rec = calibration_lib.calibrate_record(
+            self.executor, params, generator, batch, cond_args=cond_args,
+            k_max=k)
+        curves = rec.curves
+        self.per_sample = rec.per_sample
+        sch = self.policy.build(self.cfg.layer_types(),
+                                self.solver.num_steps,
+                                curves if self.policy.requires_calibration
+                                else None)
+        self._plan = self.executor.plan_for(sch)
+        adaptive = None
+        if isinstance(self.policy, AdaptivePolicy):
+            self._proxy_map = rec.proxy_map
+            pool = plan_lib.mask_lattice(sch)
+            pool_types = sorted({t for sig in pool for t in sig.live_in})
+            coeff_a, coeff_b = rec.proxy_map.stacked(pool_types)
+            adaptive = {
+                "tau": self.policy.tau,
+                "k_max": self.policy.k_max,
+                "proxy_map": rec.proxy_map.to_jsonable(),
+                "proxy_map_stacked": {
+                    "types": pool_types,
+                    "a": [float(v) for v in coeff_a],
+                    "b": [float(v) for v in coeff_b],
+                },
+                "pool": [list(sig.live_in) for sig in pool],
+            }
+        self.artifact = CacheArtifact(
+            arch=self.cfg.name, solver=self.solver.name,
+            num_steps=self.solver.num_steps,
+            policy=self.policy.to_config(), curves=curves, schedule=sch,
+            plan=self._plan.to_jsonable(), adaptive=adaptive,
+            meta={"calib_batch": batch, "k_max": k,
+                  "cfg_scale": self.executor.cfg_scale,
+                  # under CFG only the conditioned half of the doubled
+                  # [cond; uncond] batch enters the curves
+                  "calib_cfg_half": "cond" if rec.cfg_halved else None})
+        self._schedule = sch
+        return self.artifact
+
+    def schedule_for(self, policy: Union[str, dict, CachePolicy]) -> Schedule:
+        """Resolve *another* policy against this pipeline's calibration
+        curves (many α / budgets, one calibration)."""
+        p = registry.get(policy)
+        curves = self.artifact.curves if self.artifact is not None else None
+        return p.prepare(self.executor, curves=curves)
+
+    # -- artifact round-trip -------------------------------------------------
+
+    def save_artifact(self, path: str) -> str:
+        if self.artifact is None:
+            raise ValueError("no artifact: run calibrate() first")
+        return self.artifact.save(path)
+
+    def load_artifact(self, path_or_artifact: Union[str, CacheArtifact],
+                      *, strict: bool = True) -> CacheArtifact:
+        """Adopt a saved artifact: serving skips calibration entirely.  The
+        stored schedule is used verbatim when present; otherwise it is
+        re-resolved from the stored curves with this pipeline's policy."""
+        art = (path_or_artifact if isinstance(path_or_artifact, CacheArtifact)
+               else CacheArtifact.load(path_or_artifact))
+        if strict:
+            art.validate_for(
+                arch=self.cfg.name, solver=self.solver.name,
+                num_steps=self.solver.num_steps,
+                cfg_scale=self.executor.cfg_scale,
+                policy=self.policy if isinstance(self.policy, AdaptivePolicy)
+                else None)
+        self.artifact = art
+        if art.adaptive and art.adaptive.get("proxy_map"):
+            self._proxy_map = calibration_lib.ProxyMap.from_jsonable(
+                art.adaptive["proxy_map"])
+        self._schedule = (art.schedule if art.schedule is not None
+                          else art.resolve(self.policy))
+        # serving reloads the pre-analyzed plan instead of re-deriving it
+        self._plan = (art.execution_plan() if art.schedule is not None
+                      else plan_lib.analyze(self._schedule))
+        return art
+
+    # -- generation ----------------------------------------------------------
+
+    def generate(self, params, generator, batch: int, *, label=None,
+                 schedule=_UNSET, compiled: bool = True):
+        """Sample a batch under the pipeline's schedule.  ``schedule=`` (a
+        Schedule, a policy spec, or None for the uncached baseline)
+        overrides per call; ``compiled=True`` takes the segmented-plan
+        path (reusing the pipeline's pre-analyzed plan), ``False`` the
+        eager reference path."""
+        if schedule is _UNSET:
+            sch = self._schedule
+            if sch is None and self.policy.requires_calibration:
+                raise ValueError(
+                    f"policy {self.policy.spec()!r} needs calibration — run "
+                    "calibrate()/load_artifact() before generate()")
+            if sch is None:
+                sch = self.policy.build(self.cfg.layer_types(),
+                                        self.solver.num_steps)
+                self._schedule = sch
+            if isinstance(self.policy, AdaptivePolicy) and compiled:
+                raise NotImplementedError(
+                    "input-adaptive generation is not ported yet (ROADMAP "
+                    "queue 1, item 6: executor, adaptive paths); pass "
+                    "compiled=False to run the static base schedule")
+        elif schedule is None or isinstance(schedule, Schedule):
+            sch = schedule
+        else:
+            sch = self.schedule_for(schedule)
+        if compiled:
+            plan = self.plan if (sch is not None
+                                 and sch is self._schedule) else None
+            return self.executor.sample_compiled(
+                params, generator, batch, schedule=sch, label=label,
+                plan=plan)
+        return self.executor.sample(params, generator, batch, schedule=sch,
+                                    label=label)
+
+    def compute_fraction(self) -> float:
+        """Mean fraction of layer evaluations actually computed."""
+        if self._schedule is None:
+            return 1.0
+        return float(np.mean([self._schedule.compute_fraction(t)
+                              for t in self._schedule.skip]))

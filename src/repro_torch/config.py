@@ -1,0 +1,108 @@
+"""Configuration schema: the spec dataclasses of the DiT family.
+
+A copy of the JAX package's schema, cut to the specs the port runs: a
+`ModelConfig` is a sequence of *stages*, each a repeated *unit* of block
+specs.  Stage parameters carry a leading ``repeat`` axis, which the port
+iterates over.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttentionSpec:
+    """Multi-head attention (GQA/MQA/MHA)."""
+    kind: str = "gqa"
+    num_heads: int = 8
+    num_kv_heads: int = 8
+    head_dim: int = 64
+    window: Optional[int] = None         # sliding-window size; None = full
+    causal: bool = True
+    cross: bool = False
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    logit_softcap: Optional[float] = None
+    pos_emb: str = "rope"                # "rope" | "none"
+    pattern: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class MLPSpec:
+    d_ff: int = 2048
+    activation: str = "silu"             # "silu" | "gelu" | "gelu_tanh"
+    gated: bool = True
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    """One residual block: (norm → mixer → +res) [→ (norm → ffn → +res)]."""
+    mixer: Optional[AttentionSpec] = None
+    ffn: Optional[MLPSpec] = None
+    norm: str = "rmsnorm"                # "rmsnorm" | "layernorm"
+    adaln: bool = False                  # DiT-style adaLN-zero conditioning
+    type_tag: str = ""                   # SmoothCache type prefix
+
+    def branch_names(self) -> Tuple[str, ...]:
+        out = []
+        if self.mixer is not None:
+            out.append("mixer")
+        if self.ffn is not None:
+            out.append("ffn")
+        return tuple(out)
+
+    def branch_types(self) -> Tuple[str, ...]:
+        """SmoothCache layer *types* for each branch (paper's set S)."""
+        out = []
+        if self.mixer is not None:
+            out.append(self.type_tag + "attn")
+        if self.ffn is not None:
+            out.append(self.type_tag + "ffn")
+        return tuple(out)
+
+
+@dataclass(frozen=True)
+class Stage:
+    """`repeat` copies of `unit` (a tuple of BlockSpecs)."""
+    unit: Tuple[BlockSpec, ...]
+    repeat: int = 1
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.unit) * self.repeat
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    vocab_size: int
+    stages: Tuple[Stage, ...] = ()
+    norm: str = "rmsnorm"
+    pos_emb: str = "none"
+    max_seq_len: int = 8192
+    task: str = "lm"                     # "lm" | "diffusion"
+    latent_shape: Tuple[int, ...] = ()   # diffusion: per-sample latent shape
+    patch: int = 1                       # diffusion image patch size
+    num_classes: int = 0                 # label conditioning (DiT-XL)
+    dtype: str = "bfloat16"
+    citation: str = ""
+
+    @property
+    def num_layers(self) -> int:
+        return sum(s.num_layers for s in self.stages)
+
+    def layer_types(self) -> Tuple[str, ...]:
+        """All SmoothCache-eligible layer types present in the model."""
+        types = []
+        for st in self.stages:
+            for b in st.unit:
+                for t in b.branch_types():
+                    if t not in types:
+                        types.append(t)
+        return tuple(types)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

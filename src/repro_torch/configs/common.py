@@ -1,0 +1,43 @@
+"""Shared helpers for architecture configs: the smoke-test reducer."""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.config import AttentionSpec, ModelConfig, Stage
+
+
+def _shrink_mixer(m: AttentionSpec, d_model: int):
+    if m is None:
+        return None
+    heads = 4 if m.num_heads >= 4 else m.num_heads
+    kv = max(1, heads * m.num_kv_heads // m.num_heads)
+    kw = dict(num_heads=heads, num_kv_heads=kv, head_dim=d_model // heads)
+    if m.window is not None:
+        kw["window"] = min(m.window, 16)
+    return dataclasses.replace(m, **kw)
+
+
+def _shrink_ffn(f, d_model: int):
+    if f is None:
+        return None
+    return dataclasses.replace(f, d_ff=2 * d_model)
+
+
+def smoke_variant(cfg: ModelConfig, d_model: int = 128,
+                  unit_repeats: int = 1) -> ModelConfig:
+    """Reduced same-family variant: one unit per stage repeated at most
+    ``unit_repeats`` times, d_model ≤ 512, 8×8 image latents."""
+    if d_model > 512:
+        raise ValueError(f"smoke d_model must be <= 512, got {d_model}")
+    stages = []
+    for st in cfg.stages:
+        unit = tuple(
+            dataclasses.replace(b, mixer=_shrink_mixer(b.mixer, d_model),
+                                ffn=_shrink_ffn(b.ffn, d_model))
+            for b in st.unit)
+        stages.append(Stage(unit=unit, repeat=min(unit_repeats, st.repeat)))
+    return cfg.replace(
+        name=cfg.name + "-smoke", d_model=d_model,
+        vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else cfg.vocab_size,
+        stages=tuple(stages), max_seq_len=min(cfg.max_seq_len, 256),
+        latent_shape=(8, 8, cfg.latent_shape[-1]), dtype="float32")

@@ -1,0 +1,111 @@
+"""Build and launch of the Hopper flash-attention kernel
+(``flash_attention.cu``), which replaces the JAX package's Pallas kernel
+``repro/kernels/flash_attention.py::flash_attention``.
+
+The source is compiled on first use for ``sm_90a`` by PyTorch's extension
+loader (``torch.utils.cpp_extension.load``, which needs ``ninja``) into a
+shared library with a plain C interface under ``build/kernels/`` at the
+root of the checkout; the loader rebuilds when the source changes.  The library
+is called through ``ctypes`` with raw pointers, shapes, strides and
+PyTorch's current stream.  The source includes no PyTorch header, so the
+build takes seconds.  A failed build or launch raises; nothing here falls
+back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+SOURCE = Path(__file__).with_name("flash_attention.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = None
+
+
+def build() -> dict:
+    """Compile the kernel (a no-op when this source is already built).
+    Returns ``{"path", "seconds"}``."""
+    from torch.utils.cpp_extension import load
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path = load(name="repro_torch_flash_attention", sources=[str(SOURCE)],
+                build_directory=str(BUILD_DIR), extra_cuda_cflags=CUDA_FLAGS,
+                is_python_module=False, verbose=False)
+    return {"path": path, "seconds": time.perf_counter() - t0}
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build()["path"])
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        lib.flash_attention_fwd.argtypes = (
+            [p, p, p, p, i] + [i] * 6 + [ll] * 12 + [f, i, i, f, p])
+        lib.flash_attention_fwd.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None):
+    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) CUDA tensors of one dtype
+    (float32 or bfloat16), any strides with a unit last-dim stride →
+    (B, Lq, H, D) in q's dtype, computed in f32."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q (B,Lq,H,D) and k = v (B,Lk,KV,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, lq, h, d = q.shape
+    _, lk, kv, dk = k.shape
+    if k.shape[0] != b or dk != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if not 1 <= d <= 128:
+        raise ValueError(f"head dim {d} outside the kernel's 1..128")
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads are not a multiple of {kv} KV "
+                         "heads")
+    if b * h > 65535:
+        raise ValueError(f"batch*heads = {b * h} exceeds the grid's 65535")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected q's CUDA "
+                             f"device {q.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
+                             "q, k, v all float32 or all bfloat16")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride on the head dim")
+    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, lq, lk, h, kv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(causal),
+            0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention launch failed: "
+                           + lib.flash_attention_error_string(rc).decode())
+    return out

@@ -1,0 +1,33 @@
+"""Kernel dispatch on the tensor's device.
+
+A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
+plain PyTorch version (``ref.py``).  There is no environment override and
+no fallback: a kernel that fails to build or launch raises.
+
+``LAUNCHES`` counts kernel launches, so that a run can show that it went
+through the kernels; callers reset it by assigning 0 to an entry.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+
+LAUNCHES = {"flash_attention": 0}
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None):
+    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) → (B, Lq, H, D)."""
+    if q.device.type == "cuda":
+        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    raise ValueError(f"no flash_attention for device {q.device}")

@@ -1,0 +1,91 @@
+"""Primitive layers: norms, activations, embeddings, linear init.
+
+Parameters are plain tensors in the JAX package's layout: a dense weight is
+``(in, out)`` and applied as ``x @ w``."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Init (drawn on the CPU from an explicit generator; callers move the tree)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype=torch.float32, scale: Optional[float] = None):
+    """Truncated-normal fan-in init (±2σ), σ = 1/√in_dim unless given."""
+    std = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.empty(in_dim, out_dim, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int,
+               dtype=torch.float32):
+    w = torch.randn(vocab, dim, generator=gen, dtype=torch.float32) * 0.02
+    return w.to(dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32):
+    return {"scale": torch.ones(d, dtype=dtype),
+            "bias": torch.zeros(d, dtype=dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def layernorm(params, x, eps: float = 1e-6):
+    """Statistics in f32, normalization in the stream dtype (not plain
+    ``F.layer_norm``, which would normalize in f32 too)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    out = (x - mu.to(x.dtype)) * inv
+    return out * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+def apply_norm(kind: str, params, x):
+    if kind != "layernorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return layernorm(params, x)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    return {"silu": F.silu, "gelu": F.gelu, "gelu_tanh": gelu_tanh,
+            "relu": F.relu}[name]
+
+
+def softcap(x, cap: float):
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Positional / timestep embeddings
+# ---------------------------------------------------------------------------
+
+def sinusoidal_embedding(positions, dim: int, max_period: float = 10000.0):
+    """positions: (...,) → (..., dim), cos half first then sin half.  Also
+    used for diffusion timesteps."""
+    half = dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(max_period) * ar / half)
+    args = positions[..., None].float() * freqs
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb

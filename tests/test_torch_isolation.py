@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: importing every ``repro_torch`` module and
+``chip_smoke.py`` pulls in neither JAX nor the JAX package, and the entry
+points refuse to run without a CUDA device unless asked for the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import configs
+from repro_torch.cache import DiffusionPipeline
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import diffusion, executor, solvers
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+
+
+def test_no_jax_and_no_reference_package_imported():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_entry_points_raise_without_cuda(no_cuda, device):
+    cfg = configs.get("dit-xl-256", "smoke")
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        executor.SmoothCacheExecutor(cfg, solvers.ddim(4), **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiffusionPipeline(cfg, solvers.ddim(4), **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diffusion.init_params(torch.Generator(), cfg, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": np.zeros(2, np.float32)}, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device(device)
+
+
+def test_cpu_only_when_asked(no_cuda):
+    cfg = configs.get("dit-xl-256", "smoke")
+    ex = executor.SmoothCacheExecutor(cfg, solvers.ddim(4), device="cpu")
+    assert ex.device.type == "cpu"
+    params = diffusion.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu")
+    assert all(a.device.type == "cpu"
+               for a in params["backbone"]["stages"][0][0]["mixer"].values())
