@@ -7,19 +7,32 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the CUDA kernel from the checkout's sources;
+2. build of both CUDA kernels from the checkout's sources, in parallel;
 3. the flash-attention kernel against its plain PyTorch version at the
    DiT-XL/2 shape and over the kernel test sweep, with times (CUDA events);
-4. a full-width DiT-XL/2 denoiser forward on the card (kernel attention)
+4. the SSD-scan kernel against its plain PyTorch version over the kernel
+   test sweep (f32 and bf16), at the Mamba-2-1.3B prefill shape and at a
+   ragged length, with times;
+5. a full-width DiT-XL/2 denoiser forward on the card (kernel attention)
    against the same forward on the CPU (plain attention);
-5. the slice: full-width DiT-XL/2, DDIM 50, cfg_scale 1.5 — calibrate on 10
-   samples, save the artifact, load it strictly into a fresh pipeline and
-   answer 4 requests with no cache, the artifact's SmoothCache schedule and
-   ``static:n=2``; every latent finite, kernel launches = 28 × attention
-   steps computed, segmented ≡ eager bitwise.
+6. the DiT slice: full-width DiT-XL/2, DDIM 50, cfg_scale 1.5 — calibrate
+   on 10 samples, save the artifact, load it strictly into a fresh pipeline
+   and answer 4 requests with no cache, the artifact's SmoothCache schedule
+   and ``static:n=2``; every latent finite, kernel launches = 28 × attention
+   steps computed, segmented ≡ eager bitwise;
+7. a full-width Mamba-2-1.3B prefill of one 200-token prompt on the card
+   (kernel scan) against the same prefill on the CPU (plain scan): logits
+   and final states;
+8. the LM slice: ``launch.serve.generate`` on 4 prompts × 1024 tokens, 32
+   new tokens, greedy — 48 SSD launches in the prefill and none in the
+   decode loop; then a card forward over prompt + the first 31 new tokens
+   whose logits must match the recurrent decode step's;
+9. a ``torch.profiler`` trace of one prefill and of 4 decode steps: device
+   time by kernel, and the device's idle share of the wall time.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
-The weights are random (seeded); depth and widths are DiT-XL/2's.
+The weights are random (seeded); depth and widths are DiT-XL/2's and
+Mamba-2-1.3B's.
 """
 import json
 import math
@@ -28,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -35,6 +49,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 REQUEST_LABELS = [207, 360, 387, 974]
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
 # Published peaks per card (NVIDIA H100 data sheet: FP32 outside the tensor
 # cores, HBM bandwidth), keyed by the name nvidia-smi reports.
 PEAKS = {"H100 80GB HBM3": (67e12, 3.35e12),      # SXM5
@@ -244,6 +259,235 @@ def slice_phase(cfg, params, ops):
     return runs
 
 
+def ssd_kernel_phase(ssd, ref, peaks):
+    """SSD kernel vs plain over the sweep, at the prefill shape and at a
+    ragged length; times at the prefill shape."""
+    gen = torch.Generator().manual_seed(SEED)
+
+    def inputs(b, l, h, p, g, n, dtype):
+        f = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+        x, dt = f(b, l, h, p), torch.nn.functional.softplus(f(b, l, h) - 1.0)
+        a = torch.exp(torch.rand(h, generator=gen))
+        bb, cc = f(b, l, g, n), f(b, l, g, n)
+        return [x.to("cuda", dtype), dt.cuda(), a.cuda(),
+                bb.to("cuda", dtype), cc.to("cuda", dtype)]
+
+    # tests/test_kernels.py's tolerances against its sequential oracle
+    tols = {torch.float32: ((2e-4, 2e-3), (1e-4, 1e-2)),
+            torch.bfloat16: ((1e-1, 1e-1), (1e-2, 1e-2))}
+
+    def compare(shape, chunk, dtype, elementwise=True):
+        """Element-wise at the sweep's tolerances; at full width, where y
+        reaches ~400 and near-zero outputs carry the rounding of large
+        sums, max |err| / max |plain| <= 1e-4 for y and the state."""
+        t = inputs(*shape, dtype)
+        y, hT = ssd.ssd_cuda(*t, chunk=chunk)
+        yr, hr = ref.ssd_ref(*t, chunk=chunk)
+        torch.cuda.synchronize()
+        (ya, yr_), (ha, hr_) = tols[dtype]
+        row = {"shape": shape, "chunk": chunk, "dtype": str(dtype)[6:],
+               "max_abs_err": float((y.float() - yr.float()).abs().max()),
+               "max_abs_y": float(yr.float().abs().max()),
+               "rel_max_err": rel_err(y, yr),
+               "state_rel_max_err": rel_err(hT, hr)}
+        if elementwise:
+            row["ok"] = bool(
+                torch.allclose(y.float(), yr.float(), atol=ya, rtol=yr_)
+                and torch.allclose(hT, hr, atol=ha, rtol=hr_))
+        else:
+            row["ok"] = max(row["rel_max_err"],
+                            row["state_rel_max_err"]) <= 1e-4
+        check(row["ok"], f"ssd kernel vs plain {row}")
+        return row, t
+
+    sweep = [compare(shape, chunk, dtype)[0]
+             for *shape, chunk in ((2, 64, 4, 16, 1, 16, 16),
+                                   (1, 96, 8, 32, 2, 32, 32),
+                                   (2, 33, 2, 16, 1, 8, 16),
+                                   (1, 16, 2, 8, 2, 8, 8))
+             for dtype in (torch.float32, torch.bfloat16)]
+    emit({"ssd_sweep": sweep})
+    b, l, h, p, g, n, q = LM_BATCH, LM_PROMPT, 64, 64, 1, 128, 128
+    ragged, _ = compare((b, 1000, h, p, g, n), q, torch.float32, False)
+    full, t = compare((b, l, h, p, g, n), q, torch.float32, False)
+    emit({"ssd_prefill_shape": full, "ssd_ragged": ragged})
+    ms = median_ms(lambda: ssd.ssd_cuda(*t, chunk=q))
+    plain_ms = median_ms(lambda: ref.ssd_ref(*t, chunk=q), iters=10)
+    flops = ssd_flops(b, l, h, p, g, n, q)
+    nbytes = 4 * (2 * b * l * h * p + b * h * p * n + 2 * b * l * g * n
+                  + b * l * h + h)
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:76",
+            "shape": [b, l, h, p, g, n, q], "dtype": "float32",
+            "max_abs_err": full["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "flops": flops, "bytes": nbytes}
+
+
+def ssd_flops(b, l, h, p, g, n, q):
+    """FLOPs the SSD function needs with no initial state, counted per chunk
+    of qz = min(q, L - start) steps: C·Bᵀ on its causal triangle once per
+    (batch, group), since every head of a group shares it; per (batch,
+    head) the scores·x triangle, the state update x'·B, and C·stateᵀ from
+    the second chunk on (the state entering the first chunk is zero)."""
+    macs = 0
+    for z, start in enumerate(range(0, l, q)):
+        qz = min(q, l - start)
+        tri = qz * (qz + 1) // 2
+        macs += b * g * tri * n
+        macs += b * h * (tri * p + qz * n * p + (qz * n * p if z else 0))
+    return 2 * macs
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, on the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def lm_cross_check_phase(cfg, T, params_cpu, params_gpu):
+    """Prefill of one 200-token prompt (a ragged last chunk): card against
+    CPU, logits and every block's final states."""
+    toks = torch.randint(0, cfg.vocab_size, (1, 200),
+                         generator=torch.Generator().manual_seed(SEED + 4))
+    t0 = time.perf_counter()
+    lg_gpu, c_gpu = T.prefill(cfg, params_gpu, toks.cuda())
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lg_cpu, c_cpu = T.prefill(cfg, params_cpu, toks)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lg_cpu).all()), "CPU logits not finite")
+    errs = {"logits": rel_err(lg_gpu, lg_cpu),
+            "conv_state": rel_err(c_gpu[0][0]["conv"], c_cpu[0][0]["conv"]),
+            "ssm_state": rel_err(c_gpu[0][0]["ssm"], c_cpu[0][0]["ssm"])}
+    emit({"phase": "lm_cross_check", "prompt": 200, "rel_max_err": errs,
+          "limit": 1e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
+    for name, err in errs.items():
+        check(err <= 1e-4, f"card vs CPU prefill {name}: relative error {err}")
+
+
+def lm_slice_phase(cfg, T, serve, params, ops):
+    """The LM main path: prefill + recurrent decode through ``generate``."""
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 5))
+    prompts = prompts.cuda()
+    marks = {}
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        marks[phase] = (time.perf_counter(), dict(ops.LAUNCHES))
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    mark("start")
+    toks = serve.generate(cfg, params, prompts, LM_GEN, on_phase=mark)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    (t0, _), (t1, at_prefill), (t2, at_end) = (
+        marks["start"], marks["prefill"], marks["decode"])
+    steps = LM_GEN - 1
+    row = {"phase": "lm_generate", "arch": cfg.name, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "new_tokens": LM_GEN, "prefill_s": t1 - t0,
+           "decode_ms_per_step": 1e3 * (t2 - t1) / steps,
+           "decode_tokens_per_s": LM_BATCH * steps / (t2 - t1),
+           "tokens_per_s": LM_BATCH * LM_GEN / (t2 - t0),
+           "ssd_launches_prefill": at_prefill["ssd"],
+           "ssd_launches_decode": at_end["ssd"] - at_prefill["ssd"],
+           "launches": launches, "peak_device_bytes": peak}
+    emit(row)
+    check(at_prefill["ssd"] == cfg.num_layers,
+          f"{at_prefill['ssd']} SSD launches in the prefill, expected "
+          f"{cfg.num_layers}")
+    check(at_end["ssd"] == at_prefill["ssd"], "SSD launches in the decode")
+    check(launches["flash_attention"] == 0, "attention launched in the LM")
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "token out of range")
+    return prompts, toks, launches
+
+
+def lm_decode_consistency_phase(cfg, T, params, prompts, toks):
+    """Teacher-forced recurrent decode of the generated tokens against one
+    card forward over prompt + the first 31 of them: the kernel's final
+    state and the conv tail must hand over to the decode step."""
+    steps = LM_GEN - 1
+    logits, caches = T.prefill(cfg, params, prompts)
+    check(all(bool(torch.isfinite(c[k]).all())
+              for st in caches for c in st for k in c),
+          "prefill states not finite")
+    dec = []
+    for i in range(steps):
+        lg, caches = T.decode_step(cfg, params, toks[:, i:i + 1], caches)
+        dec.append(lg)
+    check(all(bool(torch.isfinite(c[k]).all())
+              for st in caches for c in st for k in c),
+          "decode states not finite")
+    dec = torch.cat(dec, dim=1)
+    full, _ = T.forward(cfg, params, torch.cat([prompts, toks[:, :steps]], 1))
+    err = rel_err(dec, full[:, LM_PROMPT:])
+    first = rel_err(logits[:, -1], full[:, LM_PROMPT - 1])
+    agree = float((dec.argmax(-1) == toks[:, 1:]).float().mean())
+    emit({"phase": "lm_decode_consistency", "length": LM_PROMPT + steps,
+          "rel_max_err": err, "prefill_last_rel_err": first,
+          "limit": 1e-4, "greedy_agreement": agree})
+    check(err <= 1e-4 and first <= 1e-4,
+          f"decode vs forward logits: relative error {err}, {first}")
+
+
+def _kernel_times(prof):
+    """{kernel name: self device µs} from a profile, CUDA kernels only."""
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        out[evt.key] = out.get(evt.key, 0.0) + float(us)
+    return out
+
+
+def lm_profile_phase(cfg, T, params, prompts, toks):
+    """Where the LM slice's time goes: device time by kernel, and the
+    device's idle share of the wall time, for one prefill and for 4 decode
+    steps (after one untraced warm-up step)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    rows = {}
+    _, caches = T.prefill(cfg, params, prompts)
+    _, caches = T.decode_step(cfg, params, toks[:, :1], caches)
+    runs = {"prefill": lambda: T.prefill(cfg, params, prompts)}
+
+    def decode4():
+        c = caches
+        for i in range(1, 5):
+            _, c = T.decode_step(cfg, params, toks[:, i:i + 1], c)
+    runs["decode_4_steps"] = decode4
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        kern = _kernel_times(prof)
+        busy = sum(kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+        rows[name] = {
+            "wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3 if busy else None,
+            "idle_share": 1 - busy / wall_us if busy else None,
+            "ssd_ms": sum(v for k, v in kern.items()
+                          if "ssd_chunk_scan" in k) / 1e3,
+            "kernels": len(kern),
+            "top": [{"kernel": k[:70], "ms": v / 1e3} for k, v in top]}
+    emit({"phase": "lm_profile", **rows})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -251,16 +495,23 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.core import diffusion
-    from repro_torch.kernels import flash_attention as fa, ops, ref
+    from repro_torch.kernels import flash_attention as fa, ops, ref, ssd
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
     from repro_torch.models.transformer import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     peaks = card()
-    info = fa.build()
-    emit({"phase": "build", "kernel": "flash_attention",
-          "seconds": info["seconds"]})
-    kernel = kernel_phase(fa, ref, peaks)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = {m.__name__.rsplit(".", 1)[-1]: pool.submit(m.build)
+                  for m in (fa, ssd)}
+        builds = {k: f.result()["seconds"] for k, f in builds.items()}
+    emit({"phase": "build", "seconds": builds,
+          "wall_s": time.perf_counter() - t0})
+    kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
+               "ssd": ssd_kernel_phase(ssd, ref, peaks)}
 
     cfg = configs.get("dit-xl-256")
     t0 = time.perf_counter()
@@ -272,13 +523,34 @@ def main():
     cross_check_phase(cfg, diffusion, params_cpu, params_gpu)
     del params_cpu
 
-    ops.LAUNCHES["flash_attention"] = 0
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
     slice_phase(cfg, params_gpu, ops)
-    kernel["launches"] = ops.LAUNCHES["flash_attention"]
-    emit({"phase": "slice", "peak_device_bytes":
+    dit_launches = dict(ops.LAUNCHES)
+    emit({"phase": "slice", "launches": dit_launches, "peak_device_bytes":
           torch.cuda.max_memory_allocated()})
-    emit({"kernels": [kernel]})
+    check(dit_launches["ssd"] == 0, "SSD launched in the DiT slice")
+    kernels["flash_attention"]["launches"] = dit_launches["flash_attention"]
+    del params_gpu
+
+    cfg = configs.get("mamba2-1.3b")
+    t0 = time.perf_counter()
+    params_cpu = serve.init_params(torch.Generator().manual_seed(SEED), cfg,
+                                   device="cpu")
+    params_gpu = tree_map(lambda a: a.cuda(), params_cpu)
+    emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
+          "d_model": cfg.d_model, "seconds": time.perf_counter() - t0,
+          "count": sum(a.numel() for a in tree_leaves(params_cpu))})
+    lm_cross_check_phase(cfg, T, params_cpu, params_gpu)
+    del params_cpu
+    prompts, toks, lm_launches = lm_slice_phase(cfg, T, serve, params_gpu,
+                                                ops)
+    kernels["ssd"]["launches"] = lm_launches["ssd"]
+    lm_decode_consistency_phase(cfg, T, params_gpu, prompts, toks)
+    lm_profile_phase(cfg, T, params_gpu, prompts, toks)
+
+    emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""Configuration schema: the spec dataclasses of the DiT family.
+"""Configuration schema: the spec dataclasses of the DiT and Mamba-2
+families.
 
 A copy of the JAX package's schema, cut to the specs the port runs: a
 `ModelConfig` is a sequence of *stages*, each a repeated *unit* of block
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -30,6 +31,21 @@ class AttentionSpec:
 
 
 @dataclass(frozen=True)
+class SSMSpec:
+    """Mamba-2 SSD mixer [arXiv:2405.21060]."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 128                     # SSD chunk length
+    a_init_range: Tuple[float, float] = (1.0, 16.0)
+
+
+MixerSpec = Union[AttentionSpec, SSMSpec]
+
+
+@dataclass(frozen=True)
 class MLPSpec:
     d_ff: int = 2048
     activation: str = "silu"             # "silu" | "gelu" | "gelu_tanh"
@@ -38,8 +54,10 @@ class MLPSpec:
 
 @dataclass(frozen=True)
 class BlockSpec:
-    """One residual block: (norm → mixer → +res) [→ (norm → ffn → +res)]."""
-    mixer: Optional[AttentionSpec] = None
+    """One residual block: (norm → mixer → +res) [→ (norm → ffn → +res)].
+    ``ffn=None`` is used for Mamba-2 blocks, which fold the FFN into the
+    mixer."""
+    mixer: Optional[MixerSpec] = None
     ffn: Optional[MLPSpec] = None
     norm: str = "rmsnorm"                # "rmsnorm" | "layernorm"
     adaln: bool = False                  # DiT-style adaLN-zero conditioning
@@ -56,8 +74,10 @@ class BlockSpec:
     def branch_types(self) -> Tuple[str, ...]:
         """SmoothCache layer *types* for each branch (paper's set S)."""
         out = []
-        if self.mixer is not None:
+        if isinstance(self.mixer, AttentionSpec):
             out.append(self.type_tag + "attn")
+        elif isinstance(self.mixer, SSMSpec):
+            out.append(self.type_tag + "ssm")
         if self.ffn is not None:
             out.append(self.type_tag + "ffn")
         return tuple(out)
@@ -81,8 +101,11 @@ class ModelConfig:
     vocab_size: int
     stages: Tuple[Stage, ...] = ()
     norm: str = "rmsnorm"
+    tie_embeddings: bool = False
     pos_emb: str = "none"
     max_seq_len: int = 8192
+    logit_softcap: Optional[float] = None   # final logit soft-capping
+    embed_scale: bool = False            # scale embeddings by sqrt(d)
     task: str = "lm"                     # "lm" | "diffusion"
     latent_shape: Tuple[int, ...] = ()   # diffusion: per-sample latent shape
     patch: int = 1                       # diffusion image patch size

@@ -1,12 +1,13 @@
 """Architecture config registry: ``get(name)`` → module with full()/smoke().
 
-Only the model on the port's main path is registered."""
+Only the models on the port's paths are registered."""
 from __future__ import annotations
 
 import importlib
 
 REGISTRY = {
     "dit-xl-256": "repro_torch.configs.dit_xl",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
 }
 
 

@@ -3,12 +3,16 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import AttentionSpec, ModelConfig, Stage
+from repro_torch.config import AttentionSpec, ModelConfig, SSMSpec, Stage
 
 
-def _shrink_mixer(m: AttentionSpec, d_model: int):
+def _shrink_mixer(m, d_model: int):
     if m is None:
         return None
+    if isinstance(m, SSMSpec):
+        return dataclasses.replace(m, d_state=16, head_dim=16, chunk=8)
+    if not isinstance(m, AttentionSpec):
+        raise NotImplementedError(f"mixer {type(m).__name__} is not ported")
     heads = 4 if m.num_heads >= 4 else m.num_heads
     kv = max(1, heads * m.num_kv_heads // m.num_heads)
     kw = dict(num_heads=heads, num_kv_heads=kv, head_dim=d_model // heads)
@@ -21,6 +25,16 @@ def _shrink_ffn(f, d_model: int):
     if f is None:
         return None
     return dataclasses.replace(f, d_ff=2 * d_model)
+
+
+def _shrink_latent(shape):
+    if not shape:
+        return ()
+    if len(shape) == 3:         # (H, W, C) image latents
+        return (8, 8, shape[-1])
+    if len(shape) == 4:         # (T, H, W, C) video latents
+        return (4, 8, 8, shape[-1])
+    return (16, shape[-1])      # (L, C) audio latents
 
 
 def smoke_variant(cfg: ModelConfig, d_model: int = 128,
@@ -40,4 +54,4 @@ def smoke_variant(cfg: ModelConfig, d_model: int = 128,
         name=cfg.name + "-smoke", d_model=d_model,
         vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else cfg.vocab_size,
         stages=tuple(stages), max_seq_len=min(cfg.max_seq_len, 256),
-        latent_shape=(8, 8, cfg.latent_shape[-1]), dtype="float32")
+        latent_shape=_shrink_latent(cfg.latent_shape), dtype="float32")

@@ -104,8 +104,8 @@ def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
     pos = torch.arange(h.shape[1], device=h.device)
     h = h + L.sinusoidal_embedding(pos, cfg.d_model)[None].to(h.dtype)
     cond = _cond_vector(cfg, params, t, label)
-    out, aux = T.forward(cfg, params["backbone"], h, cond=cond, skip=skip,
-                         branch_caches=branch_caches,
+    out, aux = T.forward(cfg, params["backbone"], embeds=h, cond=cond,
+                         skip=skip, branch_caches=branch_caches,
                          collect_branches=collect_branches)
     mod = F.silu(cond) @ params["final_mod"]["w"] + params["final_mod"]["b"]
     shift, scale = torch.chunk(mod[:, None, :], 2, dim=-1)

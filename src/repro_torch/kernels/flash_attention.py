@@ -2,28 +2,23 @@
 (``flash_attention.cu``), which replaces the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention``.
 
-The source is compiled on first use for ``sm_90a`` by PyTorch's extension
-loader (``torch.utils.cpp_extension.load``, which needs ``ninja``) into a
-shared library with a plain C interface under ``build/kernels/`` at the
-root of the checkout; the loader rebuilds when the source changes.  The library
-is called through ``ctypes`` with raw pointers, shapes, strides and
-PyTorch's current stream.  The source includes no PyTorch header, so the
-build takes seconds.  A failed build or launch raises; nothing here falls
-back to the plain version.
+The source is compiled on first use (``kernels/build.py``) into a shared
+library with a plain C interface, called through ``ctypes`` with raw
+pointers, shapes, strides and PyTorch's current stream.  A failed build or
+launch raises; nothing here falls back to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build as _build
+
 SOURCE = Path(__file__).with_name("flash_attention.cu")
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 
@@ -31,13 +26,7 @@ _LIB = None
 def build() -> dict:
     """Compile the kernel (a no-op when this source is already built).
     Returns ``{"path", "seconds"}``."""
-    from torch.utils.cpp_extension import load
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    path = load(name="repro_torch_flash_attention", sources=[str(SOURCE)],
-                build_directory=str(BUILD_DIR), extra_cuda_cflags=CUDA_FLAGS,
-                is_python_module=False, verbose=False)
-    return {"path": path, "seconds": time.perf_counter() - t0}
+    return _build.build("flash_attention", SOURCE)
 
 
 def _library():

@@ -13,8 +13,9 @@ from typing import Optional
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as _ssd
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "ssd": 0}
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -31,3 +32,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def ssd(x, dt, a, b, c, *, chunk: int = 128):
+    """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N) →
+    (y (B, L, H, P) in x's dtype, hT (B, H, P, N) f32)."""
+    if x.device.type == "cuda":
+        out = _ssd.ssd_cuda(x, dt, a, b, c, chunk=chunk)
+        LAUNCHES["ssd"] += 1
+        return out
+    if x.device.type == "cpu":
+        return ref.ssd_ref(x, dt, a, b, c, chunk=chunk)
+    raise ValueError(f"no ssd for device {x.device}")

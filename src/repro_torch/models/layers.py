@@ -30,14 +30,31 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
     return w.to(dtype)
 
 
+def rmsnorm_init(d: int, dtype=torch.float32):
+    return {"scale": torch.zeros(d, dtype=dtype)}   # gemma-style (1+scale)
+
+
 def layernorm_init(d: int, dtype=torch.float32):
     return {"scale": torch.ones(d, dtype=dtype),
             "bias": torch.zeros(d, dtype=dtype)}
 
 
+def norm_init(kind: str, d: int, dtype=torch.float32):
+    return rmsnorm_init(d, dtype) if kind == "rmsnorm" else layernorm_init(d, dtype)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """``x · rsqrt(mean(x²) + eps) · (1 + scale)``: statistics in f32,
+    scaling in the stream dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + params["scale"]).to(x.dtype)
+
 
 def layernorm(params, x, eps: float = 1e-6):
     """Statistics in f32, normalization in the stream dtype (not plain
@@ -51,9 +68,7 @@ def layernorm(params, x, eps: float = 1e-6):
 
 
 def apply_norm(kind: str, params, x):
-    if kind != "layernorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return layernorm(params, x)
+    return rmsnorm(params, x) if kind == "rmsnorm" else layernorm(params, x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,20 @@
-"""Stack assembly: init / forward over a ModelConfig's stages.
+"""Stack assembly: init / forward / prefill / decode over a ModelConfig's
+stages.
 
 Stage parameters carry a leading ``repeat`` axis, as the JAX package stacks
 them for ``lax.scan``; the port iterates over it.  Collected branch outputs
-are stacked back to ``(repeat, B, N, d)`` per leaf, the JAX layout.
+and state caches are stacked back to a leading ``repeat`` axis per leaf, the
+JAX layout.
+
+Entry points
+  init_params(gen, cfg, dtype)                  # CPU tensors
+  forward(cfg, params, tokens | embeds=...)     # LM logits / DiT hidden
+  init_caches(cfg, batch)
+  prefill(cfg, params, tokens)                  # forward + decode caches
+  decode_step(cfg, params, token, caches)       # one AR token
+
+Only state-cache (SSM) blocks decode; attention decode caches, and the
+cache length and positions they need, are not ported.
 """
 from __future__ import annotations
 
@@ -10,22 +22,25 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import BlockSpec, ModelConfig, SSMSpec
 from repro_torch.models import blocks, layers as L
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples."""
+    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples
+    (None stays None)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+    return None if tree is None else fn(tree)
 
 
 def _stack(trees):
     """Stack same-structure trees leaf by leaf along a new leading axis."""
     first = trees[0]
+    if first is None:
+        return None
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
@@ -33,6 +48,13 @@ def _stack(trees):
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 adaln_dim: int = 0) -> Dict[str, Any]:
+    """Seeded parameters on the CPU, drawn from ``gen`` in a fixed order."""
+    p: Dict[str, Any] = {}
+    if cfg.task == "lm":
+        p["embed"] = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
+        if not cfg.tie_embeddings:
+            p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                        dtype)
     stages = []
     for st in cfg.stages:
         reps = [tuple(blocks.init(gen, b, cfg.d_model, dtype,
@@ -40,9 +62,51 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 for _ in range(st.repeat)]
         stages.append(tuple(_stack([r[i] for r in reps])
                             for i in range(len(st.unit))))
-    return {"stages": stages,
-            "final_norm": L.layernorm_init(cfg.d_model, dtype)}
+    p["stages"] = stages
+    p["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype)
+    return p
 
+
+def init_caches(cfg: ModelConfig, batch: int, device=None):
+    """Zeroed decode caches: per stage, a tuple per unit block of the
+    block's cache stacked ``(repeat, ...)``."""
+    out = []
+    for st in cfg.stages:
+        out.append(tuple(
+            tree_map(lambda a, r=st.repeat: a.expand(r, *a.shape).clone(),
+                     blocks.init_cache(b, cfg.d_model, batch, device=device))
+            for b in st.unit))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding IO
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    """tokens: (B, L) int → (B, L, d)."""
+    if cfg.pos_emb != "none":
+        raise NotImplementedError(
+            f"LM position embedding {cfg.pos_emb!r} is not ported yet")
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def logits_from_hidden(cfg: ModelConfig, params, x):
+    if cfg.tie_embeddings:
+        out = x @ params["embed"].T
+    else:
+        out = x @ params["lm_head"]
+    if cfg.logit_softcap:
+        out = L.softcap(out.float(), cfg.logit_softcap)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stages
+# ---------------------------------------------------------------------------
 
 def _normalize_collect(collect_branches):
     """``True`` → None ("collect every branch"); falsy → empty set; a
@@ -54,30 +118,45 @@ def _normalize_collect(collect_branches):
     return frozenset(collect_branches)
 
 
-def apply_stages(cfg: ModelConfig, params, x, *, cond=None, skip=None,
-                 branch_caches=None, collect_branches=False):
-    """Run all stages.  Returns ``(x, branch)``: per stage, a tuple per
-    unit block of ``{branch_name: (repeat, B, N, d)}`` (None for a block
-    that collected nothing), or None when nothing is collected."""
+def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
+                 cond=None, skip=None, branch_caches=None,
+                 collect_branches=False, collect_caches=False):
+    """Run all stages.  Returns ``(x, branch, new_caches)``.
+
+    branch: per stage, a tuple per unit block of ``{branch_name: (repeat,
+    B, N, d)}`` (None for a block that collected nothing), or None when
+    nothing is collected.  new_caches: per stage, a tuple per unit block of
+    the block's state cache stacked ``(repeat, ...)``, when
+    ``collect_caches`` or ``mode == "decode"``; else None per stage."""
     collect = _normalize_collect(collect_branches)
     collect_any = collect is None or len(collect) > 0
-    all_branch = []
+    keep_caches = collect_caches or mode == "decode"
+    all_branch, all_caches = [], []
     for si, st in enumerate(cfg.stages):
         sp = params["stages"][si]
         sbc = branch_caches[si] if branch_caches is not None else None
-        per_rep = []
+        scache = caches[si] if caches is not None else None
+        per_rep, per_rep_caches = [], []
         for r in range(st.repeat):
-            outs = []
+            outs, new_caches = [], []
             for i, b in enumerate(st.unit):
                 bc = (tree_map(lambda a: a[r], sbc[i])
                       if sbc is not None and sbc[i] else None)
-                x, bo = blocks.apply(b, tree_map(lambda a: a[r], sp[i]), x,
-                                     cond=cond, skip=skip, branch_cache=bc)
+                cache = (tree_map(lambda a: a[r], scache[i])
+                         if scache is not None else None)
+                x, bo, nc = blocks.apply(
+                    b, tree_map(lambda a: a[r], sp[i]), x, mode=mode,
+                    cache=cache, cond=cond, skip=skip, branch_cache=bc)
                 if collect is not None:
                     types = dict(zip(b.branch_names(), b.branch_types()))
                     bo = {n: v for n, v in bo.items() if types[n] in collect}
                 outs.append(bo or None)
+                new_caches.append(nc if keep_caches else None)
             per_rep.append(outs)
+            per_rep_caches.append(new_caches)
+        all_caches.append(tuple(
+            _stack([c[i] for c in per_rep_caches])
+            for i in range(len(st.unit))) if keep_caches else None)
         if not collect_any:
             all_branch.append(None)
             continue
@@ -85,15 +164,57 @@ def apply_stages(cfg: ModelConfig, params, x, *, cond=None, skip=None,
             None if per_rep[0][i] is None
             else _stack([outs[i] for outs in per_rep])
             for i in range(len(st.unit))))
-    return x, all_branch
+    return x, all_branch, all_caches
 
 
-def forward(cfg: ModelConfig, params, embeds, *, cond=None, skip=None,
-            branch_caches=None, collect_branches=False):
-    """Full-sequence forward of embeddings (B, L, d) → hidden states after
-    ``final_norm``, plus ``{"branch": ...}`` (see :func:`apply_stages`)."""
-    x, branch = apply_stages(cfg, params, embeds, cond=cond, skip=skip,
-                             branch_caches=branch_caches,
-                             collect_branches=collect_branches)
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None, cond=None,
+            skip=None, branch_caches=None, collect_branches=False,
+            collect_caches=False):
+    """Full-sequence forward.  For an LM: tokens (B, L) → logits.  For a
+    diffusion backbone: embeddings ``embeds`` (B, L, d) → hidden states
+    after ``final_norm`` (the diffusion wrapper owns patchify and head).
+    Returns ``(out, {"branch", "caches", "hidden"})`` (see
+    :func:`apply_stages`)."""
+    x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
+    x, branch, caches = apply_stages(
+        cfg, params, x, mode="full", cond=cond, skip=skip,
+        branch_caches=branch_caches, collect_branches=collect_branches,
+        collect_caches=collect_caches)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    return x, {"branch": branch}
+    out = logits_from_hidden(cfg, params, x) if cfg.task == "lm" else x
+    return out, {"branch": branch, "caches": caches, "hidden": x}
+
+
+def _to_decode_cache(block_spec: BlockSpec, prefill_cache):
+    """One block's stacked prefill cache → its decode cache.  A state cache
+    (SSM) already has the decode layout, with the leading ``(repeat,)``
+    axis on each leaf."""
+    if block_spec.mixer is None:
+        return None
+    if isinstance(block_spec.mixer, SSMSpec):
+        return prefill_cache
+    raise NotImplementedError("attention decode caches are not ported yet")
+
+
+def prefill(cfg: ModelConfig, params, tokens):
+    """Full forward that also builds the decode caches.  Returns (logits,
+    caches); state caches keep the dtypes the forward made them in."""
+    out, aux = forward(cfg, params, tokens, collect_caches=True)
+    caches = [tuple(_to_decode_cache(b, aux["caches"][si][bi])
+                    for bi, b in enumerate(st.unit))
+              for si, st in enumerate(cfg.stages)]
+    return out, caches
+
+
+def decode_step(cfg: ModelConfig, params, token, caches):
+    """One AR decode step.  token: (B, 1).  Returns (logits (B, 1, V),
+    caches)."""
+    x = embed_tokens(cfg, params, token)
+    x, _, new_caches = apply_stages(cfg, params, x, mode="decode",
+                                    caches=caches)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    return logits_from_hidden(cfg, params, x), new_caches

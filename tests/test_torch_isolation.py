@@ -15,6 +15,7 @@ from repro_torch import configs
 from repro_torch.cache import DiffusionPipeline
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import diffusion, executor, solvers
+from repro_torch.launch import serve
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -27,6 +28,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
+need = {"repro_torch.launch.serve", "repro_torch.kernels.ssd",
+        "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b"}
+print("MISSING", sorted(need - set(sys.modules)))
 """
 
 
@@ -37,6 +41,7 @@ def test_no_jax_and_no_reference_package_imported():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+    assert "MISSING []" in out.stdout, out.stdout
 
 
 @pytest.fixture
@@ -60,6 +65,22 @@ def test_entry_points_raise_without_cuda(no_cuda, device):
         repro_torch.resolve_device(device)
 
 
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_lm_entry_points_raise_without_cuda(no_cuda, device):
+    cfg = configs.get("mamba2-1.3b", "smoke")
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.init_params(torch.Generator(), cfg, **kw)
+    params = serve.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    prompts = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.generate(cfg, params, prompts, 2, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-1.3b", *(["--device", device]
+                                               if device else [])])
+
+
 def test_cpu_only_when_asked(no_cuda):
     cfg = configs.get("dit-xl-256", "smoke")
     ex = executor.SmoothCacheExecutor(cfg, solvers.ddim(4), device="cpu")
@@ -68,3 +89,12 @@ def test_cpu_only_when_asked(no_cuda):
                                    device="cpu")
     assert all(a.device.type == "cpu"
                for a in params["backbone"]["stages"][0][0]["mixer"].values())
+    lm = configs.get("mamba2-1.3b", "smoke")
+    params = serve.init_params(torch.Generator().manual_seed(0), lm,
+                               device="cpu")
+    assert all(a.device.type == "cpu" for a in (
+        params["embed"], params["stages"][0][0]["mixer"]["in_proj"],
+        params["stages"][0][0]["mixer"]["out_norm"]["scale"]))
+    out = serve.generate(lm, params, torch.zeros(1, 4, dtype=torch.long), 2,
+                         device="cpu")
+    assert out.shape == (1, 2) and out.device.type == "cpu"

@@ -103,7 +103,7 @@ def test_block_apply_matches(skip):
         spec_j, sj, jnp.asarray(x), d_model=128, cond=jnp.asarray(cond),
         skip=skip, branch_cache={k: jnp.asarray(v) for k, v in cache.items()},
         positions=jnp.arange(16)[None])
-    xt, bot = tblocks.apply(
+    xt, bot, _ = tblocks.apply(
         spec_t, st, torch.from_numpy(x), cond=torch.from_numpy(cond),
         skip=skip,
         branch_cache={k: torch.from_numpy(v) for k, v in cache.items()})
