@@ -7,19 +7,26 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of both CUDA kernels from the checkout's sources, in parallel;
-3. the flash-attention kernel against its plain PyTorch version at the
-   DiT-XL/2 shape and over the kernel test sweep, with times (CUDA events);
+2. build of both CUDA kernels from the checkout's sources, in parallel,
+   and the flash-attention kernel's SASS: tensor-core instructions,
+   registers and local memory per template instance (``cuobjdump``);
+3. the flash-attention kernel against its plain PyTorch version over the
+   kernel test sweep (each case with its arithmetic and load path) and at
+   the DiT-XL/2 shape, where two launches must agree bitwise, with device
+   times (``repro_torch.kernels.timing``) in f32 and bf16 beside SDPA's;
 4. the SSD-scan kernel against its plain PyTorch version over the kernel
    test sweep (f32 and bf16), at the Mamba-2-1.3B prefill shape and at a
    ragged length, with times;
 5. a full-width DiT-XL/2 denoiser forward on the card (kernel attention)
-   against the same forward on the CPU (plain attention);
+   against the same forward on the CPU (plain attention), then a
+   ``torch.profiler`` trace of one forward at B = 8: device time by
+   kernel, the attention kernel's share, the device's idle share;
 6. the DiT slice: full-width DiT-XL/2, DDIM 50, cfg_scale 1.5 — calibrate
    on 10 samples, save the artifact, load it strictly into a fresh pipeline
    and answer 4 requests with no cache, the artifact's SmoothCache schedule
    and ``static:n=2``; every latent finite, kernel launches = 28 × attention
-   steps computed, segmented ≡ eager bitwise;
+   steps computed, segmented ≡ eager bitwise; the q/k/v that the model's
+   attention makes take 3xTF32 with ``cp.async`` loads;
 7. a full-width Mamba-2-1.3B prefill of one 200-token prompt on the card
    (kernel scan) against the same prefill on the CPU (plain scan): logits
    and final states;
@@ -36,7 +43,6 @@ Mamba-2-1.3B's.
 """
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -51,10 +57,12 @@ SEED = 0
 REQUEST_LABELS = [207, 360, 387, 974]
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
 # Published peaks per card (NVIDIA H100 data sheet: FP32 outside the tensor
-# cores, HBM bandwidth), keyed by the name nvidia-smi reports.
-PEAKS = {"H100 80GB HBM3": (67e12, 3.35e12),      # SXM5
-         "H100 PCIe": (51e12, 2.0e12),
-         "H100 NVL": (60e12, 3.9e12)}
+# cores, dense TF32 and BF16 on the tensor cores where cited, HBM
+# bandwidth), keyed by the name nvidia-smi reports.
+PEAKS = {"H100 80GB HBM3": {"fp32": 67e12, "tf32": 495e12,      # SXM5
+                            "bf16": 989e12, "hbm": 3.35e12},
+         "H100 PCIe": {"fp32": 51e12, "hbm": 2.0e12},
+         "H100 NVL": {"fp32": 60e12, "hbm": 3.9e12}}
 
 
 def emit(obj):
@@ -64,22 +72,6 @@ def emit(obj):
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def median_ms(fn, iters=50, warmup=5):
-    """Median over ``iters`` launches, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    marks = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        marks.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
 def card():
@@ -96,26 +88,37 @@ def card():
 
 
 def kernel_phase(fa, ref, peaks):
-    """Kernel vs plain at the DiT-XL/2 shape and over the sweep."""
+    """Kernel vs plain over the sweep and at the DiT-XL/2 shape, where two
+    launches must agree bitwise; device times (``kernels.timing``) at the
+    DiT-XL/2 shape, in f32 and in bf16, beside SDPA's."""
     import torch.nn.functional as F
+    from repro_torch.kernels.timing import device_ms
     gen = torch.Generator().manual_seed(SEED)
 
-    def qkv(b, l, h, kv, d, dtype):
-        return [torch.randn(shape, generator=gen).to("cuda", dtype)
+    def qkv(b, l, h, kv, d, dtype, offset=0):
+        """Seeded q, k, v; ``offset`` > 0 views each from ``offset``
+        elements into a wider row, so no row is 16 B-aligned."""
+        return [torch.randn(shape[:-1] + (d + offset,), generator=gen)
+                .to("cuda", dtype)[..., offset:]
                 for shape in ((b, l, h, d), (b, l, kv, d), (b, l, kv, d))]
 
     sweep = []
-    cases = ([((2, 64, 4, 4, 32), True, None, None),
-              ((2, 64, 4, 1, 32), True, None, None),
-              ((1, 96, 8, 2, 64), True, None, None),
-              ((1, 128, 16, 8, 64), True, None, None),
-              ((2, 40, 4, 2, 16), True, None, None)]
-             + [((2, 64, 4, 2, 32),) + m for m in (
+    # (shape, causal, window, softcap, row offset)
+    cases = ([((2, 64, 4, 4, 32), True, None, None, 0),
+              ((2, 64, 4, 1, 32), True, None, None, 0),
+              ((1, 96, 8, 2, 64), True, None, None, 0),
+              ((1, 128, 16, 8, 64), True, None, None, 0),
+              ((2, 40, 4, 2, 16), True, None, None, 0)]
+             + [((2, 64, 4, 2, 32),) + m + (0,) for m in (
                  (True, 16, None), (True, None, 50.0), (False, None, None),
-                 (True, 8, 30.0))])
-    for shape, causal, window, softcap in cases:
+                 (True, 8, 30.0))]
+             + [((2, 256, 4, 4, 72), False, None, None, 0),
+                ((1, 128, 4, 2, 128), True, None, None, 0),
+                ((2, 64, 4, 2, 20), True, None, None, 0),
+                ((2, 64, 4, 2, 32), True, None, None, 1)])
+    for shape, causal, window, softcap, offset in cases:
         for dtype, tol in ((torch.float32, 5e-5), (torch.bfloat16, 5e-2)):
-            q, k, v = qkv(*shape, dtype)
+            q, k, v = qkv(*shape, dtype, offset)
             kw = dict(causal=causal, window=window, softcap=softcap)
             out = fa.flash_attention_cuda(q, k, v, **kw).float()
             want = ref.flash_attention_ref(q, k, v, **kw).float()
@@ -124,34 +127,97 @@ def kernel_phase(fa, ref, peaks):
             ok = bool(torch.allclose(out, want, atol=tol, rtol=tol))
             sweep.append({"shape": shape, "causal": causal, "window": window,
                           "softcap": softcap, "dtype": str(dtype)[6:],
+                          "offset": offset, **fa.plan(q, k, v),
                           "max_abs_err": err, "ok": ok})
             check(ok, f"kernel vs plain {sweep[-1]}")
+            if offset:
+                check(sweep[-1]["load"] == "scalar",
+                      f"unaligned rows took {sweep[-1]['load']}")
     emit({"sweep": sweep})
 
     b, l, h, d = 8, 256, 16, 72          # DiT-XL/2: 2 x 4 requests under CFG
     q, k, v = qkv(b, l, h, h, d, torch.float32)
     out = fa.flash_attention_cuda(q, k, v, causal=False)
+    again = fa.flash_attention_cuda(q, k, v, causal=False)
     want = ref.flash_attention_ref(q, k, v, causal=False)
     torch.cuda.synchronize()
     err = float((out - want).abs().max())
     check(bool(torch.allclose(out, want, atol=5e-5, rtol=5e-5)),
           f"kernel vs plain at the DiT-XL/2 shape: max abs err {err}")
-    ms = median_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=False))
-    plain_ms = median_ms(lambda: ref.flash_attention_ref(q, k, v,
+    check(bool(torch.equal(out, again)),
+          "two launches at the DiT-XL/2 shape differ")
+    ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=False))
+    plain_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                          causal=False))
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    _, lib_kernels = _traced(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     flops = 4 * b * h * l * l * d
     nbytes = 4 * q.numel() * q.element_size()
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    # f32 runs as three TF32 products on the tensor cores (3xTF32)
+    t_ops = (3 * flops / peaks["tf32"] * 1e3 if "tf32" in peaks else None)
+    t_bytes = nbytes / peaks["hbm"] * 1e3
+
+    # the same shape in bf16, against SDPA in bf16
+    qb, kb, vb = (a.bfloat16() for a in (q, k, v))
+    out = fa.flash_attention_cuda(qb, kb, vb, causal=False)
+    want = ref.flash_attention_ref(qb, kb, vb, causal=False)
+    bf16_err = float((out.float() - want.float()).abs().max())
+    check(bool(torch.allclose(out.float(), want.float(), atol=5e-2,
+                              rtol=5e-2)),
+          f"bf16 kernel vs plain at the DiT-XL/2 shape: max abs err "
+          f"{bf16_err}")
+    bf16_ms = device_ms(lambda: fa.flash_attention_cuda(qb, kb, vb,
+                                                        causal=False))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (qb, kb, vb))
+    bf16_library_ms = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    bf16_bound = (max(flops / peaks["bf16"], nbytes / 2 / peaks["hbm"]) * 1e3
+                  if "bf16" in peaks else None)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
             "shape": [b, l, h, h, d], "dtype": "float32", "causal": False,
+            **fa.plan(q, k, v),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "flops": flops, "bytes": nbytes}
+            "bound_ms": None if t_ops is None else max(t_ops, t_bytes),
+            "bound_by": (None if t_ops is None else
+                         "operations" if t_ops >= t_bytes else "bytes"),
+            "bound_simt_ms": flops / peaks["fp32"] * 1e3,
+            "library_ms": library_ms,
+            "library_kernel": max(lib_kernels, key=lambda k:
+                                  lib_kernels[k][0])[:90],
+            "flops": flops, "bytes": nbytes,
+            "bf16": {**fa.plan(qb, kb, vb), "max_abs_err": bf16_err,
+                     "ms": bf16_ms, "library_ms": bf16_library_ms,
+                     "bound_ms": bf16_bound}}
+
+
+def sass_phase(lib_path):
+    """What the compiler made of the flash-attention kernel: per template
+    instance, tensor-core (HMMA) and f32 FMA (FFMA) instructions in the
+    SASS, and registers, stack and local memory from the resource usage."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = str(Path(CUDA_HOME) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    res = subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    rows = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "attn_fwd" in name:
+            rows[name] = {"hmma": part.count("HMMA"),
+                          "ffma": len(re.findall(r"\bFFMA\b", part))}
+    for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", res):
+        if name in rows:
+            rows[name].update({k.lower(): int(v) for k, v in re.findall(
+                r"(REG|STACK|SHARED|LOCAL):(\d+)", usage)})
+    emit({"phase": "sass", "kernel": "flash_attention", "instances": rows})
+    check(rows and all(r["hmma"] > 0 for r in rows.values()),
+          "a flash-attention instance without tensor-core instructions")
+    return rows
 
 
 def full_width_params(cfg, diffusion):
@@ -191,6 +257,21 @@ def cross_check_phase(cfg, diffusion, params_cpu, params_gpu):
     emit({"phase": "cross_check", "batch": 2, "max_abs_pred": scale,
           "rel_max_err": rel, "limit": 1e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
     check(rel <= 1e-4, f"card vs CPU forward: relative error {rel}")
+
+
+def attention_path(cfg, diffusion, fa, params):
+    """How the kernel computes the q/k/v that the first DiT block makes
+    (``models.attention``'s own projection) at B = 8 under CFG: every
+    block's q/k/v are fresh (B, L, H, D) views of one matmul output, so
+    they all take this path."""
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import tree_map
+    spec = cfg.stages[0].unit[0].mixer
+    mixer = tree_map(lambda a: a[0],
+                     params["backbone"]["stages"][0][0]["mixer"])
+    x = torch.randn(8, diffusion.token_shape(cfg)[0], cfg.d_model,
+                    device="cuda")
+    return fa.plan(*attention._gqa_qkv(spec, mixer, x))
 
 
 def slice_phase(cfg, params, ops):
@@ -261,7 +342,8 @@ def slice_phase(cfg, params, ops):
 
 def ssd_kernel_phase(ssd, ref, peaks):
     """SSD kernel vs plain over the sweep, at the prefill shape and at a
-    ragged length; times at the prefill shape."""
+    ragged length; device times at the prefill shape."""
+    from repro_torch.kernels.timing import device_ms
     gen = torch.Generator().manual_seed(SEED)
 
     def inputs(b, l, h, p, g, n, dtype):
@@ -311,12 +393,14 @@ def ssd_kernel_phase(ssd, ref, peaks):
     ragged, _ = compare((b, 1000, h, p, g, n), q, torch.float32, False)
     full, t = compare((b, l, h, p, g, n), q, torch.float32, False)
     emit({"ssd_prefill_shape": full, "ssd_ragged": ragged})
-    ms = median_ms(lambda: ssd.ssd_cuda(*t, chunk=q))
-    plain_ms = median_ms(lambda: ref.ssd_ref(*t, chunk=q), iters=10)
+    ms = device_ms(lambda: ssd.ssd_cuda(*t, chunk=q))
+    plain_ms = device_ms(lambda: ref.ssd_ref(*t, chunk=q), iters=10,
+                         reps=3)
     flops = ssd_flops(b, l, h, p, g, n, q)
     nbytes = 4 * (2 * b * l * h * p + b * h * p * n + 2 * b * l * g * n
                   + b * l * h + h)
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    t_ops = flops / peaks["fp32"] * 1e3
+    t_bytes = nbytes / peaks["hbm"] * 1e3
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:76",
@@ -440,23 +524,69 @@ def lm_decode_consistency_phase(cfg, T, params, prompts, toks):
 
 
 def _kernel_times(prof):
-    """{kernel name: self device µs} from a profile, CUDA kernels only."""
+    """{kernel name: [self device µs, calls]} from a profile, CUDA kernels
+    only."""
     out = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
-        out[evt.key] = out.get(evt.key, 0.0) + float(us)
+        row = out.setdefault(evt.key, [0.0, 0])
+        row[0] += float(us)
+        row[1] += evt.count
     return out
+
+
+def _traced(fn):
+    """Run ``fn`` once under ``torch.profiler``: (wall µs, kernel times)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return wall_us, _kernel_times(prof)
+
+
+def dit_profile_phase(cfg, diffusion, params):
+    """Where a DiT-XL/2 step's time goes: one full-width denoiser forward at
+    B = 8 (4 requests under CFG) after one untraced warm-up forward —
+    device time by kernel, the attention kernel's and the GEMMs' shares of
+    it, and the device's idle share of the wall time."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn((8,) + cfg.latent_shape, generator=gen).cuda()
+    t = torch.full((8,), 500.0, device="cuda")
+    label = torch.tensor(REQUEST_LABELS + [cfg.num_classes] * 4,
+                         device="cuda")
+    diffusion.apply(cfg, params, x, t, label=label)
+    wall_us, kern = _traced(
+        lambda: diffusion.apply(cfg, params, x, t, label=label))
+    busy = sum(us for us, _ in kern.values())
+    attn = [v for k, v in kern.items() if "attn_fwd" in k]
+    gemm = sum(us for k, (us, _) in kern.items() if "gemm" in k.lower())
+    attn_us = sum(us for us, _ in attn)
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    row = {"phase": "dit_profile", "batch": 8, "wall_ms": wall_us / 1e3,
+           "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+           "attn_ms": attn_us / 1e3, "attn_calls": sum(n for _, n in attn),
+           "attn_share": attn_us / busy, "gemm_ms": gemm / 1e3,
+           "gemm_share": gemm / busy, "kernels": len(kern),
+           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
+                   for k, (us, n) in top]}
+    emit(row)
+    check(busy > 0, "the profiler saw no device time")
+    check(row["attn_calls"] == cfg.num_layers,
+          f"{row['attn_calls']} attention kernels in one forward, expected "
+          f"{cfg.num_layers}")
 
 
 def lm_profile_phase(cfg, T, params, prompts, toks):
     """Where the LM slice's time goes: device time by kernel, and the
     device's idle share of the wall time, for one prefill and for 4 decode
     steps (after one untraced warm-up step)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     rows = {}
     _, caches = T.prefill(cfg, params, prompts)
     _, caches = T.decode_step(cfg, params, toks[:, :1], caches)
@@ -468,23 +598,18 @@ def lm_profile_phase(cfg, T, params, prompts, toks):
             _, c = T.decode_step(cfg, params, toks[:, i:i + 1], c)
     runs["decode_4_steps"] = decode4
     for name, fn in runs.items():
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kern = _kernel_times(prof)
-        busy = sum(kern.values())
-        top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+        wall_us, kern = _traced(fn)
+        busy = sum(us for us, _ in kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
         rows[name] = {
             "wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3 if busy else None,
             "idle_share": 1 - busy / wall_us if busy else None,
-            "ssd_ms": sum(v for k, v in kern.items()
+            "ssd_ms": sum(us for k, (us, _) in kern.items()
                           if "ssd_chunk_scan" in k) / 1e3,
             "kernels": len(kern),
-            "top": [{"kernel": k[:70], "ms": v / 1e3} for k, v in top]}
+            "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
+                    for k, (us, n) in top]}
     emit({"phase": "lm_profile", **rows})
 
 
@@ -507,9 +632,11 @@ def main():
     with ThreadPoolExecutor(2) as pool:
         builds = {m.__name__.rsplit(".", 1)[-1]: pool.submit(m.build)
                   for m in (fa, ssd)}
-        builds = {k: f.result()["seconds"] for k, f in builds.items()}
-    emit({"phase": "build", "seconds": builds,
+        builds = {k: f.result() for k, f in builds.items()}
+    emit({"phase": "build",
+          "seconds": {k: r["seconds"] for k, r in builds.items()},
           "wall_s": time.perf_counter() - t0})
+    sass_phase(builds["flash_attention"]["path"])
     kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
                "ssd": ssd_kernel_phase(ssd, ref, peaks)}
 
@@ -522,15 +649,19 @@ def main():
           "count": sum(a.numel() for a in tree_leaves(params_cpu))})
     cross_check_phase(cfg, diffusion, params_cpu, params_gpu)
     del params_cpu
+    dit_profile_phase(cfg, diffusion, params_gpu)
 
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
     slice_phase(cfg, params_gpu, ops)
     dit_launches = dict(ops.LAUNCHES)
-    emit({"phase": "slice", "launches": dit_launches, "peak_device_bytes":
-          torch.cuda.max_memory_allocated()})
+    path = attention_path(cfg, diffusion, fa, params_gpu)
+    emit({"phase": "slice", "launches": dit_launches, "attention_path": path,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
     check(dit_launches["ssd"] == 0, "SSD launched in the DiT slice")
+    check(path == {"arith": "3xtf32-mma.sync", "load": "cp.async"},
+          f"the DiT slice's attention takes {path}")
     kernels["flash_attention"]["launches"] = dit_launches["flash_attention"]
     del params_gpu
 

@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a), plain FP32 FMA arithmetic.
+// Flash attention forward for Hopper (sm_90a) on the tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention`, body `_attn_kernel`): the same function — online
@@ -7,42 +7,61 @@
 // GQA head h -> kv head h / (H/KV), fully masked rows give 0, denominator
 // max(l, 1e-20) — but not its blocking.
 //
-// What bounds it: at the DiT-XL/2 shape (B=8, L=256, H=KV=16, D=72) the
-// work is 4*B*H*L*L*D = 2.4 GFLOP against 38 MB of q/k/v/o, 64 FLOP per
-// byte, above the ~20 FLOP/byte where the card's FP32 (non-tensor) rate
-// and its HBM rate cross: it is bound by operations.  This first version
-// spends its operations on plain FMAs (no wgmma, TMA or warp
-// specialization) and keeps every byte of K/V that a block reads in shared
-// memory, so each K/V element comes from device memory once per 64-row
-// query tile.
+// What bounds it: at the DiT-XL/2 shape (B=8, L=256, H=KV=16, D=72, f32)
+// the function is 4*B*H*L*L*D = 2.4 GFLOP against 38 MB of q/k/v/o.  In
+// f32 each product is computed as three TF32 products (below), 7.2 GFLOP
+// at the card's 495 TFLOP/s TF32 rate, which outlasts the bytes at
+// 3.35 TB/s: it is bound by operations.
 //
-// Design: one block of 256 threads per (batch*head, 64-row query tile).
-// Four threads share a query row: each scores 16 of the tile's 64 keys and
-// accumulates a quarter of the head dimension (dims sub, sub+4, ...).  Rows
-// are read in their (B, L, H, D) layout through strides; D is any value up
-// to 128 (72 for DiT-XL/2), bounded at run time in the loops, so no padding
-// reaches device memory.  Shared-memory rows of q and k use an odd stride
-// (D+1) so the 8 rows of a warp fall into 8 different banks.
+// Design:
+// - Both products run on the tensor cores with `mma.sync` (m16n8k8 tf32,
+//   m16n8k16 bf16), f32 accumulation.  f32 inputs take the 3xTF32 split:
+//   x = big + small with big = tf32(x), small = tf32(x - big), both rounded
+//   to nearest with ties away, and each product accumulates small*big +
+//   big*small + big*big, which keeps about 22 bits of each operand (plain
+//   TF32 keeps 11 and misses the 5e-5 parity limit).  An infinite input
+//   turns into NaN in every row that reads it (its small part is inf - inf)
+//   where plain f32 can give a finite row.  bf16 inputs go to the bf16 MMA
+//   as they are.  `mma.sync` and not `wgmma`: tf32 `wgmma` reads B only
+//   K-major from shared memory, so V would have to be staged transposed,
+//   and its swizzled layouts want rows of 32/64/128 B where DiT-XL/2's are
+//   288 B; `mma.sync` takes plain fragment loads from padded rows.
+// - One block of 4 warps per (batch*head, 64-row query tile); each warp
+//   owns 16 query rows and keeps its Q fragments, scores, probabilities
+//   and output accumulator in registers.  The score accumulator of Q·Kᵀ is
+//   the A operand of P·V: its (row, key 2t / 2t+1) layout is read as the
+//   tf32 A fragment's (row, k t / t+4) by taking V's rows in the same
+//   order, so P never goes through shared memory.  Softmax in base 2 with
+//   the scale folded into log2(e), a per-row running max and alpha.
+// - K/V tiles of 32 keys are double-buffered in shared memory: the next
+//   tile's copy is in flight (`cp.async`, 16 B per thread) while the warps
+//   compute on this one.  Rows whose address or stride is not a multiple
+//   of 16 B (an odd head dim, an offset view) are staged by plain loads
+//   instead; the wrapper picks the path from the pointers and strides.
+//   Each thread copies a fixed column chunk of every few rows, so no index
+//   is divided in the loop.  Tiles that no mask reaches skip the masks.
+// - Shared-memory rows hold the head dim padded with zeros to DK, the
+//   next instance's head dim (16, 32, 64, 72 in f32 or 80 in bf16, 128:
+//   72 and 80 at DiT-XL/2), plus 4 f32 or 8 bf16 words, so that the
+//   fragment loads of a warp hit 32 banks.
+// - At the DiT-XL/2 shape: 512 blocks of 128 threads, 38.9 KB of shared
+//   memory each, 4 blocks per SM (128 registers a thread, some of them
+//   spilled to the stack): one wave on 132 SMs.
+// - No atomics and a fixed order of every sum: two launches on the same
+//   inputs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per shared-memory tile
-constexpr int QUAD = 4;          // threads per query row
-constexpr int THREADS = BQ * QUAD;
-constexpr int KPT = BK / QUAD;   // keys scored per thread per tile
+constexpr int BQ = 64;  // query rows per block, 16 per warp
+constexpr int BK = 32;  // keys per K/V tile
+constexpr int THREADS = 32 * (BQ / 16);
 constexpr float NEG_INF = -2.0e38f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -55,169 +74,434 @@ struct Args {
   int causal;
   int window;     // 0: no sliding window
   float softcap;  // 0: no softcap
+  int vec;        // 1: every row is 16 B-aligned, stage with cp.async
 };
 
-// DP is the head dimension rounded up to a multiple of 32 (the size of the
-// per-thread accumulator); the loops stop at the run-time D.
-template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd(const Args a) {
-  extern __shared__ float smem[];
-  const int D = a.D;
-  const int qs = D + 1;
-  float* Qs = smem;              // BQ x qs
-  float* Ks = Qs + BQ * qs;      // BK x qs
-  float* Vs = Ks + BK * qs;      // BK x D
-  float* Ps = Vs + BK * D;       // BQ x (BK + 1)
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
-  const int tid = threadIdx.x;
-  const int r = tid / QUAD;
-  const int sub = tid % QUAD;
+// f32 -> tf32, rounded to nearest with ties away from zero, in f32 bits.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both tf32.  big is rounded as cvt.rna.tf32.f32 rounds
+// any x that is not a NaN (add half a tf32 ulp to the bits, clear the low
+// 13), in two integer operations where ptxas lowers the cvt to more, with
+// a NaN test.  A NaN x may come out as a zero big, but then small = NaN and
+// the products stay NaN.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a*b in 3xTF32: small*big + big*small + big*big, in that order.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split(b0, bb0, bs0);
+  split(b1, bb1, bs1);
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + n) of a (rows, D) matrix with row stride rs into dst
+// (n rows of STR elements); rows at or past `rows` are staged as zeros.
+// Each thread copies one fixed column chunk (16 B with cp.async, one
+// element with plain loads) of every `step`-th row.
+template <typename T, int STR>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long rs,
+                                      int row0, int rows, int n, int D,
+                                      bool vec) {
+  const int e = vec ? 16 / (int)sizeof(T) : 1;  // elements per copy
+  const int cpr = D / e;                        // copies per row
+  const int step = THREADS / cpr;
+  const int r0 = threadIdx.x / cpr;
+  const int c = (threadIdx.x - r0 * cpr) * e;
+  if (r0 >= step) return;
+  for (int r = r0; r < n; r += step) {
+    const int row = row0 + r;
+    const bool in = row < rows;
+    const T* s = src + (in ? row * rs : 0) + c;
+    T* d = dst + r * STR + c;
+    if (vec) {
+      const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(d));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sa),
+                   "l"(s), "r"(in ? 16 : 0)
+                   : "memory");
+    } else {
+      *d = in ? *s : zero<T>();
+    }
+  }
+}
+
+// DK: the head dim rounded up to an instance's (launch_f32, launch_bf16).
+template <typename T, int DK, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int STR = DK + (F32 ? 4 : 8);     // shared row stride
+  constexpr int KS = F32 ? DK / 8 : DK / 16;  // k-steps of Q·Kᵀ
+  constexpr int NO = DK / 8;                  // n-tiles of the output
+  constexpr int NS = BK / 8;                  // n-tiles of a score tile
+  constexpr int TILE = 2 * BK * STR;          // one K/V stage
+  using QF = typename std::conditional<F32, float, uint32_t>::type;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / a.H;
   const int h = blockIdx.y % a.H;
   const int hk = h / (a.H / a.KV);
   const int q0 = blockIdx.x * BQ;
-  const int qpos = q0 + r;
-
+  const bool vec = a.vec != 0;
   const T* qp = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
   const T* kp = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
   const T* vp = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int row = i / D, d = i - row * D;
-    const int l = q0 + row;
-    Qs[row * qs + d] = l < a.Lq ? to_f32(qp[l * a.sql + d]) : 0.f;
-  }
+  // Zero both stages once: the padding columns D..DK-1 are never written.
+  for (int i = threadIdx.x; i < 2 * TILE * (int)sizeof(T) / 16; i += THREADS)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
 
   // Key tiles that hold an unmasked key for some row of this query tile.
   int k_begin = 0, k_end = a.Lk;
   if (a.causal) k_end = min(k_end, q0 + BQ);
   if (a.window > 0) k_begin = max(0, q0 - a.window + 1);
   k_begin = (k_begin / BK) * BK;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  float m = NEG_INF, l = 0.f;
-  float acc[DP / QUAD];
-#pragma unroll
-  for (int c = 0; c < DP / QUAD; ++c) acc[c] = 0.f;
+  // Q goes to stage 0 (its 2*BK = BQ rows), the first K/V tile to stage 1.
+  stage<T, STR>(sm, qp, a.sql, q0, a.Lq, BQ, a.D, vec);
+  cp_commit();
+  if (ntiles > 0) {
+    stage<T, STR>(sm + TILE, kp, a.skl, k_begin, a.Lk, BK, a.D, vec);
+    stage<T, STR>(sm + TILE + BK * STR, vp, a.svl, k_begin, a.Lk, BK, a.D,
+                  vec);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
 
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int row = i / D, d = i - row * D;
-      const int j = kt + row;
-      const bool in = j < a.Lk;
-      Ks[row * qs + d] = in ? to_f32(kp[j * a.skl + d]) : 0.f;
-      Vs[row * D + d] = in ? to_f32(vp[j * a.svl + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[KPT];
+  QF qf[KS][4];
+  {
+    const T* qs = sm + (warp * 16 + g) * STR;
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) s[i] = 0.f;
-    const float* qrow = Qs + r * qs;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i)
-        s[i] = fmaf(qd, Ks[(sub + QUAD * i) * qs + d], s[i]);
-    }
-
-    unsigned ok_bits = 0;
-    float tmax = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kpos = kt + sub + QUAD * i;
-      float x = s[i] * a.scale;
-      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-      bool ok = kpos < a.Lk;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && kpos > qpos - a.window;
-      s[i] = ok ? x : NEG_INF;
-      ok_bits |= (ok ? 1u : 0u) << i;
-      tmax = fmaxf(tmax, s[i]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-    float* prow = Ps + r * (BK + 1);
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      // a fully masked row has m_new = NEG_INF and exp(0) = 1: zero it
-      const float p = (ok_bits >> i & 1u) ? expf(s[i] - m_new) : 0.f;
-      prow[sub + QUAD * i] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // a row's probabilities are written and read by its quad
-
-#pragma unroll
-    for (int c = 0; c < DP / QUAD; ++c) acc[c] *= alpha;
-    const int jn = min(BK, a.Lk - kt);
-    for (int j = 0; j < jn; ++j) {
-      const float p = prow[j];
-      const float* vrow = Vs + j * D + sub;
-#pragma unroll
-      for (int c = 0; c < DP / QUAD; ++c)
-        if (sub + QUAD * c < D) acc[c] = fmaf(p, vrow[QUAD * c], acc[c]);
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (F32) {
+        const float* r = qs + ks * 8 + t;
+        qf[ks][0] = r[0];
+        qf[ks][1] = r[8 * STR];
+        qf[ks][2] = r[4];
+        qf[ks][3] = r[8 * STR + 4];
+      } else {
+        const T* r = qs + ks * 16 + 2 * t;
+        qf[ks][0] = ld32(r);
+        qf[ks][1] = ld32(r + 8 * STR);
+        qf[ks][2] = ld32(r + 8);
+        qf[ks][3] = ld32(r + 8 * STR + 8);
+      }
     }
   }
+  __syncthreads();  // stage 0 is free for the second tile
 
-  if (qpos < a.Lq) {
-    const float denom = fmaxf(l, 1e-20f);
-    T* op = static_cast<T*>(a.o) + b * a.sob + qpos * a.sol + h * a.soh;
+  float o[NO][4];
 #pragma unroll
-    for (int c = 0; c < DP / QUAD; ++c) {
-      const int d = sub + QUAD * c;
-      if (d < D) store(op + d, acc[c] / denom);
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  // this thread's rows: g (fragment entries 0, 1) and g + 8 (entries 2, 3)
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const float sl2 = a.scale * LOG2E;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kt = k_begin + it * BK;
+    if (it + 1 < ntiles) {
+      T* nxt = sm + (it & 1) * TILE;
+      stage<T, STR>(nxt, kp, a.skl, kt + BK, a.Lk, BK, a.D, vec);
+      stage<T, STR>(nxt + BK * STR, vp, a.svl, kt + BK, a.Lk, BK, a.D, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const T* ks_ = sm + ((it + 1) & 1) * TILE;
+    const T* vs_ = ks_ + BK * STR;
+
+    // S = Q·Kᵀ for this warp's 16 rows and the tile's 32 keys
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (F32) {
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(qf[ks][i], ab[i], as[i]);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float* kr = ks_ + (n * 8 + g) * STR + ks * 8 + t;
+          mma_3xtf32(s[n], ab, as, kr[0], kr[4]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const T* kr = ks_ + (n * 8 + g) * STR + ks * 16 + 2 * t;
+          mma_bf16(s[n], qf[ks], ld32(kr), ld32(kr + 8));
+        }
+      }
+    }
+
+    // online softmax in base 2; masked entries never reach exp2.  A tile
+    // that no mask reaches for any row of the block skips the masks.
+    const bool edge = kt + BK > a.Lk || (a.causal && kt + BK - 1 > q0) ||
+                      (a.window > 0 && kt <= q0 + BQ - 1 - a.window);
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = a.softcap * tanhf(s[n][i] * a.scale / a.softcap) * LOG2E;
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] *= sl2;
+    }
+    unsigned ok = 0xffffu;
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = kt + n * 8 + 2 * t + (i & 1);
+          const int row = i < 2 ? row0 : row1;
+          bool in = key < a.Lk;
+          if (a.causal) in = in && key <= row;
+          if (a.window > 0) in = in && key > row - a.window;
+          if (!in) {
+            s[n][i] = NEG_INF;
+            ok &= ~(1u << (n * 4 + i));
+          }
+        }
+    }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;  // this thread's part of the row sums
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = (ok >> (n * 4 + i) & 1u)
+                            ? exp2f(s[n][i] - (i < 2 ? m0 : m1))
+                            : 0.f;
+        s[n][i] = p;
+        if (i < 2)
+          ps0 += p;
+        else
+          ps1 += p;
+      }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+    }
+
+    // O += P·V, P straight from the score registers
+    if constexpr (F32) {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        // A fragment (row, k t / t+4) = scores (row, key 2t / 2t+1)
+        uint32_t pb[4], pl[4];
+        split(s[kk][0], pb[0], pl[0]);
+        split(s[kk][2], pb[1], pl[1]);
+        split(s[kk][1], pb[2], pl[2]);
+        split(s[kk][3], pb[3], pl[3]);
+        const float* vr = vs_ + (kk * 8 + 2 * t) * STR + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          mma_3xtf32(o[n], pb, pl, vr[n * 8], vr[n * 8 + STR]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const unsigned short* vr =
+            reinterpret_cast<const unsigned short*>(vs_) +
+            (j * 16 + 2 * t) * STR + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const unsigned short* c = vr + n * 8;
+          mma_bf16(o[n], pa, c[0] | (uint32_t)c[STR] << 16,
+                   c[8 * STR] | (uint32_t)c[9 * STR] << 16);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+  T* ob = static_cast<T*>(a.o) + b * a.sob + h * a.soh;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (row0 < a.Lq) {
+      T* p = ob + row0 * a.sol + c;
+      if (c < a.D) store(p, o[n][0] / d0);
+      if (c + 1 < a.D) store(p + 1, o[n][1] / d0);
+    }
+    if (row1 < a.Lq) {
+      T* p = ob + row1 * a.sol + c;
+      if (c < a.D) store(p, o[n][2] / d1);
+      if (c + 1 < a.D) store(p + 1, o[n][3] / d1);
     }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DK>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (size_t)(BQ * (a.D + 1) + BK * (a.D + 1) + BK * a.D + BQ * (BK + 1));
+  constexpr bool F32 = std::is_same<T, float>::value;
+  // blocks per SM the registers must allow: 4 puts the DiT-XL/2 grid in
+  // one wave
+  constexpr int MINB = F32 ? (DK <= 72 ? 4 : 2) : (DK <= 80 ? 4 : 3);
+  constexpr int STR = DK + (F32 ? 4 : 8);
+  const int smem = (int)(2 * 2 * BK * STR * sizeof(T));
+  const auto kernel = attn_fwd<T, DK, MINB>;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  attn_fwd<T, DP><<<grid, THREADS, smem, stream>>>(a);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dtype(const Args& a, cudaStream_t stream) {
-  if (a.D <= 32) return launch<T, 32>(a, stream);
-  if (a.D <= 64) return launch<T, 64>(a, stream);
-  if (a.D <= 96) return launch<T, 96>(a, stream);
-  return launch<T, 128>(a, stream);
+// One instance per head dim that a caller runs (DiT-XL/2's 72, 80 in bf16,
+// and the tests' 16, 32, 64, 128); any other D takes the next one up, whose
+// padding columns are zeros.
+cudaError_t launch_f32(const Args& a, cudaStream_t s) {
+  if (a.D <= 16) return launch<float, 16>(a, s);
+  if (a.D <= 32) return launch<float, 32>(a, s);
+  if (a.D <= 64) return launch<float, 64>(a, s);
+  if (a.D <= 72) return launch<float, 72>(a, s);
+  return launch<float, 128>(a, s);
+}
+
+cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
+  using B16 = __nv_bfloat16;
+  if (a.D <= 16) return launch<B16, 16>(a, s);
+  if (a.D <= 32) return launch<B16, 32>(a, s);
+  if (a.D <= 64) return launch<B16, 64>(a, s);
+  if (a.D <= 80) return launch<B16, 80>(a, s);
+  return launch<B16, 128>(a, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
-// The caller checks shapes, strides and devices; nothing here allocates or
-// synchronizes.
+// dtype: 0 = float32, 1 = bfloat16.  vec: 1 when q, k and v's pointers and
+// strides are multiples of 16 bytes and D of 16 / element size, so that
+// rows are staged with cp.async; 0 stages them with plain loads.  Returns a
+// cudaError_t (0 = launched).  The caller checks shapes, strides, devices
+// and `vec`; nothing here allocates or synchronizes.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Lq, int Lk, int H, int KV, int D, long long sqb, long long sql,
     long long sqh, long long skb, long long skl, long long skh, long long svb,
     long long svl, long long svh, long long sob, long long sol, long long soh,
-    float scale, int causal, int window, float softcap, void* stream) {
+    float scale, int causal, int window, float softcap, int vec,
+    void* stream) {
   if (D < 1 || D > 128 || KV < 1 || H % KV != 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,   k,   v,   o,   B,   Lq,  Lk,  H,     KV,     D,
-               sqb, sql, sqh, skb, skl, skh, svb, svl,   svh,    sob,
-               sol, soh, scale, causal, window, softcap};
+  const Args a{q,   k,   v,   o,   B,   Lq,  Lk,    H,      KV,     D,
+               sqb, sql, sqh, skb, skl, skh, svb,   svl,    svh,    sob,
+               sol, soh, scale, causal, window, softcap, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_dtype<float>(a, s);
-  if (dtype == 1) return (int)launch_dtype<__nv_bfloat16>(a, s);
+  if (dtype == 0) return (int)launch_f32(a, s);
+  if (dtype == 1) return (int)launch_bf16(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,6 +6,11 @@ The source is compiled on first use (``kernels/build.py``) into a shared
 library with a plain C interface, called through ``ctypes`` with raw
 pointers, shapes, strides and PyTorch's current stream.  A failed build or
 launch raises; nothing here falls back to the plain version.
+
+Both products run on the tensor cores: f32 inputs as three TF32 products
+(the 3xTF32 split), bf16 inputs as bf16 products, f32 accumulation.  K/V
+rows are staged into shared memory with 16-byte ``cp.async`` copies when
+every row is 16-byte aligned, and with plain loads otherwise (``plan``).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARITH = {torch.float32: "3xtf32-mma.sync", torch.bfloat16: "bf16-mma.sync"}
 _LIB = None
 
 
@@ -36,7 +42,7 @@ def _library():
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         lib.flash_attention_fwd.argtypes = (
-            [p, p, p, p, i] + [i] * 6 + [ll] * 12 + [f, i, i, f, p])
+            [p, p, p, p, i] + [i] * 6 + [ll] * 12 + [f, i, i, f, i, p])
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -44,20 +50,31 @@ def _library():
     return _LIB
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: Optional[int] = None,
-                         softcap: Optional[float] = None,
-                         scale: Optional[float] = None):
-    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) CUDA tensors of one dtype
-    (float32 or bfloat16), any strides with a unit last-dim stride →
-    (B, Lq, H, D) in q's dtype, computed in f32."""
+def plan(q, k, v) -> dict:
+    """How the kernel computes these inputs: ``arith`` names the tensor-core
+    arithmetic of q's dtype, ``load`` how K/V rows reach shared memory —
+    ``"cp.async"`` when the head dim, every pointer and every stride (of a
+    dim longer than 1) are multiples of 16 bytes, else ``"scalar"``."""
+    e = 16 // q.element_size()
+    aligned = q.shape[-1] % e == 0 and all(
+        t.data_ptr() % 16 == 0
+        and all(st % e == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+                if n > 1)
+        for t in (q, k, v))
+    return {"arith": _ARITH[q.dtype],
+            "load": "cp.async" if aligned else "scalar"}
+
+
+def _check(q, k, v, window, softcap, scale):
+    """Raise ValueError on what the kernel does not take; the device last,
+    so that every other check also runs on CPU tensors."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B,Lq,H,D) and k = v (B,Lk,KV,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, lq, h, d = q.shape
-    _, lk, kv, dk = k.shape
-    if k.shape[0] != b or dk != d:
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch or head dim")
     if not 1 <= d <= 128:
@@ -71,19 +88,35 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    if scale is not None and not math.isfinite(scale):
+        raise ValueError(f"scale must be finite, got {scale}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, expected q's CUDA "
-                             f"device {q.device}")
         if t.dtype != q.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
                              "q, k, v all float32 or all bfloat16")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit stride on the head dim")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected q's CUDA "
+                             f"device {q.device}")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None):
+    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) CUDA tensors of one dtype
+    (float32 or bfloat16), any strides with a unit last-dim stride →
+    (B, Lq, H, D) in q's dtype, computed in f32."""
+    _check(q, k, v, window, softcap, scale)
+    b, lq, h, d = q.shape
+    lk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    how = plan(q, k, v)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -93,7 +126,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(scale), int(causal),
             0 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), stream)
+            0.0 if softcap is None else float(softcap),
+            int(how["load"] == "cp.async"), stream)
     if rc != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(rc).decode())

@@ -2,9 +2,11 @@
 
 On the CPU: the port's plain ``flash_attention_ref`` against the Pallas
 kernel (interpret mode) and against the JAX oracle, over the sweep of
-``tests/test_kernels.py`` plus the DiT-XL/2 head dim 72, non-causal.  On a
-CUDA card: the hand-written kernel against the plain version (these tests
-skip where there is no card).  Tolerance 5e-5 in f32, 5e-2 in bf16."""
+``tests/test_kernels.py`` plus the DiT-XL/2 head dim 72, non-causal; an
+emulation of the kernel's 3xTF32 arithmetic against the JAX oracle; the
+wrapper's checks and its choice of load path.  On a CUDA card: the
+hand-written kernel against the plain version (these tests skip where
+there is no card).  Tolerance 5e-5 in f32, 5e-2 in bf16."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +31,13 @@ CASES = ([s + (True, None, None, dt) for s in SHAPES for dt in DTYPES]
          + [(2, 48, 4, 4, 72, False, None, None, dt) for dt in DTYPES])
 
 
+# the kernel's new code paths: D 72 at L 256, D 128, a head dim that is not
+# a multiple of 8 (and, in bf16, rows that are not 16 B)
+NEW_CASES = [(2, 256, 4, 4, 72, False, None, None, dt) for dt in DTYPES] + [
+    (1, 128, 4, 2, 128, True, None, None, dt) for dt in DTYPES] + [
+    (2, 64, 4, 2, 20, True, None, None, dt) for dt in DTYPES]
+
+
 def _qkv(b, l, h, kv, d, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, l, h, d)).astype(np.float32),
@@ -51,6 +60,116 @@ def test_plain_matches_pallas_and_jax_oracle(case):
     close(jax_ref(jq, jk, jv, **kw), out, **tol)
 
 
+def _tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest with ties
+    away from zero, keeping 10 mantissa bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, split):
+    """a @ b as the kernel's tensor cores compute it in f32: one TF32
+    product, or the 3xTF32 split small·big + big·small + big·big (each
+    product of two TF32 values is exact in f32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return asm @ bb + ab @ bsm + ab @ bb
+
+
+def _emulated_attention(q, k, v, split):
+    """Non-causal attention, (B, L, H, D) f32 numpy, with both products in
+    the kernel's TF32 arithmetic and P·V on unnormalized probabilities."""
+    qh, kh, vh = (np.swapaxes(a, 1, 2) for a in (q, k, v))   # (B, H, L, D)
+    s = _tf32_matmul(qh, np.swapaxes(kh, -1, -2), split) / np.sqrt(
+        np.float32(q.shape[-1]))
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    o = _tf32_matmul(p, vh, split) / p.sum(-1, keepdims=True)
+    return np.swapaxes(o, 1, 2)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xtf32", "tf32"])
+def test_tf32_arithmetic_against_jax_oracle(split):
+    """Why the f32 kernel splits each operand: at L 256, D 72 the 3xTF32
+    products stay within the 5e-5 parity limit of the JAX oracle; one TF32
+    pass does not."""
+    q, k, v = _qkv(1, 256, 4, 4, 72, seed=3)
+    want = np.asarray(jax_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=False), np.float32)
+    got = _emulated_attention(q, k, v, split)
+    within = np.allclose(got, want, atol=5e-5, rtol=5e-5)
+    assert within == split, float(np.abs(got - want).max())
+
+
+def test_tf32_rounding_matches_cvt_rna():
+    """Nearest, ties away from zero: the kernel's rounding of ``big``."""
+    x = np.array([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                  -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12], np.float32)
+    want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                     -(1.0 + 2.0 ** -10), 1.0], np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)
+
+
+def _bad_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 4, 2, 8))
+    wide = torch.zeros(1, 16, 4, 129)
+    return {
+        "rank": ((q[0], k, v), {}, "expected q"),
+        "v shape": ((q, k, v[:, :8]), {}, "expected q"),
+        "batch": ((q, torch.cat([k, k]), torch.cat([v, v])), {}, "differ"),
+        "head dim": ((wide, wide, wide), {}, "head dim 129"),
+        "gqa": ((q[:, :, :3], k, v), {}, "not a multiple"),
+        "grid": ((torch.zeros(4097, 1, 16, 8), torch.zeros(4097, 1, 16, 8),
+                  torch.zeros(4097, 1, 16, 8)), {}, "65535"),
+        "window": ((q, k, v), {"window": 0}, "window"),
+        "softcap": ((q, k, v), {"softcap": 0.0}, "softcap"),
+        "scale": ((q, k, v), {"scale": float("inf")}, "scale"),
+        "mixed dtype": ((q, k.double(), v), {}, "dtype"),
+        "half": ((q.half(), k.half(), v.half()), {}, "dtype"),
+        "last stride": ((q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                         v), {}, "unit stride"),
+    }
+
+
+@pytest.mark.parametrize("name", list(_bad_inputs()))
+def test_kernel_wrapper_refuses_bad_inputs(name):
+    args, kw, match = _bad_inputs()[name]
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention_cuda(*args, **kw)
+
+
+def _dit_qkv(dtype=torch.float32):
+    """q, k, v as DiT-XL/2 makes them: (B, L, H·D) products reshaped."""
+    x = torch.zeros(2, 16, 3 * 16 * 72, dtype=dtype)
+    return [x[..., i * 1152:(i + 1) * 1152].reshape(2, 16, 16, 72)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("make,dtype,load", [
+    (lambda dt: _dit_qkv(dt), torch.float32, "cp.async"),
+    (lambda dt: _dit_qkv(dt), torch.bfloat16, "cp.async"),
+    (lambda dt: [torch.zeros(2, 8, 4, 20, dtype=dt)] * 3, torch.float32,
+     "cp.async"),
+    (lambda dt: [torch.zeros(2, 8, 4, 20, dtype=dt)] * 3, torch.bfloat16,
+     "scalar"),
+    (lambda dt: [torch.zeros(2, 8, 4, 33, dtype=dt)[..., 1:]] * 3,
+     torch.float32, "scalar"),
+    (lambda dt: [torch.zeros(2, 8, 4 * 32 + 4, dtype=dt)[..., :128]
+                 .reshape(2, 8, 4, 32)] * 3, torch.float32, "cp.async"),
+    (lambda dt: [torch.zeros(2, 8, 4 * 32 + 2, dtype=dt)[..., :128]
+                 .reshape(2, 8, 4, 32)] * 3, torch.float32, "scalar"),
+    (lambda dt: [torch.zeros(1, 8, 4 * 32 + 2, dtype=dt)[:, :1, :128]
+                 .reshape(1, 1, 4, 32)] * 3, torch.float32, "cp.async"),
+], ids=["dit-f32", "dit-bf16", "d20-f32", "d20-bf16", "offset",
+        "row-16B", "row-8B", "row-8B-length-1"])
+def test_plan_picks_load_path_from_pointers_and_strides(make, dtype, load):
+    q, k, v = make(dtype)
+    arith = {torch.float32: "3xtf32-mma.sync",
+             torch.bfloat16: "bf16-mma.sync"}[dtype]
+    assert tfa.plan(q, k, v) == {"arith": arith, "load": load}
+
+
 def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 2, 2, 8))
     before = ops.LAUNCHES["flash_attention"]
@@ -63,6 +182,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 2, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_cuda(q, k, v)
+
+
+def test_attention_ab_needs_a_card(monkeypatch, tmp_path):
+    from repro_torch.kernels import attention_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        attention_ab.main([str(tmp_path / "baseline.cu")])
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +204,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("case", CASES + [
+@pytest.mark.parametrize("case", CASES + NEW_CASES + [
     (8, 256, 16, 16, 72, False, None, None, dt) for dt in DTYPES])
 def test_cuda_kernel_matches_plain(cuda, case):
     b, l, h, kv, d, causal, window, softcap, dtype = case
@@ -99,3 +225,21 @@ def test_cuda_dispatch_launches_kernel_and_counts(cuda):
     out = ops.flash_attention(q, k, v, causal=True)
     assert ops.LAUNCHES["flash_attention"] == before + 1
     close(out.cpu(), ref.flash_attention_ref(q, k, v, causal=True).cpu())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cuda_kernel_unaligned_rows_take_scalar_staging(cuda, dtype):
+    _, tdt, tol = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(np.pad(a, ((0, 0),) * 3 + ((1, 0),)))
+               .to(cuda, tdt)[..., 1:] for a in _qkv(2, 64, 4, 2, 32))
+    assert tfa.plan(q, k, v)["load"] == "scalar"
+    out = tfa.flash_attention_cuda(q, k, v, causal=True)
+    close(out.cpu(), ref.flash_attention_ref(q, k, v, causal=True).cpu(),
+          **tol)
+
+
+def test_cuda_kernel_is_deterministic_at_dit_shape(cuda):
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in _qkv(8, 256, 16, 16, 72))
+    first = tfa.flash_attention_cuda(q, k, v, causal=False)
+    second = tfa.flash_attention_cuda(q, k, v, causal=False)
+    assert torch.equal(first, second)
