@@ -8,15 +8,16 @@ exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of both CUDA kernels from the checkout's sources, in parallel,
-   and the flash-attention kernel's SASS: tensor-core instructions,
-   registers and local memory per template instance (``cuobjdump``);
+   and their SASS: tensor-core instructions, registers and local memory
+   per flash-attention template instance and per SSD pass (``cuobjdump``);
 3. the flash-attention kernel against its plain PyTorch version over the
    kernel test sweep (each case with its arithmetic and load path) and at
    the DiT-XL/2 shape, where two launches must agree bitwise, with device
    times (``repro_torch.kernels.timing``) in f32 and bf16 beside SDPA's;
 4. the SSD-scan kernel against its plain PyTorch version over the kernel
-   test sweep (f32 and bf16), at the Mamba-2-1.3B prefill shape and at a
-   ragged length, with times;
+   test sweep (f32 and bf16), at the Mamba-2-1.3B prefill shape (where two
+   launches must agree bitwise), at a ragged length and on strided views
+   of one projection as the model hands them over, with times;
 5. a full-width DiT-XL/2 denoiser forward on the card (kernel attention)
    against the same forward on the CPU (plain attention), then a
    ``torch.profiler`` trace of one forward at B = 8: device time by
@@ -35,7 +36,8 @@ exits non-zero:
    decode loop; then a card forward over prompt + the first 31 new tokens
    whose logits must match the recurrent decode step's;
 9. a ``torch.profiler`` trace of one prefill and of 4 decode steps: device
-   time by kernel, and the device's idle share of the wall time.
+   time by kernel, the SSD passes' time, and the device's idle share of the
+   wall time.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
@@ -193,31 +195,46 @@ def kernel_phase(fa, ref, peaks):
                      "bound_ms": bf16_bound}}
 
 
-def sass_phase(lib_path):
-    """What the compiler made of the flash-attention kernel: per template
-    instance, tensor-core (HMMA) and f32 FMA (FFMA) instructions in the
-    SASS, and registers, stack and local memory from the resource usage."""
+# name fragments of the kernels in each library's SASS; every one of them
+# runs a product on the tensor cores
+SASS_KERNELS = {"flash_attention": ("attn_fwd",),
+                "ssd": ("ssd_cb", "ssd_state", "ssd_out")}
+
+
+def sass_phase(libs):
+    """What the compiler made of each CUDA library: per kernel (template
+    instance or SSD pass), tensor-core (HMMA) and f32 FMA (FFMA)
+    instructions in the SASS, and registers, stack and local memory from
+    the resource usage.  Every kernel runs a product, so every one needs
+    HMMA."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = str(Path(CUDA_HOME) / "bin" / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
-    res = subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
-                         text=True, check=True).stdout
-    rows = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        if "attn_fwd" in name:
-            rows[name] = {"hmma": part.count("HMMA"),
-                          "ffma": len(re.findall(r"\bFFMA\b", part))}
-    for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", res):
-        if name in rows:
-            rows[name].update({k.lower(): int(v) for k, v in re.findall(
-                r"(REG|STACK|SHARED|LOCAL):(\d+)", usage)})
-    emit({"phase": "sass", "kernel": "flash_attention", "instances": rows})
-    check(rows and all(r["hmma"] > 0 for r in rows.values()),
-          "a flash-attention instance without tensor-core instructions")
-    return rows
+    out = {}
+    for lib, names in SASS_KERNELS.items():
+        path = libs[lib]
+        sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, check=True).stdout
+        res = subprocess.run([tool, "-res-usage", path], capture_output=True,
+                             text=True, check=True).stdout
+        rows = {}
+        for part in sass.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
+            if any(k in name for k in names):
+                rows[name] = {"hmma": part.count("HMMA"),
+                              "ffma": len(re.findall(r"\bFFMA\b", part))}
+        for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)",
+                                      res):
+            if name in rows:
+                rows[name].update({k.lower(): int(v) for k, v in re.findall(
+                    r"(REG|STACK|SHARED|LOCAL):(\d+)", usage)})
+        emit({"phase": "sass", "kernel": lib, "instances": rows})
+        check(all(any(k in name for name in rows) for k in names),
+              f"{lib}: a kernel of {names} missing from the SASS")
+        check(all(r["hmma"] > 0 for r in rows.values()),
+              f"{lib}: a kernel without tensor-core instructions")
+        out[lib] = rows
+    return out
 
 
 def full_width_params(cfg, diffusion):
@@ -341,16 +358,25 @@ def slice_phase(cfg, params, ops):
 
 
 def ssd_kernel_phase(ssd, ref, peaks):
-    """SSD kernel vs plain over the sweep, at the prefill shape and at a
-    ragged length; device times at the prefill shape."""
+    """SSD kernel vs plain over the sweep, at the prefill shape (where two
+    launches must agree bitwise), at a ragged length and on strided views
+    of one projection; device times at the prefill shape."""
     from repro_torch.kernels.timing import device_ms
     gen = torch.Generator().manual_seed(SEED)
 
-    def inputs(b, l, h, p, g, n, dtype):
+    def inputs(b, l, h, p, g, n, dtype, split=False):
+        """Seeded inputs; ``split``: x, b and c are views of one (B, L,
+        H·P + 2·G·N) tensor, as ``models/ssm.py`` splits its projection."""
         f = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
         x, dt = f(b, l, h, p), torch.nn.functional.softplus(f(b, l, h) - 1.0)
         a = torch.exp(torch.rand(h, generator=gen))
         bb, cc = f(b, l, g, n), f(b, l, g, n)
+        if split:
+            xbc = torch.cat([x.reshape(b, l, h * p), bb.reshape(b, l, g * n),
+                             cc.reshape(b, l, g * n)], -1).to("cuda", dtype)
+            x, bb, cc = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+            return [x.reshape(b, l, h, p), dt.cuda(), a.cuda(),
+                    bb.reshape(b, l, g, n), cc.reshape(b, l, g, n)]
         return [x.to("cuda", dtype), dt.cuda(), a.cuda(),
                 bb.to("cuda", dtype), cc.to("cuda", dtype)]
 
@@ -358,16 +384,17 @@ def ssd_kernel_phase(ssd, ref, peaks):
     tols = {torch.float32: ((2e-4, 2e-3), (1e-4, 1e-2)),
             torch.bfloat16: ((1e-1, 1e-1), (1e-2, 1e-2))}
 
-    def compare(shape, chunk, dtype, elementwise=True):
+    def compare(shape, chunk, dtype, elementwise=True, split=False):
         """Element-wise at the sweep's tolerances; at full width, where y
         reaches ~400 and near-zero outputs carry the rounding of large
         sums, max |err| / max |plain| <= 1e-4 for y and the state."""
-        t = inputs(*shape, dtype)
+        t = inputs(*shape, dtype, split)
         y, hT = ssd.ssd_cuda(*t, chunk=chunk)
         yr, hr = ref.ssd_ref(*t, chunk=chunk)
         torch.cuda.synchronize()
         (ya, yr_), (ha, hr_) = tols[dtype]
         row = {"shape": shape, "chunk": chunk, "dtype": str(dtype)[6:],
+               **ssd.plan(t[0], t[3], t[4]), "split_views": split,
                "max_abs_err": float((y.float() - yr.float()).abs().max()),
                "max_abs_y": float(yr.float().abs().max()),
                "rel_max_err": rel_err(y, yr),
@@ -380,35 +407,66 @@ def ssd_kernel_phase(ssd, ref, peaks):
             row["ok"] = max(row["rel_max_err"],
                             row["state_rel_max_err"]) <= 1e-4
         check(row["ok"], f"ssd kernel vs plain {row}")
-        return row, t
+        return row, t, (y, hT)
 
     sweep = [compare(shape, chunk, dtype)[0]
              for *shape, chunk in ((2, 64, 4, 16, 1, 16, 16),
                                    (1, 96, 8, 32, 2, 32, 32),
                                    (2, 33, 2, 16, 1, 8, 16),
-                                   (1, 16, 2, 8, 2, 8, 8))
+                                   (1, 16, 2, 8, 2, 8, 8),
+                                   (1, 50, 2, 6, 1, 5, 13),
+                                   (1, 100, 1, 72, 1, 20, 128))
              for dtype in (torch.float32, torch.bfloat16)]
     emit({"ssd_sweep": sweep})
     b, l, h, p, g, n, q = LM_BATCH, LM_PROMPT, 64, 64, 1, 128, 128
-    ragged, _ = compare((b, 1000, h, p, g, n), q, torch.float32, False)
-    full, t = compare((b, l, h, p, g, n), q, torch.float32, False)
-    emit({"ssd_prefill_shape": full, "ssd_ragged": ragged})
+    ragged, _, _ = compare((b, 1000, h, p, g, n), q, torch.float32, False)
+    split, _, _ = compare((b, l, h, p, g, n), q, torch.float32, False, True)
+    check(split["load"] == "cp.async", f"split views took {split['load']}")
+    full, t, (y, hT) = compare((b, l, h, p, g, n), q, torch.float32, False)
+    y2, hT2 = ssd.ssd_cuda(*t, chunk=q)
+    bitwise = bool(torch.equal(y, y2) and torch.equal(hT, hT2))
+    emit({"ssd_prefill_shape": full, "ssd_ragged": ragged,
+          "ssd_split_views": split, "bitwise_equal": bitwise})
+    check(bitwise, "two SSD launches at the prefill shape differ")
     ms = device_ms(lambda: ssd.ssd_cuda(*t, chunk=q))
     plain_ms = device_ms(lambda: ref.ssd_ref(*t, chunk=q), iters=10,
                          reps=3)
+    _, passes = _traced(lambda: [ssd.ssd_cuda(*t, chunk=q)
+                                 for _ in range(10)])
     flops = ssd_flops(b, l, h, p, g, n, q)
     nbytes = 4 * (2 * b * l * h * p + b * h * p * n + 2 * b * l * g * n
                   + b * l * h + h)
-    t_ops = flops / peaks["fp32"] * 1e3
+    # f32 runs as three TF32 products on the tensor cores (3xTF32)
+    t_ops = (3 * flops / peaks["tf32"] * 1e3 if "tf32" in peaks else None)
     t_bytes = nbytes / peaks["hbm"] * 1e3
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:76",
             "shape": [b, l, h, p, g, n, q], "dtype": "float32",
+            **ssd.plan(t[0], t[3], t[4]),
             "max_abs_err": full["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "flops": flops, "bytes": nbytes}
+            "plain_ms": plain_ms,
+            "bound_ms": None if t_ops is None else max(t_ops, t_bytes),
+            "bound_by": (None if t_ops is None else
+                         "operations" if t_ops >= t_bytes else "bytes"),
+            "bound_simt_ms": flops / peaks["fp32"] * 1e3,
+            "library_ms": None,
+            "pass_ms": {k: us / 1e3 / calls
+                        for k, (us, calls) in ssd_passes(passes).items()},
+            "flops": flops, "bytes": nbytes}
+
+
+def ssd_passes(kern):
+    """{pass: [device µs, calls]} of the SSD kernels in ``_kernel_times``'s
+    result, summed by pass name."""
+    out = {}
+    for k, (us, calls) in kern.items():
+        for name in SASS_KERNELS["ssd"]:
+            if name + "<" in k or k.endswith(name):
+                row = out.setdefault(name, [0.0, 0])
+                row[0] += us
+                row[1] += calls
+    return out
 
 
 def ssd_flops(b, l, h, p, g, n, q):
@@ -605,12 +663,17 @@ def lm_profile_phase(cfg, T, params, prompts, toks):
             "wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3 if busy else None,
             "idle_share": 1 - busy / wall_us if busy else None,
-            "ssd_ms": sum(us for k, (us, _) in kern.items()
-                          if "ssd_chunk_scan" in k) / 1e3,
+            "ssd_ms": sum(us for us, _ in ssd_passes(kern).values()) / 1e3,
+            "ssd_pass_ms": {k: us / 1e3
+                            for k, (us, _) in ssd_passes(kern).items()},
             "kernels": len(kern),
             "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
                     for k, (us, n) in top]}
     emit({"phase": "lm_profile", **rows})
+    check(rows["prefill"]["ssd_ms"] > 0, "the prefill trace shows no SSD pass")
+    check(set(rows["prefill"]["ssd_pass_ms"]) == set(SASS_KERNELS["ssd"]),
+          f"SSD passes in the prefill trace: {rows['prefill']['ssd_pass_ms']}")
+    check(rows["decode_4_steps"]["ssd_ms"] == 0, "an SSD pass in the decode")
 
 
 def main():
@@ -636,7 +699,7 @@ def main():
     emit({"phase": "build",
           "seconds": {k: r["seconds"] for k, r in builds.items()},
           "wall_s": time.perf_counter() - t0})
-    sass_phase(builds["flash_attention"]["path"])
+    sass_phase({k: r["path"] for k, r in builds.items()})
     kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
                "ssd": ssd_kernel_phase(ssd, ref, peaks)}
 

@@ -22,7 +22,6 @@ import ctypes
 import json
 import math
 import statistics
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -100,10 +99,7 @@ def main(argv=None) -> int:
         raise SystemExit("attention_ab needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = timing.card()
     print(card, flush=True)
     with ThreadPoolExecutor(2) as pool:
         base = pool.submit(_build.build, "flash_attention_baseline",

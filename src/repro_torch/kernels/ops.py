@@ -4,8 +4,10 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain PyTorch version (``ref.py``).  There is no environment override and
 no fallback: a kernel that fails to build or launch raises.
 
-``LAUNCHES`` counts kernel launches, so that a run can show that it went
-through the kernels; callers reset it by assigning 0 to an entry.
+``LAUNCHES`` counts the calls that went to a kernel, so that a run can
+show that it went through the kernels; callers reset it by assigning 0 to
+an entry.  It counts calls of the function, one per model block, not CUDA
+launches: one ``ssd`` call is three launches (``ssd.cu``'s passes).
 """
 from __future__ import annotations
 

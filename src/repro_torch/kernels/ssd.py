@@ -5,6 +5,12 @@ The source is compiled on first use (``kernels/build.py``) into a shared
 library with a plain C interface, called through ``ctypes`` with raw
 pointers, shapes, strides and PyTorch's current stream.  A failed build or
 launch raises; nothing here falls back to the plain version.
+
+One call is three launches (``ssd.cu`` explains them): C·Bᵀ once per
+(batch, group, chunk), the states chunk after chunk, and the output of
+every chunk in parallel.  The wrapper allocates their two f32 scratches
+(``scratch_shapes``).  Every product runs on the tensor cores in TF32; one
+of f32 operands as three TF32 products (``plan``).
 """
 from __future__ import annotations
 
@@ -17,8 +23,12 @@ from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).with_name("ssd.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARITH = {torch.float32: "3xtf32-mma.sync",
+          torch.bfloat16: "tf32-mma.sync, f32 operands split"}
 MAX_CHUNK = 128
 MAX_STATE = 128
+MAX_GRID_X = 2 ** 31 - 1
+TILE = 64  # P columns of a block (ssd.cu)
 _LIB = None
 
 
@@ -33,12 +43,42 @@ def _library():
     if _LIB is None:
         lib = ctypes.CDLL(build()["path"])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_fwd.argtypes = [p] * 7 + [i] * 8 + [ll] * 12 + [p]
+        lib.ssd_fwd.argtypes = [p] * 9 + [i] * 9 + [ll] * 12 + [p]
         lib.ssd_fwd.restype = i
         lib.ssd_error_string.argtypes = [i]
         lib.ssd_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _round8(v: int) -> int:
+    return (v + 7) // 8 * 8
+
+
+def scratch_shapes(bs: int, l: int, h: int, p: int, g: int, n: int,
+                   q: int) -> dict:
+    """The kernel's f32 scratches for a call with chunk q (<= L): ``cb``,
+    C·Bᵀ per (batch, chunk, group), and ``h_in``, the state entering each
+    chunk after the first; QS and NP are q and N rounded up to 8."""
+    nch = -(-l // q)
+    return {"cb": (bs, nch, g, _round8(q), _round8(q)),
+            "h_in": (bs, nch - 1, h, p, _round8(n))}
+
+
+def plan(x, b, c) -> dict:
+    """How the kernel computes these inputs: ``arith`` names the tensor-core
+    arithmetic of x's dtype, ``load`` how x, b and c reach shared memory —
+    ``"cp.async"`` for float32 when P, N, every pointer and every stride (of
+    a dim longer than 1) are multiples of 16 bytes, else ``"scalar"``."""
+    e = 16 // x.element_size()
+    aligned = (x.dtype == torch.float32 and x.shape[-1] % e == 0
+               and b.shape[-1] % e == 0 and all(
+                   t.data_ptr() % 16 == 0
+                   and all(st % e == 0 for st, n in zip(t.stride()[:3],
+                                                        t.shape[:3]) if n > 1)
+                   for t in (x, b, c)))
+    return {"arith": _ARITH[x.dtype],
+            "load": "cp.async" if aligned else "scalar"}
 
 
 def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128):
@@ -68,27 +108,36 @@ def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128):
         raise ValueError(f"chunk {chunk} outside the kernel's 1..{MAX_CHUNK}")
     if bs > 65535 or h > 65535:
         raise ValueError(f"batch {bs} or heads {h} exceed the grid's 65535")
-    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, expected x's CUDA "
-                             f"device {x.device}")
+    q = min(chunk, l)
+    blocks = -(-p // TILE) * -(-l // q)
+    if blocks > MAX_GRID_X or l > MAX_GRID_X:
+        raise ValueError(f"L {l} needs {blocks} output blocks per head, over "
+                         f"the grid's {MAX_GRID_X}")
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.dtype != x.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
                              "x, b, c all float32 or all bfloat16")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit stride on its last dim")
+    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected x's CUDA "
+                             f"device {x.device}")
     dt = dt.float()
     a = a.float().contiguous()
     y = torch.empty((bs, l, h, p), dtype=x.dtype, device=x.device)
     hT = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = {k: torch.empty(s, dtype=torch.float32, device=x.device)
+               for k, s in scratch_shapes(bs, l, h, p, g, n, q).items()}
+    vec = plan(x, b, c)["load"] == "cp.async"
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), hT.data_ptr(), _DTYPES[x.dtype],
-            bs, l, h, p, g, n, min(chunk, l),
+            c.data_ptr(), y.data_ptr(), hT.data_ptr(),
+            scratch["cb"].data_ptr(), scratch["h_in"].data_ptr(),
+            _DTYPES[x.dtype], int(vec), bs, l, h, p, g, n, q,
             *x.stride()[:3], *dt.stride(), *b.stride()[:3], *c.stride()[:3],
             stream)
     if rc != 0:

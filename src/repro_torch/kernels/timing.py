@@ -10,8 +10,17 @@ with readings taken that way.
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 import torch
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def device_ms(fn, iters: int = 50, reps: int = 5, warmup: int = 5) -> float:

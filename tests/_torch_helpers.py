@@ -1,7 +1,8 @@
 """Shared inputs for the parity tests of the PyTorch port (``repro_torch``)
 against the JAX package: the dit-xl-256 and mamba2-1.3b smoke configs of
 both packages and one seeded parameter set of each, handed to each side
-from numpy."""
+from numpy; and a numpy emulation of the kernels' TF32 tensor-core
+products."""
 import functools
 
 import jax
@@ -74,6 +75,33 @@ def to_np(a):
     if isinstance(a, torch.Tensor):
         return a.detach().float().numpy()
     return np.asarray(a, np.float32)
+
+
+def tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest with ties
+    away from zero, keeping 10 mantissa bits."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_rz(x):
+    """Round f32 to TF32 toward zero: clear the 13 bits past TF32's, as the
+    tensor cores read an f32 register given to a TF32 product."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_matmul(a, b, split, rnd=tf32):
+    """a @ b as the kernels' tensor cores compute it in f32: one TF32
+    product, or the 3xTF32 split small·big + big·small + big·big (each
+    product of two TF32 values is exact in f32); ``rnd`` rounds each part
+    to TF32 (``tf32``: to nearest, as the flash-attention kernel rounds;
+    ``tf32_rz``: toward zero, as the SSD kernel does)."""
+    ab, bb = rnd(a), rnd(b)
+    if not split:
+        return ab @ bb
+    asm, bsm = rnd(a - ab), rnd(b - bb)
+    return asm @ bb + ab @ bsm + ab @ bb
 
 
 def close(a, b, **tol):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import close
+from _torch_helpers import close, tf32, tf32_matmul
 from repro.kernels.flash_attention import flash_attention as pallas_fa
 from repro.kernels.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels import flash_attention as tfa, ops, ref
@@ -60,32 +60,14 @@ def test_plain_matches_pallas_and_jax_oracle(case):
     close(jax_ref(jq, jk, jv, **kw), out, **tol)
 
 
-def _tf32(x):
-    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest with ties
-    away from zero, keeping 10 mantissa bits."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _tf32_matmul(a, b, split):
-    """a @ b as the kernel's tensor cores compute it in f32: one TF32
-    product, or the 3xTF32 split small·big + big·small + big·big (each
-    product of two TF32 values is exact in f32)."""
-    ab, bb = _tf32(a), _tf32(b)
-    if not split:
-        return ab @ bb
-    asm, bsm = _tf32(a - ab), _tf32(b - bb)
-    return asm @ bb + ab @ bsm + ab @ bb
-
-
 def _emulated_attention(q, k, v, split):
     """Non-causal attention, (B, L, H, D) f32 numpy, with both products in
     the kernel's TF32 arithmetic and P·V on unnormalized probabilities."""
     qh, kh, vh = (np.swapaxes(a, 1, 2) for a in (q, k, v))   # (B, H, L, D)
-    s = _tf32_matmul(qh, np.swapaxes(kh, -1, -2), split) / np.sqrt(
+    s = tf32_matmul(qh, np.swapaxes(kh, -1, -2), split) / np.sqrt(
         np.float32(q.shape[-1]))
     p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
-    o = _tf32_matmul(p, vh, split) / p.sum(-1, keepdims=True)
+    o = tf32_matmul(p, vh, split) / p.sum(-1, keepdims=True)
     return np.swapaxes(o, 1, 2)
 
 
@@ -108,7 +90,7 @@ def test_tf32_rounding_matches_cvt_rna():
                   -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12], np.float32)
     want = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
                      -(1.0 + 2.0 ** -10), 1.0], np.float32)
-    np.testing.assert_array_equal(_tf32(x), want)
+    np.testing.assert_array_equal(tf32(x), want)
 
 
 def _bad_inputs():
