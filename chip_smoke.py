@@ -37,14 +37,26 @@ exits non-zero:
    whose logits must match the recurrent decode step's;
 9. a ``torch.profiler`` trace of one prefill and of 4 decode steps: device
    time by kernel, the SSD passes' time, and the device's idle share of the
-   wall time.
+   wall time;
+10. the serving stack (``repro_torch.serve``), after the DiT slice on its
+   weights: a ``ServeEngine`` over four store entries (``no_cache``, the
+   slice's SmoothCache artifact, ``static:n=2`` and an adaptive artifact
+   calibrated on 10 samples and loaded through JSON) drains 16 requests, 4
+   per entry, arriving at once (``max_batch`` 4, 2 in flight,
+   ``interleave``).  One line per entry (batches, wall, queue wait and
+   service p50/p95, images/s, realized compute fraction, attention
+   launches = 28 × computed attention steps, host syncs) and a summary
+   (model variants within the program budget; the idle share of a second,
+   traced drain).  One served batch per entry replayed through
+   ``DiffusionPipeline.generate`` must match bitwise, and the adaptive
+   batch replayed at τ = 0 on its own realized decisions gives the per-step
+   cost of the host loop's decision sync.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
 Mamba-2-1.3B's.
 """
 import json
-import math
 import subprocess
 import sys
 import tempfile
@@ -171,6 +183,8 @@ def kernel_phase(fa, ref, peaks):
           f"{bf16_err}")
     bf16_ms = device_ms(lambda: fa.flash_attention_cuda(qb, kb, vb,
                                                         causal=False))
+    bf16_plain_ms = device_ms(lambda: ref.flash_attention_ref(qb, kb, vb,
+                                                              causal=False))
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (qb, kb, vb))
     bf16_library_ms = device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt))
@@ -191,8 +205,8 @@ def kernel_phase(fa, ref, peaks):
                                   lib_kernels[k][0])[:90],
             "flops": flops, "bytes": nbytes,
             "bf16": {**fa.plan(qb, kb, vb), "max_abs_err": bf16_err,
-                     "ms": bf16_ms, "library_ms": bf16_library_ms,
-                     "bound_ms": bf16_bound}}
+                     "ms": bf16_ms, "plain_ms": bf16_plain_ms,
+                     "library_ms": bf16_library_ms, "bound_ms": bf16_bound}}
 
 
 # name fragments of the kernels in each library's SASS; every one of them
@@ -237,22 +251,13 @@ def sass_phase(libs):
     return out
 
 
-def full_width_params(cfg, diffusion):
-    """Seeded full-width parameters on the CPU.  The adaLN-zero init zeroes
-    the modulation and output layers, which would make every prediction 0:
-    each zero-initialized leaf gets N(0,1)/√fan_in, so all 28 blocks
-    contribute and activations stay finite."""
-    from repro_torch.models.transformer import tree_map
-    gen = torch.Generator().manual_seed(SEED)
-    params = diffusion.init_params(gen, cfg, device="cpu")
-
-    def perturb(a):
-        if bool((a == 0).all()):
-            fan_in = a.shape[-2] if a.dim() >= 2 else cfg.d_model
-            a = a + torch.randn(a.shape, generator=gen) / math.sqrt(fan_in)
-        return a
-
-    return tree_map(perturb, params)
+def full_width_params(cfg):
+    """Seeded full-width parameters on the CPU (``serve_diffusion``'s
+    recipe: each zero-initialized adaLN-zero leaf gets N(0,1)/√fan_in, so
+    all 28 blocks contribute and activations stay finite)."""
+    from repro_torch.launch.serve_diffusion import random_params
+    return random_params(torch.Generator().manual_seed(SEED), cfg,
+                         device="cpu")
 
 
 def cross_check_phase(cfg, diffusion, params_cpu, params_gpu):
@@ -354,7 +359,7 @@ def slice_phase(cfg, params, ops):
     emit({"phase": "segmented_vs_eager", "run": "smoothcache:alpha=0.18",
           "bitwise_equal": same})
     check(same, "segmented and eager latents differ")
-    return runs
+    return runs, art
 
 
 def ssd_kernel_phase(ssd, ref, peaks):
@@ -609,6 +614,32 @@ def _traced(fn):
     return wall_us, _kernel_times(prof)
 
 
+def _profiled(fn):
+    """Run ``fn`` once under ``torch.profiler`` recording device activity
+    only: (wall µs, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return wall_us, prof
+
+
+def _device_us(prof, fragment):
+    """(device µs of every CUDA activity, of those whose name holds
+    ``fragment``) from the profiler's raw events, which skips the
+    per-event parsing behind ``key_averages`` (slow over a long window)."""
+    busy = part = 0
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            busy += evt.duration_ns()
+            if fragment in evt.name():
+                part += evt.duration_ns()
+    return busy / 1e3, part / 1e3
+
+
 def dit_profile_phase(cfg, diffusion, params):
     """Where a DiT-XL/2 step's time goes: one full-width denoiser forward at
     B = 8 (4 requests under CFG) after one untraced warm-up forward —
@@ -676,6 +707,230 @@ def lm_profile_phase(cfg, T, params, prompts, toks):
     check(rows["decode_4_steps"]["ssd_ms"] == 0, "an SSD pass in the decode")
 
 
+SERVE_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.18),tau=0.3"
+SERVE_ENTRIES = ("no_cache", "smoothcache:alpha=0.18", "static:n=2",
+                 SERVE_ADAPTIVE)
+
+
+def computed_attn_steps(record, entry):
+    """Steps of one served batch that computed attention; each is one
+    model call at B = 2 × bucket, 28 kernel launches."""
+    if record.decisions is not None:
+        return sum("attn" not in d for d in record.decisions)
+    return int((~entry.schedule.skip["attn"]).sum())
+
+
+def serve_store(cfg, params, smooth_art):
+    """The four-entry store (the adaptive artifact calibrated here on 10
+    samples and loaded back from JSON) and one pipeline per entry to
+    replay served batches."""
+    from repro_torch import serve
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import solvers
+    labels = torch.tensor([(97 * i) % cfg.num_classes for i in range(10)],
+                          device="cuda")
+    calib = DiffusionPipeline(cfg, solvers.ddim(50), SERVE_ADAPTIVE,
+                              cfg_scale=1.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calib.calibrate(params, torch.Generator().manual_seed(SEED + 7), 10,
+                    cond_args={"label": labels})
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    store = serve.ArtifactStore(cfg, solvers.ddim(50), cfg_scale=1.5)
+    replay = {name: DiffusionPipeline(cfg, solvers.ddim(50), name,
+                                      cfg_scale=1.5)
+              for name in SERVE_ENTRIES}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, art in (("smoothcache:alpha=0.18", smooth_art),
+                          (SERVE_ADAPTIVE, calib.artifact)):
+            path = art.save(str(Path(tmp) / f"{len(store)}.cache.json"))
+            store.add_artifact(name, path)
+            replay[name].load_artifact(path, strict=True)
+    store.add_policy("no_cache", "none")
+    store.add_policy("static:n=2", "static:n=2")
+    emit({"phase": "serve_store", "adaptive_calibrate_s": calib_s,
+          "entries": {n: {"adaptive": store.get(n).adaptive,
+                          "static_compute_fraction":
+                              store.get(n).compute_fraction(),
+                          "pool": store.get(n).pool_size()}
+                      for n in SERVE_ENTRIES}})
+    return store, replay
+
+
+def serve_drain(cfg, params, store, ops, executor):
+    """16 requests, 4 per entry, seeds and labels from ``SEED``, all
+    arriving at once on a wall clock; ``max_batch`` 4, 2 in flight,
+    ``interleave``.  Attention launches and decision syncs are attributed
+    to the entry whose run advanced (two entries' runs interleave)."""
+    import numpy as np
+    from repro_torch import serve
+    rng = np.random.RandomState(SEED)
+    reqs = [serve.Request(rid=i, seed=int(rng.randint(1 << 31)),
+                          label=int(rng.randint(cfg.num_classes)),
+                          policy=SERVE_ENTRIES[i % 4]) for i in range(16)]
+    per = {n: {"launches": 0, "host_syncs": 0} for n in SERVE_ENTRIES}
+
+    class CountingEngine(serve.ServeEngine):
+        def _advance(self, fl):
+            before = (ops.LAUNCHES["flash_attention"],
+                      executor.host_sync_count)
+            super()._advance(fl)
+            row = per[fl.mb.group]
+            row["launches"] += ops.LAUNCHES["flash_attention"] - before[0]
+            row["host_syncs"] += executor.host_sync_count - before[1]
+
+    eng = CountingEngine(executor, params, store, max_batch=4,
+                         max_inflight=2, scheduler="interleave")
+    eng.submit(*reqs)
+    eng.run_until_drained()
+    return eng, reqs, per
+
+
+def serve_phase(cfg, params, ops, smooth_art):
+    """The serving stack at full width (see the module docstring, phase
+    10).  Returns the attention launches of the untraced drain."""
+    import numpy as np
+    from repro_torch import serve
+    from repro_torch.core import schedule as schedule_lib, solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.serve.metrics import percentile
+    t_phase = time.perf_counter()
+    store, replay = serve_store(cfg, params, smooth_art)
+    executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    eng, reqs, per = serve_drain(cfg, params, store, ops, executor)
+    launches = dict(ops.LAUNCHES)
+    drain_syncs = executor.host_sync_count
+    check(launches["ssd"] == 0, "SSD launched in the serve drain")
+    check(sorted(eng.results) == list(range(16)),
+          f"served {sorted(eng.results)} of 16 requests")
+    check(all(bool(np.isfinite(x).all()) for x in eng.results.values()),
+          "non-finite served latents")
+    rep = eng.report()
+    for name in SERVE_ENTRIES:
+        entry = store.get(name)
+        recs = [r for r in eng.records if r.group == name]
+        mine = [r for r in reqs if r.policy == name]
+        steps = sum(computed_attn_steps(r, entry) for r in recs)
+        wall = (max(r.finished for r in mine)
+                - min(r.started for r in mine))
+        waits = [r.queue_wait for r in mine]
+        service = [r.service_time for r in mine]
+        row = {"phase": "serve_entry", "entry": name, "batches": len(recs),
+               "buckets": [r.bucket for r in recs], "requests": len(mine),
+               "wall_s": wall, "images_per_s": len(mine) / wall,
+               "queue_wait_s": {"p50": percentile(waits, 50),
+                                "p95": percentile(waits, 95)},
+               "service_s": {"p50": percentile(service, 50),
+                             "p95": percentile(service, 95)},
+               "compute_fraction": float(np.mean(
+                   [r.compute_fraction for r in recs])),
+               "steps": sum(r.num_steps for r in recs),
+               "attn_steps": steps, **per[name]}
+        emit(row)
+        check(row["launches"] == cfg.num_layers * steps,
+              f"{name}: {row['launches']} attention launches, expected "
+              f"{cfg.num_layers} x {steps}")
+        if entry.adaptive:
+            check(row["host_syncs"] == sum(r.num_steps - 1 for r in recs),
+                  f"{name}: {row['host_syncs']} decision syncs")
+            age = {t: 0 for t in cfg.layer_types()}
+            for rec in recs:
+                for step in rec.decisions:
+                    for t in age:
+                        age[t] = age[t] + 1 if t in step else 0
+                        check(age[t] <= entry.k_max,
+                              f"{name}: cache age {age[t]} > k_max")
+        else:
+            check(row["host_syncs"] == 0, f"{name}: host syncs")
+
+    # one served batch per entry, replayed through generate: bitwise
+    replays = {}
+    for name in SERVE_ENTRIES:
+        rec = next(r for r in eng.records if r.group == name)
+        label = torch.tensor(rec.labels, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = replay[name].generate(
+            params, serve.batch_generator(rec.seeds), rec.bucket,
+            label=label, **({"return_decisions": True}
+                            if store.get(name).adaptive else {}))
+        x, dec = out if isinstance(out, tuple) else (out, None)
+        x = x.cpu()
+        wall = time.perf_counter() - t0
+        served = torch.from_numpy(np.stack([eng.results[i]
+                                            for i in rec.rids]))
+        same = bool(torch.equal(x, served)) and dec == rec.decisions
+        replays[name] = {"bucket": rec.bucket, "wall_s": wall,
+                         "ms_per_step": 1e3 * wall / rec.num_steps,
+                         "bitwise_equal": same}
+        check(same, f"{name}: served batch differs from its generate replay")
+    # the decision sync's cost: the adaptive batch with its per-step reads
+    # (A) against the same batch at τ = 0 on its own realized decisions
+    # (B: the same model calls, no reads), in the order A B B A
+    rec = next(r for r in eng.records if r.group == SERVE_ADAPTIVE)
+    entry = store.get(SERVE_ADAPTIVE)
+    realized = schedule_lib.Schedule(
+        {t: np.array([t in d for d in rec.decisions])
+         for t in entry.schedule.skip}, rec.num_steps)
+    served = torch.from_numpy(np.stack([eng.results[i] for i in rec.rids]))
+    label = torch.tensor(rec.labels, device="cuda")
+
+    def run(tau, schedule):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = executor.sample_adaptive(
+            params, serve.batch_generator(rec.seeds), rec.bucket,
+            schedule=schedule, tau=tau, proxy_map=entry.proxy_map,
+            pool=entry.pool(), k_max=entry.k_max, label=label).cpu()
+        check(bool(torch.equal(x, served)),
+              f"the adaptive batch at tau={tau} differs from the served one")
+        return time.perf_counter() - t0
+
+    synced = [replays[SERVE_ADAPTIVE]["wall_s"]]
+    syncs = executor.host_sync_count
+    unsynced = [run(0.0, realized), run(0.0, realized)]
+    check(executor.host_sync_count == syncs, "decision syncs at tau=0")
+    synced.append(run(entry.tau, entry.schedule))
+    emit({"phase": "serve_replay", "replays": replays,
+          "adaptive_sync_cost": {
+              "steps": rec.num_steps, "synced_s": synced,
+              "unsynced_s": unsynced,
+              "ms_per_step": 1e3 * (sum(synced) - sum(unsynced)) / 2
+              / (rec.num_steps - 1)}})
+
+    # a second drain under the profiler (device activity only): the
+    # device's idle share
+    wall_us, prof = _profiled(lambda: serve_drain(
+        cfg, params, store, ops, SmoothCacheExecutor(cfg, solvers.ddim(50),
+                                                     cfg_scale=1.5)))
+    busy, attn_us = _device_us(prof, "attn_fwd")
+    row = {"phase": "serve", "requests": rep["requests"],
+           "batches": rep["batches"], "buckets": rep["buckets"],
+           "drain_s": rep["makespan_s"],
+           "images_per_s": rep["throughput_rps"],
+           "queue_wait_s": rep["queue_wait_s"], "service_s": rep["service_s"],
+           "compute_fraction": rep["compute_fraction"],
+           "model_variants": rep["compiles"]["model_variants"],
+           "variants": rep["compiles"],
+           "program_budget": rep["program_budget"],
+           "host_sync_count": drain_syncs,
+           "launches": launches,
+           "traced_drain": {"wall_ms": wall_us / 1e3,
+                            "device_ms": busy / 1e3,
+                            "idle_share": 1 - busy / wall_us,
+                            "attn_ms": attn_us / 1e3},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check(rep["compiles"]["model_variants"] <= rep["program_budget"],
+          f"{rep['compiles']['model_variants']} model variants over the "
+          f"budget {rep['program_budget']}")
+    check(busy > 0, "the profiler saw no device time in the serve drain")
+    return launches["flash_attention"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -705,7 +960,7 @@ def main():
 
     cfg = configs.get("dit-xl-256")
     t0 = time.perf_counter()
-    params_cpu = full_width_params(cfg, diffusion)
+    params_cpu = full_width_params(cfg)
     params_gpu = tree_map(lambda a: a.cuda(), params_cpu)
     emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
           "d_model": cfg.d_model, "seconds": time.perf_counter() - t0,
@@ -717,7 +972,7 @@ def main():
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    slice_phase(cfg, params_gpu, ops)
+    _, smooth_art = slice_phase(cfg, params_gpu, ops)
     dit_launches = dict(ops.LAUNCHES)
     path = attention_path(cfg, diffusion, fa, params_gpu)
     emit({"phase": "slice", "launches": dit_launches, "attention_path": path,
@@ -726,6 +981,8 @@ def main():
     check(path == {"arith": "3xtf32-mma.sync", "load": "cp.async"},
           f"the DiT slice's attention takes {path}")
     kernels["flash_attention"]["launches"] = dit_launches["flash_attention"]
+    kernels["flash_attention"]["serve_launches"] = serve_phase(
+        cfg, params_gpu, ops, smooth_art)
     del params_gpu
 
     cfg = configs.get("mamba2-1.3b")

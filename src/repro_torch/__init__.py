@@ -2,8 +2,8 @@
 
 The PyTorch port of the JAX package ``repro``: DiT-XL/2 calibration →
 :class:`~repro_torch.cache.artifact.CacheArtifact` → cached DDIM
-generation, with attention on the GPU in a hand-written Hopper kernel
-(``kernels/flash_attention.cu``).  Entry points run on ``cuda`` unless the
+generation → serving (:mod:`repro_torch.serve`), with attention on the GPU
+in a hand-written Hopper kernel (``kernels/flash_attention.cu``).  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no GPU and no ``device`` they raise.
 
     from repro_torch import configs

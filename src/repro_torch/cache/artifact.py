@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional
 
 import numpy as np
@@ -254,3 +254,28 @@ class CacheArtifact:
         if self.schedule is not None:
             rows.append(self.schedule.summary())
         return "\n".join(rows)
+
+    def at_tau(self, tau: float) -> "CacheArtifact":
+        """Copy of an adaptive artifact re-targeted at another τ rung.
+
+        Everything that costs compilation or calibration is *shared* —
+        curves, schedule, plan, proxy→error map, candidate pool — and only
+        the runtime threshold changes (in both the stored policy config
+        and the adaptive payload, so ``validate_for`` stays consistent).
+        This is the τ-ladder seam: every rung built this way dispatches
+        the same pool signatures."""
+        if not self.adaptive:
+            raise ValueError("at_tau needs an artifact with an adaptive "
+                             "payload (calibrated under an adaptive "
+                             "policy)")
+        tau = float(tau)
+        if tau < 0:
+            raise ValueError(f"tau must be >= 0, got {tau}")
+        pol = dict(self.policy)
+        if pol.get("name") not in ("adaptive", "teacache"):
+            raise ValueError(
+                f"at_tau needs an adaptive stored policy, artifact has "
+                f"{pol.get('name')!r}")
+        pol["tau"] = tau
+        return replace(
+            self, policy=pol, adaptive={**self.adaptive, "tau": tau})

@@ -171,12 +171,18 @@ class DiffusionPipeline:
     # -- generation ----------------------------------------------------------
 
     def generate(self, params, generator, batch: int, *, label=None,
-                 schedule=_UNSET, compiled: bool = True):
+                 schedule=_UNSET, compiled: bool = True,
+                 return_decisions: bool = False):
         """Sample a batch under the pipeline's schedule.  ``schedule=`` (a
         Schedule, a policy spec, or None for the uncached baseline)
         overrides per call; ``compiled=True`` takes the segmented-plan
         path (reusing the pipeline's pre-analyzed plan), ``False`` the
-        eager reference path."""
+        eager reference path.
+
+        Adaptive policies run the executor's host-dispatched
+        ``sample_adaptive`` loop; ``return_decisions=True`` also returns
+        the realized per-step skip sets.  An explicit ``schedule=``
+        override, or ``compiled=False``, takes the static paths."""
         if schedule is _UNSET:
             sch = self._schedule
             if sch is None and self.policy.requires_calibration:
@@ -188,14 +194,24 @@ class DiffusionPipeline:
                                         self.solver.num_steps)
                 self._schedule = sch
             if isinstance(self.policy, AdaptivePolicy) and compiled:
-                raise NotImplementedError(
-                    "input-adaptive generation is not ported yet (ROADMAP "
-                    "queue 1, item 6: executor, adaptive paths); pass "
-                    "compiled=False to run the static base schedule")
+                if self.policy.tau > 0 and self._proxy_map is None:
+                    raise ValueError(
+                        f"policy {self.policy.spec()!r} needs a calibrated "
+                        "proxy map — run calibrate()/load_artifact() before "
+                        "generate()")
+                return self.executor.sample_adaptive(
+                    params, generator, batch, schedule=sch,
+                    tau=self.policy.tau, proxy_map=self._proxy_map,
+                    k_max=self.policy.k_max, label=label,
+                    return_decisions=return_decisions)
         elif schedule is None or isinstance(schedule, Schedule):
             sch = schedule
         else:
             sch = self.schedule_for(schedule)
+        if return_decisions:
+            raise ValueError("return_decisions is only meaningful on the "
+                             "adaptive path (no schedule= override, "
+                             "compiled=True)")
         if compiled:
             plan = self.plan if (sch is not None
                                  and sch is self._schedule) else None

@@ -59,7 +59,9 @@ def _adaptive(base="smoothcache", tau=0.05, k_max=None) -> P.AdaptivePolicy:
     if isinstance(tau, (list, tuple)):
         raise ValueError(
             f"tau={list(tau)} is a τ-ladder spec — one policy per rung, "
-            "not a single policy")
+            "not a single policy; expand it with "
+            "registry.expand_ladder(spec) or register it via "
+            "ArtifactStore.add_ladder()")
     return P.AdaptivePolicy(base=base, tau=tau, k_max=k_max)
 
 
@@ -145,6 +147,32 @@ def get(spec: Union[str, dict, P.CachePolicy]) -> P.CachePolicy:
         raise KeyError(
             f"unknown cache policy {name!r}; registered: {names()}")
     return _REGISTRY[name](**kwargs)
+
+
+def expand_ladder(spec: str):
+    """Expand a τ-ladder spec into one adaptive policy per rung.
+
+    ``"adaptive:base=smoothcache(alpha=0.18),tau=[0.0,0.05,0.2]"`` →
+    three :class:`~repro_torch.cache.policy.AdaptivePolicy` instances sharing
+    base (and ``k_max``), with strictly ascending τ values.  The rungs of
+    a ladder serve the *same* artifact — same schedule, proxy map, and
+    candidate pool (``ArtifactStore.add_ladder`` validates that) — so the
+    τ values are the only thing this grammar varies."""
+    name, kwargs = parse(spec)
+    if name not in ("adaptive", "teacache"):
+        raise ValueError(
+            f"a τ ladder is rungs of one adaptive policy; got {name!r} "
+            f"in {spec!r}")
+    taus = kwargs.pop("tau", None)
+    if not isinstance(taus, (list, tuple)) or not taus:
+        raise ValueError(
+            f"τ-ladder spec needs tau=[v0,v1,...] with at least one "
+            f"rung, got tau={taus!r} in {spec!r}")
+    taus = [float(t) for t in taus]
+    if sorted(taus) != taus or len(set(taus)) != len(taus):
+        raise ValueError(
+            f"ladder taus must be strictly ascending, got {taus}")
+    return [_REGISTRY[name](tau=t, **kwargs) for t in taus]
 
 
 def from_config(cfg: dict) -> P.CachePolicy:

@@ -106,6 +106,51 @@ def rel_l1_change(cur, prev):
     return abs(cur - prev).sum() / (abs(prev).sum() + 1e-12)
 
 
+def rel_l1_change_rows(cur, prev):
+    """Per-sample :func:`rel_l1_change`: reduce over every axis but the
+    leading batch axis, returning one proxy signal per row (in the
+    tensors' dtype, on their device), so a batch-1 run and row i of a
+    batch-B run see the same signal."""
+    dims = tuple(range(1, cur.dim()))
+    return ((cur - prev).abs().sum(dim=dims)
+            / (prev.abs().sum(dim=dims) + 1e-12))
+
+
+def runtime_rule(proxy, acc, lag, a, b, tau, k_max, force_compute=False):
+    """One evaluation of the adaptive reuse rule, vectorized over layer
+    types: estimate the per-type lag-1 error from the proxy signal
+    (``max(a·proxy + b, 0)`` — clamped, so an adversarial fit can never
+    shrink the accumulator while skipping), skip a type while the error
+    accumulated since its last compute stays under ``tau`` and the cache
+    age stays ≤ ``k_max``, and return the updated accumulator/lag state.
+    ``acc``/``a``/``b`` are float32 tensors, ``lag`` int32;
+    ``force_compute`` (step 0, empty cache) overrides every skip."""
+    delta = torch.clamp_min(a * proxy + b, 0.0)
+    skip = ((lag + 1 <= k_max) & (acc + delta < tau)
+            & ~torch.as_tensor(force_compute, device=acc.device))
+    acc = torch.where(skip, acc + delta, 0.0)
+    lag = torch.where(skip, lag + 1, 0)
+    return skip, acc, lag
+
+
+def batch_rule(proxy_rows, acc, lag, a, b, tau, k_max, force_compute=False):
+    """Per-sample adaptive rule over a batch: each row evaluates
+    :func:`runtime_rule` arithmetic against its own ``(B, T)``
+    accumulator/lag state from its own proxy signal, yielding the per-row
+    *desired* skip bits ``want (B, T)``; the batch *realizes* their AND
+    (``realized (T,)`` — one model call refreshes a type's cache for every
+    row, so any row needing a type's compute forces it for the batch).
+    acc/lag update against the realized bits, so a batch of one realizes
+    exactly its solo trajectory."""
+    delta = torch.clamp_min(a * proxy_rows[:, None] + b[None, :], 0.0)
+    want = ((lag + 1 <= k_max) & (acc + delta < tau)
+            & ~torch.as_tensor(force_compute, device=acc.device))
+    realized = want.all(dim=0)                                   # (T,)
+    acc = torch.where(realized[None, :], acc + delta, 0.0)
+    lag = torch.where(realized[None, :], lag + 1, 0)
+    return want, realized, acc, lag
+
+
 def proxy_signal(cur, prev) -> float:
     """Relative L1 change of the model input between consecutive steps —
     one scalar per step over the whole batch, in float64 on the host."""

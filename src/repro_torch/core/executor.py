@@ -1,10 +1,12 @@
-"""SmoothCache execution engine (static schedules).
+"""SmoothCache execution engine.
 
 Runs a diffusion sampler where each step's per-type skip mask comes from a
-static `Schedule`.  A skipped type's branches are not computed: their
-outputs come from an explicit branch cache threaded between steps.
+static `Schedule`, or — on the input-adaptive path — from a per-step
+decision over the schedule's candidate pool.  A skipped type's branches
+are not computed: their outputs come from an explicit branch cache
+threaded between steps.
 
-Two paths, bitwise equal on the same inputs:
+Two static paths, bitwise equal on the same inputs:
 
 * ``sample`` — **eager**: every computed branch is collected and merged
   into a full-structure cache.  The reference path, and the one
@@ -16,18 +18,32 @@ Two paths, bitwise equal on the same inputs:
   entries.  A segment is a Python loop over its steps; ``start_run`` /
   ``advance_run`` expose it one segment at a time.
 
+The adaptive path, ``sample_adaptive`` (``start_adaptive_run`` /
+``advance_adaptive_run``), is the host-dispatched loop: each step evaluates
+the reuse rule on the device, reads the realized skip bits on the host
+(one device→host sync per τ > 0 step, counted in ``host_sync_count``) and
+runs the matching pool signature.
+
+Eager PyTorch compiles nothing, so where the JAX package counts compiled
+programs the executor records every distinct model-call *variant* it
+dispatches, as ``(kind, signature, batch)`` with kinds ``"seg"``,
+``"sigstep"`` and ``"eager"`` (``fn_keys``, ``compiled_variant_count``):
+the shapes a compiled version would specialize on, which the serving
+program budget bounds.
+
 Classifier-free guidance doubles the batch ([cond; uncond]) exactly as in
 the paper's DiT-XL protocol; the cache covers both halves.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.core import calibration
 from repro_torch.core import diffusion, plan as plan_lib, schedule as schedule_lib
 from repro_torch.core.solvers import Solver
 
@@ -139,6 +155,44 @@ class RunState:
     def num_steps(self) -> int:
         return self.plan.num_steps
 
+    #: adaptive runs record realized skip sets; static runs have none
+    decisions = None
+
+
+@dataclasses.dataclass
+class AdaptiveRunState:
+    """In-flight state of one host-dispatched input-adaptive run (one step
+    per ``advance_adaptive_run``: decision, model call, solver step).  The
+    accumulator/lag decision state lives on the run's device (float32 /
+    int32 over ``pool_types``); only the realized skip *bits* cross to the
+    host — one small device→host sync per τ > 0 step."""
+    x: Any
+    cache: Any
+    step: int                                # next step to execute
+    x_prev: Any                              # model input of previous step
+    acc: Any                                 # (B, T) f32 per-row est. error
+    lag: Any                                 # (B, T) i32 per-row cache age
+    decisions: Tuple[tuple, ...]             # realized per-step skip sets
+    schedule: Any
+    tau: float
+    by_skipset: Dict[frozenset, plan_lib.ProgramSig]
+    pool_types: Tuple[str, ...]              # acc/lag/coeff column order
+    coeff_a: Any                             # (T,) f32 proxy-map slopes
+    coeff_b: Any                             # (T,) f32 proxy-map intercepts
+    k_max: int
+    label: Any = None
+    #: (B,) bool tensor — per-sample numerical health, folding in the
+    #: decision accumulator's per-row finiteness; never read per step
+    healthy: Any = None
+
+    @property
+    def done(self) -> bool:
+        return self.step >= self.schedule.num_steps
+
+    @property
+    def num_steps(self) -> int:
+        return self.schedule.num_steps
+
 
 class SmoothCacheExecutor:
     """Owns the plan memo and the sampling loops for one model config,
@@ -154,6 +208,30 @@ class SmoothCacheExecutor:
         self.cfg_scale = cfg_scale
         self.device = resolve_device(device)
         self._plans = {}
+        self._variants = set()
+        #: per-step device→host decision syncs of the host-dispatched
+        #: adaptive loop (one per τ > 0 step)
+        self.host_sync_count: int = 0
+
+    #: no on-device adaptive program and no run-state split/merge yet:
+    #: a serving engine takes the host loop and refuses continuous batching
+    supports_fused_adaptive = False
+    supports_split = False
+
+    # -- instrumentation -----------------------------------------------------
+
+    def _dispatch(self, kind: str, signature, batch: int) -> None:
+        self._variants.add((kind, signature, batch))
+
+    def fn_keys(self, kind: Optional[str] = None):
+        """Distinct ``(kind, signature, batch)`` model-call variants
+        dispatched so far (all kinds, or one)."""
+        return [k for k in self._variants if kind is None or k[0] == kind]
+
+    def compiled_variant_count(self, kind: Optional[str] = None) -> int:
+        """Number of distinct model-call variants dispatched — the shapes
+        a compiled version would build one program each for."""
+        return len(self.fn_keys(kind))
 
     # -- plan resolution -----------------------------------------------------
 
@@ -226,8 +304,10 @@ class SmoothCacheExecutor:
         traj = []
         for s in range(s_total):
             t = self._times(s, batch)
+            mask_key = schedule.mask_key_at(s) if caching else None
+            self._dispatch("eager", (mask_key, cache is not None), batch)
             if caching:
-                skip = dict(schedule.mask_key_at(s))
+                skip = dict(mask_key)
                 pred, computed = self._model_call(
                     params, x, t, label, cache, skip=skip, collect=True)
                 cache = (computed if cache is None
@@ -275,6 +355,7 @@ class SmoothCacheExecutor:
         skip, collect = sig.skip, frozenset(sig.collect)
         reads = any(skip.values())
         x, cache, healthy = rs.x, rs.cache, rs.healthy
+        self._dispatch("seg", sig, x.shape[0])
         for s in range(run.start, run.start + run.length):
             pred, computed = self._model_call(
                 params, x, self._times(s, x.shape[0]), rs.label,
@@ -325,3 +406,137 @@ class SmoothCacheExecutor:
         return self.sample_with_plan(params, generator, batch, plan=plan,
                                      schedule=schedule, label=label,
                                      check=check)
+
+    # -- input-adaptive runtime dispatch ------------------------------------
+
+    def sample_adaptive(self, params, generator, batch: int, *, schedule,
+                        tau: float, proxy_map=None, pool=None, k_max: int = 3,
+                        label=None, return_decisions: bool = False):
+        """Input-adaptive sampler: per-step reuse decisions dispatched over
+        the schedule's candidate pool (the mask lattice over its
+        ever-skipped types).
+
+        ``tau == 0`` follows the base ``schedule`` verbatim (bitwise
+        :meth:`sample_compiled` on the same schedule).  With ``tau > 0``,
+        before each model call the proxy signal (per-row relative L1
+        change of the latent) is mapped through the calibrated
+        ``proxy_map`` to a per-type error estimate; a type is reused while
+        the error accumulated since its last compute stays under ``tau``
+        and the cache age stays ≤ ``k_max`` (``calibration.batch_rule``).
+        ``return_decisions=True`` also returns the realized per-step skip
+        sets (tuple of sorted type tuples)."""
+        rs = self.start_adaptive_run(
+            params, generator, batch, schedule=schedule, tau=tau,
+            proxy_map=proxy_map, pool=pool, k_max=k_max, label=label)
+        while not rs.done:
+            rs = self.advance_adaptive_run(params, rs)
+        if return_decisions:
+            return rs.x, rs.decisions
+        return rs.x
+
+    def _adaptive_setup(self, schedule, tau, proxy_map, pool, k_max):
+        """Validation + pool derivation of the adaptive path.  Returns
+        ``(schedule, tau, by_skipset, pool_types, coeff_a, coeff_b)`` with
+        the proxy-map coefficients stacked on the device (zeros when τ = 0
+        never evaluates them)."""
+        s_total = self.solver.num_steps
+        if schedule is None:
+            schedule = schedule_lib.no_cache(self.cfg.layer_types(), s_total)
+        if schedule.num_steps != s_total:
+            raise ValueError(f"schedule has {schedule.num_steps} steps, "
+                             f"solver {s_total}")
+        tau = float(tau)
+        if tau < 0:
+            raise ValueError(f"tau must be >= 0, got {tau}")
+        if int(k_max) < 1:
+            raise ValueError(
+                f"adaptive k_max must be >= 1, got {k_max} — k_max=0 "
+                "would dispatch the whole candidate pool yet never reuse "
+                "a cache entry (silently behaving like no_cache)")
+        if tau > 0 and proxy_map is None:
+            raise ValueError(
+                "sample_adaptive with tau > 0 needs a calibrated proxy_map "
+                "(calibrate the adaptive policy or load its artifact)")
+        if pool is None:
+            pool = plan_lib.mask_lattice(schedule)
+        by_skipset = plan_lib.pool_index(pool)
+        pool_types = tuple(sorted(frozenset().union(*by_skipset)))
+        if tau > 0:
+            try:
+                a, b = proxy_map.stacked(pool_types)
+            except KeyError as e:
+                raise ValueError(f"proxy_map lacks coefficients for the "
+                                 f"candidate pool — recalibrate: {e}")
+        else:
+            a = b = torch.zeros(len(pool_types))
+        coeff_a, coeff_b = (torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.device)
+                            for v in (a, b))
+        return schedule, tau, by_skipset, pool_types, coeff_a, coeff_b
+
+    def start_adaptive_run(self, params, generator, batch: int, *, schedule,
+                           tau: float, proxy_map=None, pool=None,
+                           k_max: int = 3, label=None) -> AdaptiveRunState:
+        """Begin a resumable host-dispatched adaptive run: validate the
+        decision parameters, index the candidate pool, draw the initial
+        latent.  Drive it with :meth:`advance_adaptive_run` (one step per
+        call); start + advance-until-done is :meth:`sample_adaptive`."""
+        schedule, tau, by_skipset, pool_types, coeff_a, coeff_b = \
+            self._adaptive_setup(schedule, tau, proxy_map, pool, k_max)
+        shape = (batch, len(pool_types))
+        return AdaptiveRunState(
+            x=self.initial_latent(generator, batch),
+            cache=empty_branch_cache(self.cfg), step=0, x_prev=None,
+            acc=torch.zeros(shape, dtype=torch.float32, device=self.device),
+            lag=torch.zeros(shape, dtype=torch.int32, device=self.device),
+            decisions=(), schedule=schedule, tau=tau, by_skipset=by_skipset,
+            pool_types=pool_types, coeff_a=coeff_a, coeff_b=coeff_b,
+            k_max=int(k_max), label=label,
+            healthy=torch.ones(batch, dtype=torch.bool, device=self.device))
+
+    def advance_adaptive_run(self, params,
+                             rs: AdaptiveRunState) -> AdaptiveRunState:
+        """Advance an in-flight adaptive run by one step: evaluate the
+        decision rule on the device, read the realized skip bits on the
+        host (the one per-step sync of this path, τ > 0 only), run the
+        model under the matching pool signature and the solver step.
+        Step 0 computes every type (the cache is empty); a skipped type
+        reads the entry its last compute wrote."""
+        if rs.done:
+            raise ValueError("run is already complete")
+        s, x = rs.step, rs.x
+        acc, lag = rs.acc, rs.lag
+        if s == 0:
+            skipset = frozenset()
+        elif rs.tau == 0.0:
+            # the offline schedule verbatim (bitwise sample_compiled)
+            skipset = frozenset(t for t, sk in rs.schedule.mask_key_at(s)
+                                if sk)
+        else:
+            _, realized, acc, lag = calibration.batch_rule(
+                calibration.rel_l1_change_rows(x, rs.x_prev), rs.acc,
+                rs.lag, rs.coeff_a, rs.coeff_b, rs.tau, rs.k_max)
+            bits = realized.tolist()
+            self.host_sync_count += 1       # the per-step device→host sync
+            skipset = frozenset(t for t, hit in zip(rs.pool_types, bits)
+                                if hit)
+        sig = rs.by_skipset.get(skipset)
+        if sig is None:
+            raise ValueError(
+                f"static schedule mask at step {s} skips "
+                f"{sorted(skipset)}, absent from the candidate pool — "
+                "derive the pool from this schedule via mask_lattice()")
+        self._dispatch("sigstep", sig, x.shape[0])
+        collect = frozenset(sig.collect)
+        pred, computed = self._model_call(
+            params, x, self._times(s, x.shape[0]), rs.label,
+            rs.cache if skipset else None, skip=sig.skip, collect=collect)
+        cache = pruned_branch_caches(self.cfg, computed, rs.cache, collect,
+                                     sig.structure)
+        x_next = self.solver.step(x, pred, s)
+        healthy = (rs.healthy & _rows_finite(x_next)
+                   & torch.isfinite(acc).all(dim=-1))
+        return dataclasses.replace(
+            rs, x=x_next, cache=cache, step=s + 1, x_prev=x, acc=acc,
+            lag=lag, healthy=healthy,
+            decisions=rs.decisions + (tuple(sorted(skipset)),))

@@ -303,3 +303,8 @@ def mask_lattice(schedule) -> Tuple[ProgramSig, ...]:
         collect = tuple(sorted(t for t in ever if t not in skipset))
         pool.append(ProgramSig(mask=mask, collect=collect))
     return tuple(pool)
+
+
+def pool_index(pool) -> Dict[frozenset, ProgramSig]:
+    """Runtime dispatch table: frozenset of skipped types → signature."""
+    return {frozenset(sig.live_in): sig for sig in pool}

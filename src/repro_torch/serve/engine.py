@@ -1,0 +1,502 @@
+"""Step-interleaved serving engine.
+
+The engine drains a :class:`~repro_torch.serve.request.RequestQueue`
+through the executor's **resumable stepping API**: ``start_run`` /
+``advance_run`` for static plans (one
+:class:`~repro_torch.core.plan.ExecutionPlan` segment per advance) and,
+for adaptive entries, the host-dispatched ``start_adaptive_run`` /
+``advance_adaptive_run`` loop (``adaptive_chunk`` steps per advance, one
+decision sync per τ > 0 step).  Several in-flight micro-batches timeslice
+the device: which one advances each tick is decided by a pluggable
+:class:`repro_torch.slo.SchedulingPolicy` — the default ``interleave``
+(round-robin, so a short, heavily-cached schedule admitted behind a
+full-compute one finishes early instead of convoying behind it), ``fcfs``
+(the convoy baseline) or ``edf`` (least-slack-first over member
+deadlines).  Preemption granularity is the advance unit — a batch is never
+torn mid-step.
+
+SLO semantics (optional): requests may carry a :class:`repro_torch.slo.SLO`;
+each tick first sheds quality-infeasible requests (no registered rung at
+or below the request's ``max_tau``).  Every rejection is recorded with a
+reason in ``ServeEngine.shed`` and the metrics — :meth:`ServeEngine.outcome`
+resolves any rid.
+
+Determinism contract: a micro-batch over requests ``[r0..rn-1]`` samples
+with ``batch_generator(seeds)`` — serving a batch is *bit-identical* to
+calling ``DiffusionPipeline.generate(params, batch_generator(seeds), n,
+label=...)`` with the same store entry, because start + advance-until-done
+executes exactly the ops of ``sample_with_plan`` / ``sample_adaptive``.
+Torch cannot reproduce JAX's random bits, so the generator is the port's
+own; the contract, not the bits, is the JAX package's.
+
+Program budget: model-call variants specialize on (signature, batch
+shape), so the variants the engine dispatches are bounded by |buckets| ×
+Σ per-entry signature pool — :meth:`ServeEngine.report` shows the
+executor's total ``model_variants`` against :meth:`program_budget`.
+Eager PyTorch compiles nothing: the count is of dispatched shapes, the
+programs a compiled version would build.
+
+Not ported yet (``ROADMAP.md`` queue 1): the fused on-device adaptive
+path (item 7), and continuous batching, admission control, the elastic
+τ controller, resilience, telemetry and durability (item 8).  Their
+constructor arguments raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.obs import NULL_TRACER, MetricsRegistry
+from repro_torch.serve.batcher import MicroBatch, MicroBatcher, bucket_sizes
+from repro_torch.serve.metrics import ServerMetrics
+from repro_torch.serve.request import Request, RequestQueue, WallClock
+from repro_torch.serve.store import ArtifactStore
+from repro_torch.slo.admission import LoadEstimator, ServiceCostModel
+from repro_torch.slo.policy import resolve_policy
+from repro_torch.slo.slo import remaining_steps
+
+#: built-in scheduler names (resolved through repro_torch.slo.resolve_policy)
+SCHEDULERS = ("interleave", "fcfs", "edf")
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """SplitMix64's finalizer: a bijective 64-bit mix."""
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def batch_seed(seeds: Sequence[int]) -> int:
+    """Deterministic 64-bit seed of a micro-batch: an order-sensitive fold
+    of ``len(seeds)`` and each member seed's low 32 bits (seeds differing
+    only in bit 31 give different batches)."""
+    h = _mix64(len(seeds))
+    for s in seeds:
+        h = _mix64(h ^ (int(s) & 0xFFFFFFFF))
+    return h
+
+
+def batch_generator(seeds: Sequence[int]) -> torch.Generator:
+    """The CPU generator a micro-batch samples its noise from.  Exposed so
+    tests and clients can replay any served batch through
+    ``DiffusionPipeline.generate`` and get bit-identical latents."""
+    return torch.Generator().manual_seed(batch_seed(seeds))
+
+
+@dataclasses.dataclass
+class BatchRecord:
+    """Provenance of one served micro-batch (enough to replay it)."""
+    group: str
+    version: int
+    bucket: int
+    rids: Tuple[int, ...]
+    seeds: Tuple[int, ...]
+    labels: Tuple[Optional[int], ...]
+    num_steps: int
+    compute_fraction: float
+    formed_at: float
+    finished_at: float
+    decisions: Optional[Tuple[tuple, ...]] = None   # adaptive runs only
+    tau: float = 0.0                          # realized τ (rung at launch)
+    quality_cost: Optional[float] = None      # predicted, from proxy map
+
+
+class _EagerState:
+    """Run-state stand-in for the ``eager`` escape hatch (whole batch
+    sampled in one advance; no interleaving)."""
+
+    def __init__(self):
+        self.x = None
+        self.decisions = None
+
+    @property
+    def done(self) -> bool:
+        return self.x is not None
+
+
+@dataclasses.dataclass
+class _Inflight:
+    mb: MicroBatch
+    kind: str                                 # "plan" | "adaptive" | "eager"
+    rs: object
+    label: object
+    #: tracer track of this run's span (0 = tracing off at launch) and the
+    #: engine-wide batch serial the track is named after
+    track: int = 0
+    serial: int = 0
+
+
+def _not_ported(where: str, what: str, item: int):
+    raise NotImplementedError(
+        f"{where}: {what} is not ported yet — ROADMAP.md queue 1, "
+        f"item {item}")
+
+
+class ServeEngine:
+    """Queue → batcher → interleaved executor runs → metrics.  Runs on the
+    executor's device; ``results`` hold numpy rows."""
+
+    def __init__(self, executor, params, store: ArtifactStore, *,
+                 clock=None, max_batch: int = 8, max_wait: float = 0.0,
+                 max_inflight: int = 2, scheduler="interleave",
+                 adaptive_chunk: int = 4, eager: bool = False,
+                 check: bool = False, cost_model=None, tracer=None,
+                 registry=None, continuous: bool = False, admission=None,
+                 resilience=None, telemetry: bool = False, journal=None,
+                 snapshot_dir=None):
+        if continuous:
+            _not_ported("ServeEngine(continuous=True)", "continuous "
+                        "batching (joins, regroup, coalesce, split-retry)", 8)
+        if admission is not None:
+            _not_ported("ServeEngine(admission=)", "admission control", 8)
+        if resilience is not None:
+            _not_ported("ServeEngine(resilience=)", "fault recovery", 8)
+        if telemetry:
+            _not_ported("ServeEngine(telemetry=True)",
+                        "per-request cache telemetry", 8)
+        if journal is not None or snapshot_dir is not None:
+            _not_ported("ServeEngine(journal=/snapshot_dir=)",
+                        "durable serving", 8)
+        if getattr(executor, "supports_fused_adaptive", False):
+            _not_ported("ServeEngine(executor with supports_fused_adaptive)",
+                        "the fused on-device adaptive path", 7)
+        if max_inflight < 1:
+            raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+        if adaptive_chunk < 1:
+            raise ValueError(f"adaptive_chunk must be >= 1, got "
+                             f"{adaptive_chunk}")
+        self.executor = executor
+        self.params = params
+        self.store = store
+        self.clock = clock if clock is not None else WallClock()
+        self.queue = RequestQueue(self.clock)
+        self.batcher = MicroBatcher(self.queue, store, max_batch=max_batch,
+                                    max_wait=max_wait)
+        #: one MetricsRegistry backs every ServerMetrics counter; the
+        #: tracer (NULL_TRACER by default — all hooks are no-ops) records
+        #: the batch lifecycle as Chrome trace events, one track per
+        #: in-flight batch
+        self.registry = registry if registry is not None else \
+            MetricsRegistry()
+        self.metrics = ServerMetrics(registry=self.registry)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        if tracer is not None:
+            store.tracer = tracer
+            self.batcher.tracer = tracer
+        self._serial = 0                      # batch serial (trace tracks)
+        self.policy = resolve_policy(scheduler)
+        self.scheduler = self.policy.name
+        self.cost_model = (cost_model if cost_model is not None
+                           else ServiceCostModel())
+        self.load = LoadEstimator(self.cost_model, batch_factor=max_batch)
+        self.max_inflight = max_inflight
+        self.adaptive_chunk = adaptive_chunk
+        self.eager = eager
+        self.check = check
+        self.results: Dict[int, np.ndarray] = {}
+        self.records: List[BatchRecord] = []
+        self.shed: Dict[int, Tuple[str, float]] = {}   # rid → (reason, t)
+        self._inflight: List[_Inflight] = []
+        self._rids: set = set()               # every rid ever submitted
+        self._sweep_needed = False
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(self, *reqs: Request) -> None:
+        """Enqueue requests (arrival stamped now unless preset).
+
+        Invalid submissions become *reasoned outcomes*, never exceptions
+        that would kill a serving loop mid-stream: an unknown policy name
+        is recorded as a ``no_entry`` shed (``outcome(rid)`` reports it),
+        and a duplicate rid — against *every* rid ever submitted — is
+        dropped and counted, leaving the original request untouched."""
+        now = self.clock.now()
+        accepted = []
+        for r in reqs:
+            if r.rid in self._rids:
+                self.metrics.observe_reject("duplicate_rid")
+                self.tracer.instant("reject", rid=r.rid,
+                                    reason="duplicate_rid")
+                continue
+            self._rids.add(r.rid)
+            if r.policy not in self.store:
+                self.shed[r.rid] = ("no_entry", now)
+                self.metrics.observe_shed(r, "no_entry", now)
+                self.metrics.observe_reject("no_entry")
+                self.tracer.instant("reject", rid=r.rid, reason="no_entry")
+                continue
+            accepted.append(r)
+            if r.max_tau is not None:
+                self._sweep_needed = True
+            if self.tracer.enabled:
+                self.tracer.instant("submit", rid=r.rid, policy=r.policy,
+                                    priority=r.priority)
+        self.queue.submit_many(accepted)
+
+    def outcome(self, rid: int):
+        """Explicit fate of a submitted request — never silently dropped:
+        ``("done", latent)``, ``("shed", reason)``, or ``("pending",
+        None)``."""
+        if rid not in self._rids:
+            raise KeyError(f"rid {rid} was never submitted")
+        if rid in self.results:
+            return ("done", self.results[rid])
+        if rid in self.shed:
+            return ("shed", self.shed[rid][0])
+        return ("pending", None)
+
+    def recover(self, *args, **kwargs):
+        _not_ported("ServeEngine.recover()", "restart recovery", 8)
+
+    # -- SLO sweep (quality floors) -------------------------------------------
+
+    def _backlog_seconds(self, now: float) -> float:
+        """Load estimate: queued steps (batch-amortized) + in-flight
+        remaining steps, priced at the calibrated per-step cost."""
+        queued = []
+        for g in self.queue.ready_groups(now):
+            for r in self.queue.peek(g, now):
+                e = self.store.resolve_entry_for(g, r)
+                queued.append(e.plan.num_steps if e is not None else 0)
+        inflight = [remaining_steps(fl.rs) for fl in self._inflight]
+        return self.load.backlog_seconds(queued, inflight)
+
+    def _shed(self, req: Request, reason: str, now: float) -> None:
+        self.queue.take_rids(req.policy, [req.rid], now)
+        self.shed[req.rid] = (reason, now)
+        self.metrics.observe_shed(req, reason, now)
+        self.tracer.instant("shed", rid=req.rid, reason=reason)
+
+    def _slo_sweep(self, now: float) -> None:
+        """Shed every ready request whose quality floor no registered rung
+        satisfies (or whose entry the health registry marked
+        unhealthy)."""
+        if not self._sweep_needed:
+            return
+        for g in list(self.queue.ready_groups(now)):
+            for r in self.queue.peek(g, now):
+                if self.store.resolve_entry_for(g, r) is None:
+                    reason = ("unhealthy_entry"
+                              if not self.store.health.is_servable(g)
+                              else "quality_floor")
+                    self._shed(r, reason, now)
+
+    # -- scheduling ----------------------------------------------------------
+
+    def _admit(self, now: float) -> None:
+        while len(self._inflight) < self.max_inflight:
+            mb = self.batcher.next_batch(now)
+            if mb is None:
+                break
+            self._launch(mb, now)
+
+    def _begin_track(self, mb: MicroBatch, kind: str) -> Tuple[int, int]:
+        """Allocate the next batch serial and — when tracing — a tracer
+        track with an open ``run`` span."""
+        self._serial += 1
+        serial, track = self._serial, 0
+        if self.tracer.enabled:
+            track = self.tracer.new_track(
+                f"batch#{serial} {mb.entry.name} b{mb.bucket}")
+            self.tracer.begin(track, "run", group=mb.entry.name,
+                              version=mb.entry.version, bucket=mb.bucket,
+                              kind=kind, rids=list(mb.rids))
+        return serial, track
+
+    def _launch(self, mb: MicroBatch, now: float) -> _Inflight:
+        entry = mb.entry
+        gen = batch_generator(mb.seeds)
+        label = None
+        if any(lab is not None for lab in mb.labels):
+            label = torch.tensor([0 if lab is None else int(lab)
+                                  for lab in mb.labels], dtype=torch.int64,
+                                 device=self.executor.device)
+        if self.eager:
+            kind, rs = "eager", _EagerState()
+        elif entry.adaptive:
+            kind = "adaptive"
+            rs = self.executor.start_adaptive_run(
+                self.params, gen, mb.bucket, schedule=entry.schedule,
+                tau=entry.tau, proxy_map=entry.proxy_map,
+                pool=entry.pool(), k_max=entry.k_max, label=label)
+        else:
+            kind = "plan"
+            rs = self.executor.start_run(
+                self.params, gen, mb.bucket, plan=entry.plan,
+                schedule=entry.schedule, label=label)
+        for r in mb.requests:
+            r.started = now
+        serial, track = self._begin_track(mb, kind)
+        fl = _Inflight(mb=mb, kind=kind, rs=rs, label=label, track=track,
+                       serial=serial)
+        self._inflight.append(fl)
+        return fl
+
+    def _advance(self, fl: _Inflight) -> None:
+        if fl.kind == "plan":
+            fl.rs = self.executor.advance_run(self.params, fl.rs,
+                                              check=self.check)
+        elif fl.kind == "adaptive":
+            for _ in range(self.adaptive_chunk):
+                if fl.rs.done:
+                    break
+                fl.rs = self.executor.advance_adaptive_run(self.params,
+                                                           fl.rs)
+        else:                                  # eager escape hatch
+            fl.rs.x = self.executor.sample(
+                self.params, batch_generator(fl.mb.seeds), fl.mb.bucket,
+                schedule=fl.mb.entry.schedule, label=fl.label)
+
+    def _advance_traced(self, fl: _Inflight) -> None:
+        """``_advance`` under a per-advance span on the batch's track —
+        the try/finally keeps B/E pairs matched even when the advance
+        raises, so exported traces always validate."""
+        tr = self.tracer
+        if not tr.enabled or not fl.track:
+            self._advance(fl)
+            return
+        args = {"kind": fl.kind}
+        step = getattr(fl.rs, "step", None)
+        if step is not None:
+            args["step_from"] = int(step)
+        if fl.kind == "plan":
+            args["segment"] = fl.rs.plan.run_label(fl.rs.run_index)
+        tr.begin(fl.track, "advance", **args)
+        try:
+            self._advance(fl)
+        finally:
+            end = {}
+            step = getattr(fl.rs, "step", None)
+            if step is not None:
+                end["step_to"] = int(step)
+            tr.end(fl.track, "advance", **end)
+
+    def _finish(self, fl: _Inflight) -> None:
+        mb, rs = fl.mb, fl.rs
+        # the one device→host copy of a batch (it waits for the device)
+        x = rs.x
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        done = self.clock.now()
+        service = done - mb.requests[0].started
+        for j, r in enumerate(mb.requests):
+            r.finished = done
+            self.results[r.rid] = x[j]
+            self.metrics.observe_request(r)
+        entry = mb.entry
+        num_types = len(entry.schedule.skip)
+        decisions = rs.decisions
+        if decisions:
+            skipped = sum(len(d) for d in decisions)
+            frac = 1.0 - skipped / float(entry.plan.num_steps * num_types)
+        else:
+            frac = entry.compute_fraction()
+        self.metrics.observe_batch(mb.group, mb.bucket, frac,
+                                   entry.plan.num_steps, num_types)
+        # feed the calibrated per-step cost model (service time of the
+        # whole batch — includes interleaving contention)
+        self.cost_model.observe(mb.group, service, entry.plan.num_steps,
+                                bucket=mb.bucket)
+        qcost = entry.predicted_quality_cost(decisions)
+        self.metrics.observe_quality(entry.tau, qcost, n=mb.bucket)
+        if self.tracer.enabled and fl.track:
+            self.tracer.end(fl.track, "run", outcome="done",
+                            compute_fraction=frac)
+        record = BatchRecord(
+            group=mb.group, version=entry.version, bucket=mb.bucket,
+            rids=mb.rids, seeds=mb.seeds, labels=mb.labels,
+            num_steps=entry.plan.num_steps, compute_fraction=frac,
+            formed_at=mb.formed_at, finished_at=done, decisions=decisions,
+            tau=entry.tau, quality_cost=qcost)
+        self.records.append(record)
+        self.policy.on_finish(self, record, mb.requests, done)
+
+    def step(self) -> bool:
+        """One scheduling tick: shed quality-infeasible requests, admit
+        what fits, then advance the in-flight run the scheduling policy
+        selects by one unit (a plan segment / an adaptive step-chunk / a
+        whole eager batch).  Returns False when nothing is runnable *right
+        now* (requests may still be in flight toward their arrival)."""
+        now = self.clock.now()
+        self._slo_sweep(now)
+        self._admit(now)
+        if not self._inflight:
+            return False
+        i = self.policy.select(self, now)
+        fl = self._inflight[i]
+        self._advance_traced(fl)
+        if fl.rs.done:
+            self._inflight.pop(i)
+            self._finish(fl)
+        elif self.policy.rotate():
+            self._inflight.append(self._inflight.pop(i))
+        return True
+
+    def run_until_drained(self) -> Dict[int, np.ndarray]:
+        """Serve until every submitted request has an *outcome* — a result
+        or an explicit shed — sleeping the clock across arrival gaps and
+        batching windows.  Returns {rid: latent row} for the served
+        ones; :meth:`outcome` resolves any rid's fate."""
+        stalled = 0
+        last_now = None
+        while True:
+            if self.step():
+                stalled = 0
+                continue
+            if len(self.queue) == 0:
+                break
+            now = self.clock.now()
+            t = self.batcher.next_event(now)
+            if t is None:
+                raise RuntimeError(
+                    "serve engine stalled: queued requests but no "
+                    "schedulable event")
+            if t <= now:
+                # wall clock crossed an arrival / batching window between
+                # step()'s reading and this one — re-tick.  Under a frozen
+                # VirtualClock a repeat with no progress is a livelock:
+                # fail loudly instead of spinning forever.
+                stalled = stalled + 1 if now == last_now else 0
+                last_now = now
+                if stalled > 64:
+                    raise RuntimeError(
+                        f"serve engine livelocked at t={now}: "
+                        f"next_event={t} never becomes schedulable")
+                continue
+            last_now = now
+            self.clock.sleep_until(t)
+        return self.results
+
+    # -- reporting -----------------------------------------------------------
+
+    def program_budget(self) -> int:
+        """Static upper bound on the shape-specialized model-call variants
+        this deployment may dispatch: |admissible buckets| × Σ per-entry
+        cost — a host-dispatched adaptive entry costs its pool size
+        (2^|ever-skipped| signatures), a static entry its plan's unique
+        signatures.  Independent of the traffic actually served."""
+        buckets = len(bucket_sizes(self.batcher.max_batch))
+        return buckets * sum(self.store.get(name).program_cost(fused=False)
+                             for name in self.store.names())
+
+    #: executor variant kinds that are *model* calls (the budgeted set)
+    MODEL_PROGRAM_KINDS = ("seg", "sigstep", "eager")
+
+    def report(self) -> Dict:
+        counts = {kind: self.executor.compiled_variant_count(kind)
+                  for kind in self.MODEL_PROGRAM_KINDS}
+        variants = {kind: n for kind, n in counts.items() if n}
+        variants["model_variants"] = sum(counts.values())
+        # export the calibrated per-step cost model as registry gauges
+        snap = self.cost_model.snapshot()
+        if snap["global"] is not None:
+            self.registry.set_gauge("slo.step_cost_s", snap["global"])
+        for g, v in snap["per_group"].items():
+            self.registry.set_gauge("slo.step_cost_s", v, group=g)
+        return self.metrics.report(compile_counts=variants,
+                                   program_budget=self.program_budget())

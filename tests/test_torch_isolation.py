@@ -15,7 +15,7 @@ from repro_torch import configs
 from repro_torch.cache import DiffusionPipeline
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import diffusion, executor, solvers
-from repro_torch.launch import serve
+from repro_torch.launch import serve, serve_diffusion
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -29,7 +29,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", bad)
 need = {"repro_torch.launch.serve", "repro_torch.kernels.ssd",
-        "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b"}
+        "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b",
+        "repro_torch.serve.engine", "repro_torch.slo.policy",
+        "repro_torch.obs.tracer", "repro_torch.launch.serve_diffusion"}
 print("MISSING", sorted(need - set(sys.modules)))
 """
 
@@ -63,6 +65,10 @@ def test_entry_points_raise_without_cuda(no_cuda, device):
         params_from_numpy({"w": np.zeros(2, np.float32)}, **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.resolve_device(device)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_diffusion.random_params(torch.Generator(), cfg, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_diffusion.main([*(["--device", device] if device else [])])
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

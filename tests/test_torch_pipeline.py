@@ -149,6 +149,10 @@ def test_port_artifact_roundtrip_keeps_checksum(tmp_path):
 
 
 def test_adaptive_generation_not_ported():
+    """Adaptive generation runs the host-dispatched loop (the fused
+    on-device program is what is not ported): finite latents, one
+    decision per step, step 0 computing everything; ``compiled=False``
+    runs the static base schedule."""
     _, tcfg = smoke_cfgs()
     _, pt = smoke_params()
     pipe = tcache.DiffusionPipeline(tcfg, tsolvers.ddim(6),
@@ -156,6 +160,14 @@ def test_adaptive_generation_not_ported():
                                     cfg_scale=1.5, device="cpu")
     pipe.calibrate(pt, torch.Generator().manual_seed(0), 2,
                    cond_args={"label": torch.tensor(LABELS)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.generate(pt, torch.Generator().manual_seed(1), 2,
-                      label=torch.tensor(LABELS))
+    x, dec = pipe.generate(pt, torch.Generator().manual_seed(1), 2,
+                           label=torch.tensor(LABELS),
+                           return_decisions=True)
+    assert bool(torch.isfinite(x).all()) and len(dec) == 6
+    assert dec[0] == () and pipe.executor.host_sync_count == 5
+    assert not pipe.executor.supports_fused_adaptive
+    x_base = pipe.generate(pt, torch.Generator().manual_seed(1), 2,
+                           label=torch.tensor(LABELS), compiled=False)
+    assert torch.equal(x_base, pipe.executor.sample(
+        pt, torch.Generator().manual_seed(1), 2, schedule=pipe.schedule,
+        label=torch.tensor(LABELS)))
