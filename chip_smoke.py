@@ -7,8 +7,9 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of both CUDA kernels from the checkout's sources, in parallel,
-   and their SASS: tensor-core instructions, registers and local memory
+2. build of both CUDA kernels and of the CUDA graph IF-node helper
+   (``core/cuda_graphs.cu``) from the checkout's sources, in parallel,
+   and the kernels' SASS: tensor-core instructions, registers and local memory
    per flash-attention template instance and per SSD pass (``cuobjdump``);
 3. the flash-attention kernel against its plain PyTorch version over the
    kernel test sweep (each case with its arithmetic and load path) and at
@@ -47,15 +48,45 @@ exits non-zero:
    service p50/p95, images/s, realized compute fraction, attention
    launches = 28 × computed attention steps, host syncs) and a summary
    (model variants within the program budget; the idle share of a second,
-   traced drain).  One served batch per entry replayed through
+   traced drain, whose attention kernels, counted in its device trace,
+   must be 28 × its computed attention steps).  One served batch per
+   entry replayed through
    ``DiffusionPipeline.generate`` must match bitwise, and the adaptive
    batch replayed at τ = 0 on its own realized decisions gives the per-step
-   cost of the host loop's decision sync.
+   cost of the host loop's decision sync.  The adaptive entry rides the
+   fused path: its graph replays launch the attention kernel without a
+   Python call, so its check counts each new graph's warm-up and captured
+   calls (28 per attention-computing branch); it makes no decision
+   sync;
+11. the fused adaptive path (``fused``, ~20 s): the serve phase's adaptive
+   artifact, 4 requests (B = 8 in the kernel) — capture seconds, graph
+   count and device memory around the capture (warm-up and captured
+   attention calls counted from 0), the run state's copy into the
+   graph's buffers and out (CUDA events); fused ≡ host loop
+   (decisions and latents, bitwise) with the replays under
+   ``torch.cuda.set_sync_debug_mode("error")`` and ``host_sync_count`` 0;
+   τ = 0 fused ≡ ``sample_compiled``; chunks of 4 ≡ one call; a graph
+   first captured for a run split at its last step (finite, and a repeat
+   on the built graph bitwise); the fused batch's and the host loop's
+   walls in the order A B B A; the idle share of one traced fused batch,
+   whose attention kernels, counted in the trace, must be 28 × its
+   computed attention steps;
+12. continuous batching (``continuous``, ~25 s): the SmoothCache artifact,
+   ``static:n=2`` and the adaptive artifact, ``max_batch`` 4, 2 in flight,
+   ``adaptive_chunk`` 4, a wall clock, 2 requests per entry at t = 0 and 2
+   more at t ≈ 0.3 s; with and without ``continuous=True``: joins, merges,
+   regroups, coalesces, variants against the budget, images/s, queue wait
+   and service p50/p95 (joins ≥ 1, merges ≥ 1, variants within the budget
+   are checked); every served request against its own solo ``generate``
+   (B = 1): the max abs difference per row, which must stay within 1e-4
+   of the row's largest |latent|, beside the DiT GEMMs' row stability
+   across batch shapes.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
 Mamba-2-1.3B's.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -628,16 +659,19 @@ def _profiled(fn):
 
 
 def _device_us(prof, fragment):
-    """(device µs of every CUDA activity, of those whose name holds
-    ``fragment``) from the profiler's raw events, which skips the
-    per-event parsing behind ``key_averages`` (slow over a long window)."""
-    busy = part = 0
+    """(device µs of every CUDA activity, device µs of those whose name
+    holds ``fragment``, their count) from the profiler's raw events, which
+    skips the per-event parsing behind ``key_averages`` (slow over a long
+    window).  Kernels replayed from a CUDA graph are traced one by one,
+    those of an IF body only when its predicate held."""
+    busy = part = count = 0
     for evt in prof.profiler.kineto_results.events():
         if evt.device_type() == torch.autograd.DeviceType.CUDA:
             busy += evt.duration_ns()
             if fragment in evt.name():
                 part += evt.duration_ns()
-    return busy / 1e3, part / 1e3
+                count += 1
+    return busy / 1e3, part / 1e3, count
 
 
 def dit_profile_phase(cfg, diffusion, params):
@@ -714,10 +748,21 @@ SERVE_ENTRIES = ("no_cache", "smoothcache:alpha=0.18", "static:n=2",
 
 def computed_attn_steps(record, entry):
     """Steps of one served batch that computed attention; each is one
-    model call at B = 2 × bucket, 28 kernel launches."""
+    model call at B = 2 × bucket, 28 kernel launches (replayed from a
+    captured graph on the fused path)."""
     if record.decisions is not None:
         return sum("attn" not in d for d in record.decisions)
     return int((~entry.schedule.skip["attn"]).sum())
+
+
+def attn_branches(graph_stats):
+    """Branches of a fused graph whose model call computes attention
+    (their IF bodies hold the captured attention launches)."""
+    types, n = graph_stats["types"], graph_stats["branches"]
+    if "attn" not in types:                  # the pool never skips it
+        return n
+    bit = types.index("attn")
+    return sum(1 for code in range(n) if not code >> bit & 1)
 
 
 def serve_store(cfg, params, smooth_art):
@@ -769,16 +814,22 @@ def serve_drain(cfg, params, store, ops, executor):
     reqs = [serve.Request(rid=i, seed=int(rng.randint(1 << 31)),
                           label=int(rng.randint(cfg.num_classes)),
                           policy=SERVE_ENTRIES[i % 4]) for i in range(16)]
-    per = {n: {"launches": 0, "host_syncs": 0} for n in SERVE_ENTRIES}
+    per = {n: {"launches": 0, "captured": 0, "host_syncs": 0}
+           for n in SERVE_ENTRIES}
 
     class CountingEngine(serve.ServeEngine):
+        # reads the executor through self: a class made per call sits in a
+        # reference cycle, and must not keep the executor (its graphs hold
+        # the weights) alive until the collector runs
         def _advance(self, fl):
             before = (ops.LAUNCHES["flash_attention"],
-                      executor.host_sync_count)
+                      ops.CAPTURED["flash_attention"],
+                      self.executor.host_sync_count)
             super()._advance(fl)
             row = per[fl.mb.group]
             row["launches"] += ops.LAUNCHES["flash_attention"] - before[0]
-            row["host_syncs"] += executor.host_sync_count - before[1]
+            row["captured"] += ops.CAPTURED["flash_attention"] - before[1]
+            row["host_syncs"] += self.executor.host_sync_count - before[2]
 
     eng = CountingEngine(executor, params, store, max_batch=4,
                          max_inflight=2, scheduler="interleave")
@@ -789,7 +840,10 @@ def serve_drain(cfg, params, store, ops, executor):
 
 def serve_phase(cfg, params, ops, smooth_art):
     """The serving stack at full width (see the module docstring, phase
-    10).  Returns the attention launches of the untraced drain."""
+    10).  Returns the attention kernels of the traced drain (counted in
+    its device trace), the attention wrapper calls of the untraced drain
+    (eager calls and the fused graph's warm-up and capture) and the
+    store."""
     import numpy as np
     from repro_torch import serve
     from repro_torch.core import schedule as schedule_lib, solvers
@@ -800,9 +854,11 @@ def serve_phase(cfg, params, ops, smooth_art):
     executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
+        ops.CAPTURED[k] = 0
     eng, reqs, per = serve_drain(cfg, params, store, ops, executor)
     launches = dict(ops.LAUNCHES)
     drain_syncs = executor.host_sync_count
+    graphs = executor.fused_graphs()
     check(launches["ssd"] == 0, "SSD launched in the serve drain")
     check(sorted(eng.results) == list(range(16)),
           f"served {sorted(eng.results)} of 16 requests")
@@ -829,13 +885,31 @@ def serve_phase(cfg, params, ops, smooth_art):
                    [r.compute_fraction for r in recs])),
                "steps": sum(r.num_steps for r in recs),
                "attn_steps": steps, **per[name]}
-        emit(row)
-        check(row["launches"] == cfg.num_layers * steps,
-              f"{name}: {row['launches']} attention launches, expected "
-              f"{cfg.num_layers} x {steps}")
         if entry.adaptive:
-            check(row["host_syncs"] == sum(r.num_steps - 1 for r in recs),
-                  f"{name}: {row['host_syncs']} decision syncs")
+            # fused entries: the graph replays launch without a Python
+            # call, so the replayed launches come from the decision trace;
+            # the calls counted are each new graph's eager warm-up of every
+            # branch and its capture, one per attention-computing branch
+            mine_graphs = [g for g in graphs if g["runtime"]]
+            expect = cfg.num_layers * sum(attn_branches(g)
+                                          for g in mine_graphs)
+            row.update(replayed_launches=cfg.num_layers * steps,
+                       graphs=len(mine_graphs),
+                       capture_s=[g["capture_s"] for g in mine_graphs])
+            emit(row)
+            check(row["launches"] == expect and row["captured"] == expect,
+                  f"{name}: {row['launches']} warm-up and {row['captured']}"
+                  f" captured attention calls, expected {expect} each")
+            check(row["host_syncs"] == 0,
+                  f"{name}: {row['host_syncs']} decision syncs on the "
+                  "fused path")
+        else:
+            emit(row)
+            check(row["launches"] == cfg.num_layers * steps
+                  and row["captured"] == 0,
+                  f"{name}: {row['launches']} attention launches, expected "
+                  f"{cfg.num_layers} x {steps}")
+        if entry.adaptive:
             age = {t: 0 for t in cfg.layer_types()}
             for rec in recs:
                 for step in rec.decisions:
@@ -867,9 +941,10 @@ def serve_phase(cfg, params, ops, smooth_art):
                          "ms_per_step": 1e3 * wall / rec.num_steps,
                          "bitwise_equal": same}
         check(same, f"{name}: served batch differs from its generate replay")
-    # the decision sync's cost: the adaptive batch with its per-step reads
-    # (A) against the same batch at τ = 0 on its own realized decisions
-    # (B: the same model calls, no reads), in the order A B B A
+    # the host loop's decision sync, which the served (fused) batch no
+    # longer pays: the batch on the host loop with its per-step reads (A)
+    # against the same batch at τ = 0 on its own realized decisions (B:
+    # the same model calls, no reads), in the order A B B A
     rec = next(r for r in eng.records if r.group == SERVE_ADAPTIVE)
     entry = store.get(SERVE_ADAPTIVE)
     realized = schedule_lib.Schedule(
@@ -889,7 +964,7 @@ def serve_phase(cfg, params, ops, smooth_art):
               f"the adaptive batch at tau={tau} differs from the served one")
         return time.perf_counter() - t0
 
-    synced = [replays[SERVE_ADAPTIVE]["wall_s"]]
+    synced = [run(entry.tau, entry.schedule)]
     syncs = executor.host_sync_count
     unsynced = [run(0.0, realized), run(0.0, realized)]
     check(executor.host_sync_count == syncs, "decision syncs at tau=0")
@@ -901,12 +976,19 @@ def serve_phase(cfg, params, ops, smooth_art):
               "ms_per_step": 1e3 * (sum(synced) - sum(unsynced)) / 2
               / (rec.num_steps - 1)}})
 
-    # a second drain under the profiler (device activity only): the
-    # device's idle share
-    wall_us, prof = _profiled(lambda: serve_drain(
-        cfg, params, store, ops, SmoothCacheExecutor(cfg, solvers.ddim(50),
-                                                     cfg_scale=1.5)))
-    busy, attn_us = _device_us(prof, "attn_fwd")
+    # a second drain under the profiler (device activity only), on the
+    # same executor so that no graph capture falls in the window: the
+    # device's idle share, and every attention kernel of the drain counted
+    # in the trace — eager launches and graph replays alike
+    n_graphs = len(executor.fused_graphs())
+    traced = {}
+    wall_us, prof = _profiled(lambda: traced.update(
+        eng=serve_drain(cfg, params, store, ops, executor)[0]))
+    busy, attn_us, attn_kernels = _device_us(prof, "attn_fwd")
+    traced_steps = sum(computed_attn_steps(r, store.get(r.group))
+                       for r in traced["eng"].records)
+    check(len(executor.fused_graphs()) == n_graphs,
+          "a graph was captured in the traced drain")
     row = {"phase": "serve", "requests": rep["requests"],
            "batches": rep["batches"], "buckets": rep["buckets"],
            "drain_s": rep["makespan_s"],
@@ -921,14 +1003,331 @@ def serve_phase(cfg, params, ops, smooth_art):
            "traced_drain": {"wall_ms": wall_us / 1e3,
                             "device_ms": busy / 1e3,
                             "idle_share": 1 - busy / wall_us,
-                            "attn_ms": attn_us / 1e3},
+                            "attn_ms": attn_us / 1e3,
+                            "attn_steps": traced_steps,
+                            "attn_kernels_in_trace": attn_kernels},
            "phase_s": time.perf_counter() - t_phase}
     emit(row)
     check(rep["compiles"]["model_variants"] <= rep["program_budget"],
           f"{rep['compiles']['model_variants']} model variants over the "
           f"budget {rep['program_budget']}")
     check(busy > 0, "the profiler saw no device time in the serve drain")
-    return launches["flash_attention"]
+    check(attn_kernels == cfg.num_layers * traced_steps,
+          f"{attn_kernels} attention kernels in the traced drain, expected "
+          f"{cfg.num_layers} x {traced_steps} attention steps")
+    return attn_kernels, launches["flash_attention"], store
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fused_phase(cfg, params, ops, store):
+    """The fused adaptive path at full width (phase 11; budget ~20 s): the
+    serve phase's adaptive artifact, 4 requests (bucket 4, B = 8 in the
+    kernel).  Capture seconds and graph count; peak memory before and
+    after the capture; fused ≡ host loop (decisions and latents) with the
+    replays under ``set_sync_debug_mode("error")`` and no decision sync;
+    τ = 0 fused ≡ ``sample_compiled``; chunks of 4 ≡ one call; the walls
+    of the fused batch and the host loop in the order A B B A; the idle
+    share of one traced fused batch; the replayed attention launches from
+    the trace against the captured ones."""
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    t_phase = time.perf_counter()
+    entry = store.get(SERVE_ADAPTIVE)
+    executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+    labels = torch.tensor(REQUEST_LABELS, device="cuda")
+    kw = dict(schedule=entry.schedule, proxy_map=entry.proxy_map,
+              pool=entry.pool(), k_max=entry.k_max, label=labels)
+    n = len(REQUEST_LABELS)
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 8)
+
+    # the capture, outside the guard: memory and seconds
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rs = executor.start_adaptive_fused_run(params, gen(), n, tau=entry.tau,
+                                           **kw)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+        ops.CAPTURED[k] = 0
+    (step, capture_wall) = _timed(lambda: executor.fused_step_for(params, rs))
+    captured = ops.CAPTURED["flash_attention"]
+    warm = ops.LAUNCHES["flash_attention"]
+    mem1 = torch.cuda.memory_allocated()
+    peak1 = torch.cuda.max_memory_allocated()
+    expect = cfg.num_layers * attn_branches(step.stats)
+    check(captured == expect and warm == expect,
+          f"{warm} warm-up and {captured} captured attention calls, "
+          f"expected {cfg.num_layers} x {attn_branches(step.stats)} "
+          "branches each")
+
+    # the run state's copy into the graph's buffers and out of them, at
+    # bucket 4 (median of 5, CUDA events)
+    def event_ms(fn):
+        ms = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sorted(ms)[2]
+
+    state_bytes = sum(v.numel() * v.element_size() for v in
+                      [rs.x, rs.x_prev, rs.acc, rs.lag, rs.trace,
+                       rs.healthy] + [c for stage in rs.cache for d in stage
+                                      for c in d.values()])
+    copy = {"state_bytes": state_bytes,
+            "copy_in_ms": event_ms(lambda: step._load(rs)),
+            "copy_out_ms": event_ms(step._unload)}
+
+    # fused (B) under the sync guard against the host loop (A)
+    syncs = executor.host_sync_count
+
+    def fused_run(rs=None):
+        """One fused batch (start unless given, then every step), its
+        replays under the sync guard: (run state, wall s)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rs is None:
+            rs = executor.start_adaptive_fused_run(params, gen(), n,
+                                                   tau=entry.tau, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rs = executor.advance_adaptive_fused(params, rs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return rs, time.perf_counter() - t0
+
+    (xh, dh), a1 = _timed(lambda: executor.sample_adaptive(
+        params, gen(), n, tau=entry.tau, return_decisions=True, **kw))
+    host_syncs = executor.host_sync_count - syncs
+    syncs = executor.host_sync_count
+    rs, _ = fused_run(rs)            # the captured run (started above)
+    _, b1 = fused_run()
+    fused_syncs = executor.host_sync_count - syncs
+    xf, df = rs.x, rs.decisions
+    max_abs = float((xf - xh).abs().max())
+    row = {"phase": "fused", "requests": n, "steps": rs.num_steps,
+           # whether this PyTorch has its own conditional-node API (the
+           # port builds IF nodes with core/cuda_graphs.cu either way)
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "torch_if_nodes": hasattr(torch.cuda.CUDAGraph,
+                                     "begin_capture_to_if_node"),
+           "graphs": len(executor.fused_graphs()),
+           "capture": step.stats, "capture_wall_s": capture_wall,
+           "state_copy": copy,
+           "device_bytes": {"before": mem0, "after_capture": mem1,
+                            "peak_with_capture": peak1},
+           "sync_guard": "error", "host_sync_count": fused_syncs,
+           "host_loop_syncs": host_syncs,
+           "decisions_equal": df == dh,
+           "bitwise_vs_host_loop": bool(torch.equal(xf, xh)),
+           "max_abs_vs_host_loop": max_abs}
+    check(fused_syncs == 0, f"{fused_syncs} host syncs on the fused path")
+    check(df == dh, "fused decisions differ from the host loop's")
+    check(row["bitwise_vs_host_loop"],
+          f"fused latents differ from the host loop's: max abs {max_abs}")
+
+    # τ = 0 on the base schedule against the segmented path
+    x0 = executor.sample_adaptive_fused(params, gen(), n, tau=0.0, **kw)
+    xc = executor.sample_compiled(params, gen(), n, schedule=entry.schedule,
+                                  label=labels)
+    row["tau0_bitwise_vs_compiled"] = bool(torch.equal(x0, xc))
+    check(row["tau0_bitwise_vs_compiled"],
+          "fused tau=0 differs from sample_compiled")
+    # chunks of 4 against one call
+    rc = executor.start_adaptive_fused_run(params, gen(), n, tau=entry.tau,
+                                           **kw)
+    while not rc.done:
+        rc = executor.advance_adaptive_fused(params, rc, n_steps=4)
+    row["chunked_bitwise"] = bool(torch.equal(rc.x, xf))
+    check(row["chunked_bitwise"], "chunks of 4 differ from one call")
+    # a graph first built at the last step (a split at step num_steps − 1
+    # into buckets of 2, which have no graph yet): its warm-up runs every
+    # branch, one step each, and must stay inside the step tables; the
+    # second half replays the graph the first half built
+    n_graphs = len(executor.fused_graphs())
+    late = executor.start_adaptive_fused_run(params, gen(), n,
+                                             tau=entry.tau, **kw)
+    late = executor.advance_adaptive_fused(params, late,
+                                           n_steps=late.num_steps - 1)
+    halves = [executor.advance_adaptive_fused(params, h)
+              for h in executor.split_run(late, [[0, 1], [2, 3]])]
+    again = executor.advance_adaptive_fused(
+        params, executor.split_run(late, [[0, 1]])[0])
+    merged = executor.merge_runs(halves)
+    torch.cuda.synchronize()
+    row["late_capture"] = {
+        "split_at": late.step,
+        "new_graphs": len(executor.fused_graphs()) - n_graphs,
+        "finite": bool(torch.isfinite(merged.x).all()),
+        "repeat_bitwise": bool(torch.equal(again.x, halves[0].x)),
+        "max_abs_vs_unsplit": float((merged.x - xf).abs().max())}
+    check(all(h.done for h in halves) and row["late_capture"]["finite"]
+          and row["late_capture"]["repeat_bitwise"]
+          and row["late_capture"]["new_graphs"] == 1,
+          f"a graph built at step {late.step}: {row['late_capture']}")
+
+    # walls, A B B A (A: host loop, B: fused), and one traced fused batch
+    rs2, b2 = fused_run()
+    check(torch.equal(rs2.x, xf), "two fused batches differ")
+    _, a2 = _timed(lambda: executor.sample_adaptive(
+        params, gen(), n, tau=entry.tau, **kw))
+    traced = {}
+    wall_us, prof = _profiled(lambda: traced.update(
+        d=executor.sample_adaptive_fused(params, gen(), n, tau=entry.tau,
+                                         return_decisions=True, **kw)[1]))
+    busy, attn_us, attn_kernels = _device_us(prof, "attn_fwd")
+    attn_steps = sum("attn" not in d for d in traced["d"])
+    row.update({
+        "walls_ABBA_s": {"host_loop": [a1, a2], "fused": [b1, b2]},
+        "order": "A B B A",
+        "traced_fused": {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+                         "idle_share": 1 - busy / wall_us,
+                         "attn_ms": attn_us / 1e3,
+                         "attn_kernels_in_trace": attn_kernels},
+        "attn_steps": attn_steps,
+        "replayed_launches": attn_kernels,
+        "captured_launches_per_graph": captured,
+        "phase_s": time.perf_counter() - t_phase})
+    emit(row)
+    check(attn_kernels == cfg.num_layers * attn_steps,
+          f"{attn_kernels} attention kernels replayed in the traced fused "
+          f"batch, expected {cfg.num_layers} x {attn_steps} attention steps")
+    return row
+
+
+def gemm_row_stability(cfg):
+    """Whether cuBLAS keeps a row's bits across batch shapes at the DiT's
+    f32 GEMMs: the first M rows of an (M_max, K) @ (K, N) product against
+    the (M, K) @ (K, N) product of those rows alone, for M = 2·256·bucket
+    (CFG-doubled rows of 1 and 2 requests) against 4 requests.  Seeded
+    N(0, 1) inputs; max abs difference per shape and M."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    tok, d = 256, cfg.d_model
+    shapes = [(d, d), (d, 3 * d), (d, 4 * d), (4 * d, d), (d, 6 * d)]
+    out = {}
+    for k, n in shapes:
+        a = torch.randn(2 * 4 * tok, k, generator=gen).cuda()
+        b = torch.randn(k, n, generator=gen).cuda()
+        full = a @ b
+        out[f"{k}x{n}"] = {str(m): float((a[:m] @ b - full[:m]).abs().max())
+                           for m in (2 * tok, 2 * 2 * tok)}
+    return out
+
+
+# a served row against its solo replay, relative to the row's largest
+# |latent|: GEMM rounding across batch shapes gives ~1e-6, a row gathered
+# or merged from the wrong place (a swapped CFG half, permuted rows) ~1
+SOLO_LIMIT = 1e-4
+
+
+def continuous_phase(cfg, params, ops, store):
+    """Continuous batching at full width (phase 12; budget ~25 s): the
+    SmoothCache artifact, ``static:n=2`` and the adaptive artifact,
+    ``max_batch`` 4, 2 in flight, ``interleave``, ``adaptive_chunk`` 4, a
+    wall clock; 2 requests per entry at t = 0 and 2 more per entry at
+    t ≈ 0.3 s, inside the 0.5 join horizon.  Once with ``continuous=True``
+    and once without; joins ≥ 1 and merges ≥ 1, variants within the
+    budget; every served request against its own solo ``generate``
+    (B = 1) from its seed: the max abs difference per row; and whether
+    the DiT's f32 GEMMs keep a row's bits across batch shapes."""
+    import numpy as np
+    from repro_torch import serve
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.serve.metrics import percentile
+    t_phase = time.perf_counter()
+    entries = ("smoothcache:alpha=0.18", "static:n=2", SERVE_ADAPTIVE)
+    rng = np.random.RandomState(SEED + 9)
+    trace = [(i, entries[i % 3], 0.0 if i < 6 else 0.3,
+              int(rng.randint(1 << 31)), int(rng.randint(cfg.num_classes)))
+             for i in range(12)]
+
+    def drain(continuous):
+        executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+        eng = serve.ServeEngine(executor, params, store, max_batch=4,
+                                max_inflight=2, scheduler="interleave",
+                                adaptive_chunk=4, continuous=continuous)
+        t0 = eng.clock.now()
+        reqs = [serve.Request(rid=i, seed=seed, policy=pol, label=lab,
+                              arrival=t0 + at)
+                for i, pol, at, seed, lab in trace]
+        eng.submit(*reqs)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        rep = eng.report()
+        waits = [r.queue_wait for r in reqs]
+        service = [r.service_time for r in reqs]
+        out = {"continuous": continuous, "drain_s": time.perf_counter() - w0,
+               "images_per_s": rep["throughput_rps"],
+               "queue_wait_s": {"p50": percentile(waits, 50),
+                                "p95": percentile(waits, 95)},
+               "service_s": {"p50": percentile(service, 50),
+                             "p95": percentile(service, 95)},
+               **{k: rep["continuous"][k] for k in
+                  ("joins", "joined_requests", "merges", "join_merges",
+                   "regroups", "coalesces")},
+               "lineage": [list(r.lineage) for r in eng.records
+                           if r.lineage],
+               "buckets": rep["buckets"],
+               "model_variants": rep["compiles"]["model_variants"],
+               "variants": rep["compiles"],
+               "program_budget": rep["program_budget"],
+               "host_sync_count": executor.host_sync_count,
+               "graphs": len(executor.fused_graphs())}
+        check(sorted(eng.results) == list(range(12)),
+              f"served {sorted(eng.results)} of 12 requests")
+        check(out["model_variants"] <= out["program_budget"],
+              f"{out['model_variants']} model variants over the budget "
+              f"{out['program_budget']}")
+        check(executor.host_sync_count == 0, "decision syncs in the drain")
+        return eng, out
+
+    eng, on = drain(True)
+    check(on["joins"] >= 1 and on["merges"] >= 1,
+          f"continuous drain: {on['joins']} joins, {on['merges']} merges")
+    _, off = drain(False)
+    # each request's solo replay: generate(batch_generator([seed]), 1)
+    solo = {name: DiffusionPipeline(cfg, solvers.ddim(50), name,
+                                    cfg_scale=1.5) for name in entries}
+    for name in entries:
+        e = store.get(name)
+        if e.artifact is not None:
+            solo[name].load_artifact(e.artifact, strict=True)
+    rows = []
+    for i, pol, _, seed, lab in trace:
+        x = solo[pol].generate(params, serve.batch_generator([seed]), 1,
+                               label=torch.tensor([lab], device="cuda"))
+        got = torch.from_numpy(eng.results[i])
+        rows.append({"rid": i, "entry": pol,
+                     "max_abs": float((x[0].cpu() - got).abs().max()),
+                     "max_abs_latent": float(got.abs().max())})
+    emit({"phase": "continuous", "requests": 12, "runs": [on, off],
+          "solo_replay_max_abs": rows, "solo_replay_limit": SOLO_LIMIT,
+          "gemm_row_max_abs_vs_4_requests": gemm_row_stability(cfg),
+          "phase_s": time.perf_counter() - t_phase})
+    # not bitwise on the card (cuBLAS changes a row's reduction order with
+    # the batch shape, ROADMAP.md queue 3), but far from a row mix-up
+    bad = [r for r in rows
+           if not r["max_abs"] <= SOLO_LIMIT * r["max_abs_latent"]]
+    check(not bad, f"served rows differ from their solo replays by more "
+          f"than {SOLO_LIMIT} of their scale: {bad}")
+    return on, off, rows
 
 
 def main():
@@ -937,7 +1336,7 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
-    from repro_torch.core import diffusion
+    from repro_torch.core import cuda_graphs, diffusion
     from repro_torch.kernels import flash_attention as fa, ops, ref, ssd
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -947,9 +1346,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     peaks = card()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {m.__name__.rsplit(".", 1)[-1]: pool.submit(m.build)
-                  for m in (fa, ssd)}
+                  for m in (fa, ssd, cuda_graphs)}
         builds = {k: f.result() for k, f in builds.items()}
     emit({"phase": "build",
           "seconds": {k: r["seconds"] for k, r in builds.items()},
@@ -981,9 +1380,17 @@ def main():
     check(path == {"arith": "3xtf32-mma.sync", "load": "cp.async"},
           f"the DiT slice's attention takes {path}")
     kernels["flash_attention"]["launches"] = dit_launches["flash_attention"]
-    kernels["flash_attention"]["serve_launches"] = serve_phase(
-        cfg, params_gpu, ops, smooth_art)
-    del params_gpu
+    serve_launches, serve_calls, store = serve_phase(cfg, params_gpu, ops,
+                                                     smooth_art)
+    kernels["flash_attention"]["serve_launches"] = serve_launches
+    kernels["flash_attention"]["serve_calls"] = serve_calls
+    fused = fused_phase(cfg, params_gpu, ops, store)
+    kernels["flash_attention"]["fused_captured_per_graph"] = \
+        fused["captured_launches_per_graph"]
+    kernels["flash_attention"]["fused_replayed"] = fused["replayed_launches"]
+    continuous_phase(cfg, params_gpu, ops, store)
+    del params_gpu, store
+    gc.collect()              # the DiT weights go before the Mamba phases
 
     cfg = configs.get("mamba2-1.3b")
     t0 = time.perf_counter()

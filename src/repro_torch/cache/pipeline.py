@@ -179,10 +179,13 @@ class DiffusionPipeline:
         path (reusing the pipeline's pre-analyzed plan), ``False`` the
         eager reference path.
 
-        Adaptive policies run the executor's host-dispatched
-        ``sample_adaptive`` loop; ``return_decisions=True`` also returns
-        the realized per-step skip sets.  An explicit ``schedule=``
-        override, or ``compiled=False``, takes the static paths."""
+        Adaptive policies run the executor's fused path
+        (``sample_adaptive_fused``: decision and dispatch on the device, no
+        per-step host read) when ``supports_fused_adaptive``, else the
+        host-dispatched ``sample_adaptive`` loop — both make the same
+        decisions bitwise; ``return_decisions=True`` also returns the
+        realized per-step skip sets.  An explicit ``schedule=`` override,
+        or ``compiled=False``, takes the static paths."""
         if schedule is _UNSET:
             sch = self._schedule
             if sch is None and self.policy.requires_calibration:
@@ -199,7 +202,10 @@ class DiffusionPipeline:
                         f"policy {self.policy.spec()!r} needs a calibrated "
                         "proxy map — run calibrate()/load_artifact() before "
                         "generate()")
-                return self.executor.sample_adaptive(
+                sampler = (self.executor.sample_adaptive_fused
+                           if self.executor.supports_fused_adaptive
+                           else self.executor.sample_adaptive)
+                return sampler(
                     params, generator, batch, schedule=sch,
                     tau=self.policy.tau, proxy_map=self._proxy_map,
                     k_max=self.policy.k_max, label=label,

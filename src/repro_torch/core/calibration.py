@@ -116,6 +116,17 @@ def rel_l1_change_rows(cur, prev):
             / (prev.abs().sum(dim=dims) + 1e-12))
 
 
+def _unforced(skip, force_compute):
+    """``skip & ~force_compute``.  ``force_compute`` is a Python bool or a
+    bool tensor on ``skip``'s device (a captured graph's ``step == 0``);
+    a bool never becomes a tensor, so nothing here copies host to device
+    (which a CUDA graph capture forbids), and ``False`` leaves the bits
+    as they are."""
+    if isinstance(force_compute, torch.Tensor):
+        return skip & ~force_compute
+    return torch.zeros_like(skip) if force_compute else skip
+
+
 def runtime_rule(proxy, acc, lag, a, b, tau, k_max, force_compute=False):
     """One evaluation of the adaptive reuse rule, vectorized over layer
     types: estimate the per-type lag-1 error from the proxy signal
@@ -124,10 +135,11 @@ def runtime_rule(proxy, acc, lag, a, b, tau, k_max, force_compute=False):
     accumulated since its last compute stays under ``tau`` and the cache
     age stays ≤ ``k_max``, and return the updated accumulator/lag state.
     ``acc``/``a``/``b`` are float32 tensors, ``lag`` int32;
-    ``force_compute`` (step 0, empty cache) overrides every skip."""
+    ``force_compute`` (step 0, empty cache; a bool or a device bool
+    tensor) overrides every skip."""
     delta = torch.clamp_min(a * proxy + b, 0.0)
-    skip = ((lag + 1 <= k_max) & (acc + delta < tau)
-            & ~torch.as_tensor(force_compute, device=acc.device))
+    skip = _unforced((lag + 1 <= k_max) & (acc + delta < tau),
+                     force_compute)
     acc = torch.where(skip, acc + delta, 0.0)
     lag = torch.where(skip, lag + 1, 0)
     return skip, acc, lag
@@ -143,8 +155,8 @@ def batch_rule(proxy_rows, acc, lag, a, b, tau, k_max, force_compute=False):
     acc/lag update against the realized bits, so a batch of one realizes
     exactly its solo trajectory."""
     delta = torch.clamp_min(a * proxy_rows[:, None] + b[None, :], 0.0)
-    want = ((lag + 1 <= k_max) & (acc + delta < tau)
-            & ~torch.as_tensor(force_compute, device=acc.device))
+    want = _unforced((lag + 1 <= k_max) & (acc + delta < tau),
+                     force_compute)
     realized = want.all(dim=0)                                   # (T,)
     acc = torch.where(realized[None, :], acc + delta, 0.0)
     lag = torch.where(realized[None, :], lag + 1, 0)

@@ -308,3 +308,55 @@ def mask_lattice(schedule) -> Tuple[ProgramSig, ...]:
 def pool_index(pool) -> Dict[frozenset, ProgramSig]:
     """Runtime dispatch table: frozenset of skipped types → signature."""
     return {frozenset(sig.live_in): sig for sig in pool}
+
+
+def mask_signature(types, bits) -> Tuple[str, ...]:
+    """Canonical hashable mask signature from per-type skip bits (bit
+    order follows ``types``) — the key continuous serving regroups rows
+    by at chunk boundaries: rows whose desired signatures agree can share
+    a batch without forcing each other's computes."""
+    return tuple(t for t, hit in zip(types, bits) if hit)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwitchTable:
+    """On-device dispatch table over a candidate pool: ``branches[code]``
+    is the signature whose skip set is ``{types[i] : bit i of code}``, so
+    the fused adaptive step turns per-type skip bits into a branch index
+    with one dot product against ``2^i`` — no host round-trip.  Hashable
+    (it keys the executor's captured graphs: one per table and batch)."""
+    types: Tuple[str, ...]                    # bit order (sorted)
+    branches: Tuple[ProgramSig, ...]          # len == 2^len(types)
+
+    def code_of(self, skipset) -> int:
+        """Host-side branch index of a skip set (tests, accounting)."""
+        skipset = set(skipset)
+        unknown = skipset - set(self.types)
+        if unknown:
+            raise KeyError(f"skip set contains types {sorted(unknown)} "
+                           f"outside the pool {list(self.types)}")
+        return sum(1 << i for i, t in enumerate(self.types) if t in skipset)
+
+
+def switch_branch_table(pool) -> SwitchTable:
+    """Arrange a candidate pool for on-device dispatch.
+
+    Requires the *full* mask lattice (every subset of the pool's type set
+    present — :func:`mask_lattice` constructs exactly that): the fused
+    step computes the branch index arithmetically from the per-type skip
+    bits, so every bit pattern must name a signature."""
+    idx = pool_index(pool)
+    union = frozenset().union(*idx) if idx else frozenset()
+    types = tuple(sorted(union))
+    branches = []
+    for code in range(1 << len(types)):
+        skipset = frozenset(t for i, t in enumerate(types)
+                            if code >> i & 1)
+        sig = idx.get(skipset)
+        if sig is None:
+            raise ValueError(
+                f"candidate pool is not a full mask lattice over "
+                f"{list(types)}: skip set {sorted(skipset)} has no "
+                "signature — derive the pool via mask_lattice()")
+        branches.append(sig)
+    return SwitchTable(types=types, branches=tuple(branches))

@@ -4,11 +4,18 @@ paper's DiT-XL protocol.
 A solver is ``model_times`` (the per-step times fed to the model) plus
 ``step(x, model_out, s) → x_next``, so the executor owns the model-call
 loop and can substitute cached layer outputs at any step.
+
+``s`` is a Python int or a ``(1,)`` int64 tensor on ``x``'s device (the
+step counter a captured CUDA graph advances).  Either way the per-step
+coefficients are read as ``(1,)`` tensors from a table on ``x``'s device,
+so every path runs one arithmetic form: on CUDA a division by a Python
+float is a multiplication by its reciprocal, a division by a tensor a
+true division, and the two can differ in the last bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -22,6 +29,37 @@ class Solver:
     num_steps: int
     model_times: torch.Tensor                # (S,) float32, on the CPU
     step: Callable                           # (x, model_out, s) -> x
+    #: the step draws noise (its rows then depend on the batch shape);
+    #: ``ddim`` keeps both defaults, the JAX ``dpmpp_3m_sde`` sets both
+    stochastic: bool = False
+    #: ``step`` takes a device step index and reads no host state, so it
+    #: runs inside a captured CUDA graph (the fused adaptive path)
+    scannable: bool = True
+
+
+class StepTable:
+    """Per-step float32 rows (``(R, S)``) with one copy per device, read at
+    step ``s`` as R ``(1,)`` tensors — a slice for an int, a gather for a
+    device index.  A device's copy is made on its first read, so a graph
+    capture must follow one read on that device."""
+
+    def __init__(self, rows: np.ndarray):
+        self._cpu = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
+        self._on: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._on.get(device)
+        if t is None:
+            t = self._cpu if device.type == "cpu" else self._cpu.to(device)
+            self._on[device] = t
+        return t
+
+    def at(self, s, device):
+        t = self.on(device)
+        if isinstance(s, torch.Tensor):
+            return t.index_select(1, s).unbind(0)
+        return t[:, s:s + 1].unbind(0)
 
 
 def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
@@ -44,15 +82,13 @@ def ddim(num_steps: int, sched=None, num_train_steps: int = 1000) -> Solver:
     ab = sched["alpha_bar"].numpy()[ts]
     ab_next = np.concatenate([ab[1:], np.ones(1, np.float32)])
     one = np.float32(1)
-    # per-step coefficients as f32 values (exact as Python floats)
-    c_eps = [float(v) for v in np.sqrt(one - ab)]
-    c_x = [float(v) for v in np.sqrt(ab)]
-    c_x0n = [float(v) for v in np.sqrt(ab_next)]
-    c_epsn = [float(v) for v in np.sqrt(one - ab_next)]
+    coeffs = StepTable(np.stack([np.sqrt(one - ab), np.sqrt(ab),
+                                 np.sqrt(ab_next), np.sqrt(one - ab_next)]))
 
-    def step(x, eps, s: int):
-        x0 = (x - c_eps[s] * eps) / c_x[s]
-        return c_x0n[s] * x0 + c_epsn[s] * eps
+    def step(x, eps, s):
+        c_eps, c_x, c_x0n, c_epsn = coeffs.at(s, x.device)
+        x0 = (x - c_eps * eps) / c_x
+        return c_x0n * x0 + c_epsn * eps
 
     return Solver("ddim", num_steps, torch.from_numpy(ts.astype(np.float32)),
                   step)

@@ -6,9 +6,10 @@ resolved schedule + plan + provenance); the serving side *loads* them into
 an ``ArtifactStore`` — it never recalibrates — and drains an open-loop
 queue of generation requests with synthetic Poisson arrivals through the
 ``ServeEngine``: power-of-two micro-batch buckets per store entry,
-step-interleaved scheduling over the executor's resumable runs, and the
-segmented path by default (``--eager`` falls back to the reference
-sampler).
+step-interleaved scheduling over the executor's resumable runs, the
+segmented path for static entries and the fused on-device path for
+adaptive ones (no per-step decision sync: the report's ``host syncs``
+stay 0), and ``--eager`` for the reference sampler.
 
 Three scenarios share one arrival trace: every request on ``no_cache``,
 every request on the calibrated policy, and a heterogeneous queue mixing

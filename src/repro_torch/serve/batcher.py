@@ -159,6 +159,42 @@ class MicroBatcher:
             return MicroBatch(requests=reqs, entry=entry, formed_at=now)
         return None
 
+    def take_join(self, now: float, entry: ServableEntry,
+                  bucket: int) -> List[Request]:
+        """Continuous feeder: lift up to ``k`` waiting requests that could
+        *join* an in-flight run of ``entry`` whose batch size is
+        ``bucket`` — the largest ``k`` with both ``k`` and ``bucket + k``
+        admissible power-of-two buckets (the joiners run as their own
+        catch-up batch before merging, so both shapes must be budgeted;
+        for p2 buckets that means ``k == bucket``, a join doubles).
+        Candidates must resolve to the **same entry name and version** the
+        run took at formation: a hot swap or a ladder move in between
+        makes a request join-ineligible rather than run a stale artifact.
+        Returns ``[]`` when nothing fits; requests are taken in the
+        queue's ``(-priority, arrival, rid)`` ready order."""
+        sizes = set(bucket_sizes(self.max_batch))
+        grown = [s for s in sizes if s > bucket and (s - bucket) in sizes]
+        if not grown:
+            return []                         # already at max_batch
+        out: List[Request] = []
+        src = None
+        for g in self._group_order(self.queue.ready_groups(now)):
+            for r in self.queue.peek(g, now):
+                e = self.store.resolve_entry_for(g, r)
+                if (e is None or e.name != entry.name
+                        or e.version != entry.version):
+                    continue
+                out.append(r)
+            if out:
+                src = g
+                break
+        # keep the joined size on an admissible bucket
+        best = max((s - bucket for s in grown if s - bucket <= len(out)),
+                   default=0)
+        if best <= 0:
+            return []
+        return self.queue.take_rids(src, [r.rid for r in out[:best]], now)
+
     def next_event(self, now: float) -> Optional[float]:
         """Earliest future time at which a batch *could* form: the next
         arrival, or a held group's hold window expiring.  None when the

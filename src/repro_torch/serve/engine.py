@@ -1,12 +1,15 @@
-"""Step-interleaved serving engine.
+"""Step-interleaved continuous-batching serving engine.
 
 The engine drains a :class:`~repro_torch.serve.request.RequestQueue`
 through the executor's **resumable stepping API**: ``start_run`` /
 ``advance_run`` for static plans (one
 :class:`~repro_torch.core.plan.ExecutionPlan` segment per advance) and,
-for adaptive entries, the host-dispatched ``start_adaptive_run`` /
-``advance_adaptive_run`` loop (``adaptive_chunk`` steps per advance, one
-decision sync per τ > 0 step).  Several in-flight micro-batches timeslice
+for adaptive entries, ``start_adaptive_fused_run`` /
+``advance_adaptive_fused`` when the executor supports the fused path (a
+whole ``adaptive_chunk`` of steps as replays of one captured CUDA graph,
+the decisions made on the device: no per-step host read), else the
+host-dispatched ``start_adaptive_run`` / ``advance_adaptive_run`` loop
+(one decision sync per τ > 0 step).  Several in-flight micro-batches timeslice
 the device: which one advances each tick is decided by a pluggable
 :class:`repro_torch.slo.SchedulingPolicy` — the default ``interleave``
 (round-robin, so a short, heavily-cached schedule admitted behind a
@@ -21,13 +24,24 @@ or below the request's ``max_tau``).  Every rejection is recorded with a
 reason in ``ServeEngine.shed`` and the metrics — :meth:`ServeEngine.outcome`
 resolves any rid.
 
+Continuous batching (``continuous=True``): waiting compatible requests
+*join* an in-flight run at its next boundary (a catch-up chaser replays
+them to the run's step, then the two run states merge), τ > 0 fused runs
+*regroup* by their rows' desired masks at chunk boundaries, and aligned
+runs of one entry *coalesce* back.  Launches then draw each row from its
+own generator (``row_keys``), so every request replays alone as
+``generate(params, batch_generator([seed]), 1)`` whatever its lineage —
+bitwise where the GEMMs keep a row's bits across batch shapes (the CPU;
+not cuBLAS on the H100, ``ROADMAP.md`` queue 3).
+
 Determinism contract: a micro-batch over requests ``[r0..rn-1]`` samples
 with ``batch_generator(seeds)`` — serving a batch is *bit-identical* to
 calling ``DiffusionPipeline.generate(params, batch_generator(seeds), n,
 label=...)`` with the same store entry, because start + advance-until-done
-executes exactly the ops of ``sample_with_plan`` / ``sample_adaptive``.
-Torch cannot reproduce JAX's random bits, so the generator is the port's
-own; the contract, not the bits, is the JAX package's.
+executes exactly the ops of ``sample_with_plan`` / ``sample_adaptive``
+(and the fused path equals the host loop bitwise).  Torch cannot
+reproduce JAX's random bits, so the generator is the port's own; the
+contract, not the bits, is the JAX package's.
 
 Program budget: model-call variants specialize on (signature, batch
 shape), so the variants the engine dispatches are bounded by |buckets| ×
@@ -36,10 +50,10 @@ executor's total ``model_variants`` against :meth:`program_budget`.
 Eager PyTorch compiles nothing: the count is of dispatched shapes, the
 programs a compiled version would build.
 
-Not ported yet (``ROADMAP.md`` queue 1): the fused on-device adaptive
-path (item 7), and continuous batching, admission control, the elastic
-τ controller, resilience, telemetry and durability (item 8).  Their
-constructor arguments raise ``NotImplementedError``.
+Not ported yet (``ROADMAP.md`` queue 1, item 8): admission control, the
+elastic τ controller, resilience (with continuous batching's per-row
+split-retry), telemetry and durability.  Their constructor arguments raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -105,6 +119,11 @@ class BatchRecord:
     decisions: Optional[Tuple[tuple, ...]] = None   # adaptive runs only
     tau: float = 0.0                          # realized τ (rung at launch)
     quality_cost: Optional[float] = None      # predicted, from proxy map
+    #: continuous-batching provenance: every join / regroup / coalesce
+    #: event this batch's run state went through, in order
+    #: (``join@<step>:<rids>``, ``regroup@<step>:<rids>``, …); empty for a
+    #: batch that rode formation → finish unchanged
+    lineage: Tuple[str, ...] = ()
 
 
 class _EagerState:
@@ -123,9 +142,18 @@ class _EagerState:
 @dataclasses.dataclass
 class _Inflight:
     mb: MicroBatch
-    kind: str                                 # "plan" | "adaptive" | "eager"
+    kind: str          # "plan" | "adaptive" | "adaptive_fused" | "eager"
     rs: object
     label: object
+    #: continuous-batching linkage: a *chaser* replays joiners from step 0
+    #: up to its target's boundary (``chaser_for`` points at the parked
+    #: target, whose ``parked_by`` points back); ``row_keyed`` records the
+    #: per-row generator contract that makes join/regroup replayable per
+    #: request; ``lineage`` accumulates the run state's history
+    chaser_for: object = None
+    parked_by: object = None
+    row_keyed: bool = False
+    lineage: Tuple[str, ...] = ()
     #: tracer track of this run's span (0 = tracing off at launch) and the
     #: engine-wide batch serial the track is named after
     track: int = 0
@@ -147,12 +175,10 @@ class ServeEngine:
                  max_inflight: int = 2, scheduler="interleave",
                  adaptive_chunk: int = 4, eager: bool = False,
                  check: bool = False, cost_model=None, tracer=None,
-                 registry=None, continuous: bool = False, admission=None,
+                 registry=None, continuous: bool = False,
+                 join_horizon: float = 0.5, admission=None,
                  resilience=None, telemetry: bool = False, journal=None,
                  snapshot_dir=None):
-        if continuous:
-            _not_ported("ServeEngine(continuous=True)", "continuous "
-                        "batching (joins, regroup, coalesce, split-retry)", 8)
         if admission is not None:
             _not_ported("ServeEngine(admission=)", "admission control", 8)
         if resilience is not None:
@@ -163,14 +189,14 @@ class ServeEngine:
         if journal is not None or snapshot_dir is not None:
             _not_ported("ServeEngine(journal=/snapshot_dir=)",
                         "durable serving", 8)
-        if getattr(executor, "supports_fused_adaptive", False):
-            _not_ported("ServeEngine(executor with supports_fused_adaptive)",
-                        "the fused on-device adaptive path", 7)
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if adaptive_chunk < 1:
             raise ValueError(f"adaptive_chunk must be >= 1, got "
                              f"{adaptive_chunk}")
+        if not 0.0 <= join_horizon <= 1.0:
+            raise ValueError(f"join_horizon must be in [0, 1], got "
+                             f"{join_horizon}")
         self.executor = executor
         self.params = params
         self.store = store
@@ -199,6 +225,13 @@ class ServeEngine:
         self.adaptive_chunk = adaptive_chunk
         self.eager = eager
         self.check = check
+        #: continuous in-flight batching (joins, regroups, coalesces) —
+        #: needs an executor with ``split_run`` / ``merge_runs`` and a
+        #: deterministic solver (``supports_split``)
+        self.continuous = continuous
+        #: latest join point as a fraction of the run (a joiner replays
+        #: the target's past steps, so late joins cost more than they save)
+        self.join_horizon = float(join_horizon)
         self.results: Dict[int, np.ndarray] = {}
         self.records: List[BatchRecord] = []
         self.shed: Dict[int, Tuple[str, float]] = {}   # rid → (reason, t)
@@ -289,52 +322,94 @@ class ServeEngine:
 
     # -- scheduling ----------------------------------------------------------
 
+    def _active_inflight(self) -> int:
+        """In-flight runs that advance — a parked join target waits on its
+        chaser and takes no timeslice."""
+        return sum(1 for f in self._inflight if f.parked_by is None)
+
     def _admit(self, now: float) -> None:
-        while len(self._inflight) < self.max_inflight:
+        while self._active_inflight() < self.max_inflight:
             mb = self.batcher.next_batch(now)
             if mb is None:
                 break
             self._launch(mb, now)
+        if self.continuous:
+            self._join_waiting(now)
 
-    def _begin_track(self, mb: MicroBatch, kind: str) -> Tuple[int, int]:
+    def _begin_track(self, mb: MicroBatch, kind: str, *, parent=None,
+                     via=None, chaser_for=None) -> Tuple[int, int]:
         """Allocate the next batch serial and — when tracing — a tracer
-        track with an open ``run`` span."""
+        track with an open ``run`` span.  Lineage events (join / regroup)
+        name the parent serial in the child span's args, the trace-side
+        mirror of ``BatchRecord.lineage``."""
         self._serial += 1
         serial, track = self._serial, 0
         if self.tracer.enabled:
             track = self.tracer.new_track(
                 f"batch#{serial} {mb.entry.name} b{mb.bucket}")
-            self.tracer.begin(track, "run", group=mb.entry.name,
-                              version=mb.entry.version, bucket=mb.bucket,
-                              kind=kind, rids=list(mb.rids))
+            args = {"group": mb.entry.name, "version": mb.entry.version,
+                    "bucket": mb.bucket, "kind": kind,
+                    "rids": list(mb.rids)}
+            for k, v in (("parent", parent), ("via", via),
+                         ("chaser_for", chaser_for)):
+                if v is not None:
+                    args[k] = v
+            self.tracer.begin(track, "run", **args)
         return serial, track
 
-    def _launch(self, mb: MicroBatch, now: float) -> _Inflight:
+    def _labels(self, mb: MicroBatch):
+        if not any(lab is not None for lab in mb.labels):
+            return None
+        return torch.tensor([0 if lab is None else int(lab)
+                             for lab in mb.labels], dtype=torch.int64,
+                            device=self.executor.device)
+
+    @property
+    def _fused_adaptive(self) -> bool:
+        """Serve adaptive entries through the fused on-device path when
+        the executor offers it: one captured graph per entry and bucket
+        instead of pool-size variants, no per-step decision sync."""
+        return bool(getattr(self.executor, "supports_fused_adaptive",
+                            False))
+
+    def _launch(self, mb: MicroBatch, now: float, *,
+                chaser_for=None) -> _Inflight:
         entry = mb.entry
         gen = batch_generator(mb.seeds)
-        label = None
-        if any(lab is not None for lab in mb.labels):
-            label = torch.tensor([0 if lab is None else int(lab)
-                                  for lab in mb.labels], dtype=torch.int64,
-                                 device=self.executor.device)
+        extra = {}
+        row_keyed = (self.continuous and not self.eager
+                     and getattr(self.executor, "supports_split", False))
+        if row_keyed:
+            # per-row generators: row i is the B = 1 draw of its own seed,
+            # so join/regroup never change a request's bits and replay is
+            # per request
+            extra["row_keys"] = [batch_generator([s]) for s in mb.seeds]
+        label = self._labels(mb)
         if self.eager:
             kind, rs = "eager", _EagerState()
         elif entry.adaptive:
-            kind = "adaptive"
-            rs = self.executor.start_adaptive_run(
-                self.params, gen, mb.bucket, schedule=entry.schedule,
-                tau=entry.tau, proxy_map=entry.proxy_map,
-                pool=entry.pool(), k_max=entry.k_max, label=label)
+            kind = "adaptive_fused" if self._fused_adaptive else "adaptive"
+            start = (self.executor.start_adaptive_fused_run
+                     if self._fused_adaptive
+                     else self.executor.start_adaptive_run)
+            rs = start(self.params, gen, mb.bucket, schedule=entry.schedule,
+                       tau=entry.tau, proxy_map=entry.proxy_map,
+                       pool=entry.pool(), k_max=entry.k_max, label=label,
+                       **extra)
         else:
             kind = "plan"
             rs = self.executor.start_run(
                 self.params, gen, mb.bucket, plan=entry.plan,
-                schedule=entry.schedule, label=label)
+                schedule=entry.schedule, label=label, **extra)
         for r in mb.requests:
             r.started = now
-        serial, track = self._begin_track(mb, kind)
+        serial, track = self._begin_track(
+            mb, kind,
+            chaser_for=chaser_for.serial if chaser_for is not None
+            else None)
         fl = _Inflight(mb=mb, kind=kind, rs=rs, label=label, track=track,
-                       serial=serial)
+                       serial=serial, row_keyed=row_keyed,
+                       chaser_for=chaser_for)
         self._inflight.append(fl)
         return fl
 
@@ -342,12 +417,23 @@ class ServeEngine:
         if fl.kind == "plan":
             fl.rs = self.executor.advance_run(self.params, fl.rs,
                                               check=self.check)
-        elif fl.kind == "adaptive":
-            for _ in range(self.adaptive_chunk):
-                if fl.rs.done:
-                    break
-                fl.rs = self.executor.advance_adaptive_run(self.params,
-                                                           fl.rs)
+        elif fl.kind in ("adaptive", "adaptive_fused"):
+            # a chaser clamps to its parked target's boundary so the two
+            # align exactly for the merge
+            n = self.adaptive_chunk
+            if fl.chaser_for is not None:
+                n = min(n, fl.chaser_for.rs.step - fl.rs.step)
+            n = max(n, 1)
+            if fl.kind == "adaptive_fused":
+                # the whole chunk: graph replays, no host read
+                fl.rs = self.executor.advance_adaptive_fused(
+                    self.params, fl.rs, n_steps=n)
+            else:
+                for _ in range(n):
+                    if fl.rs.done:
+                        break
+                    fl.rs = self.executor.advance_adaptive_run(self.params,
+                                                               fl.rs)
         else:                                  # eager escape hatch
             fl.rs.x = self.executor.sample(
                 self.params, batch_generator(fl.mb.seeds), fl.mb.bucket,
@@ -376,6 +462,168 @@ class ServeEngine:
             if step is not None:
                 end["step_to"] = int(step)
             tr.end(fl.track, "advance", **end)
+
+    # -- continuous batching (join / regroup / coalesce) ---------------------
+
+    @staticmethod
+    def _p2_groups(rows: List[int]) -> List[List[int]]:
+        """Decompose a row list into power-of-two-sized groups, largest
+        first — every sub-run lands on a budgeted bucket shape, so
+        regrouping never grows the variant count."""
+        out = []
+        rows = list(rows)
+        while rows:
+            take = 1
+            while take * 2 <= len(rows):
+                take *= 2
+            out.append(rows[:take])
+            rows = rows[take:]
+        return out
+
+    def _is_linked(self, fl: _Inflight) -> bool:
+        return (fl.parked_by is not None or fl.chaser_for is not None
+                or any(o.chaser_for is fl for o in self._inflight))
+
+    def _join_waiting(self, now: float) -> None:
+        """Continuous feeder: waiting compatible requests join an in-flight
+        run at its next boundary instead of queuing for a fresh slot.  The
+        join is a *catch-up chaser*: the joiners launch as their own p2
+        batch at step 0 (their queue wait ends here), the target parks,
+        the chaser replays to the target's boundary (clamped advances),
+        and the two run states merge — a row concat, bitwise per row —
+        once aligned."""
+        if not getattr(self.executor, "supports_split", False):
+            return
+        for fl in list(self._inflight):
+            if (fl.kind == "eager" or not fl.row_keyed or fl.rs.done
+                    or self._is_linked(fl)):
+                continue
+            steps = fl.mb.entry.plan.num_steps
+            if steps - remaining_steps(fl.rs) > self.join_horizon * steps:
+                continue                      # too far gone to chase
+            joiners = self.batcher.take_join(now, fl.mb.entry,
+                                             fl.mb.bucket)
+            if not joiners:
+                continue
+            mb = MicroBatch(requests=tuple(joiners), entry=fl.mb.entry,
+                            formed_at=now)
+            chaser = self._launch(mb, now, chaser_for=fl)
+            fl.parked_by = chaser
+            for r in joiners:
+                r.joined_at = now
+            self.metrics.observe_join(len(joiners))
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "join", tid=fl.track, at_step=int(fl.rs.step),
+                    chaser=chaser.serial, rids=[r.rid for r in joiners])
+            self._try_merge(chaser)           # step-0 target: merge now
+
+    def _merge_pair(self, a: _Inflight, b: _Inflight,
+                    tag: str) -> _Inflight:
+        """Merge two aligned in-flight runs (rows of ``a`` first, as
+        ``merge_runs`` concatenates) into one new in-flight record."""
+        merged_rs = self.executor.merge_runs([a.rs, b.rs])
+        mb = MicroBatch(requests=a.mb.requests + b.mb.requests,
+                        entry=a.mb.entry, formed_at=a.mb.formed_at)
+        rids = ",".join(str(r) for r in b.mb.rids)
+        # the merged run keeps a's track and serial — in the trace b's
+        # span ends here with a "merged into a" outcome
+        if self.tracer.enabled and b.track:
+            self.tracer.end(b.track, "run", outcome=f"merged:{tag}",
+                            into=a.serial)
+        merged = _Inflight(
+            mb=mb, kind=a.kind, rs=merged_rs, label=self._labels(mb),
+            row_keyed=True,
+            lineage=a.lineage + b.lineage + (f"{tag}@{a.rs.step}:{rids}",),
+            track=a.track, serial=a.serial)
+        self._inflight[self._inflight.index(a)] = merged
+        self._inflight.remove(b)
+        self.metrics.observe_merge(kind=tag)
+        self.metrics.observe_lineage(tag)
+        return merged
+
+    def _try_merge(self, chaser: _Inflight) -> None:
+        target = chaser.chaser_for
+        if target is None or chaser.rs.step != target.rs.step:
+            return
+        target.parked_by = None
+        chaser.chaser_for = None
+        self._merge_pair(target, chaser, "join")
+
+    def _maybe_regroup(self, fl: _Inflight) -> None:
+        """At a fused chunk boundary, split a τ > 0 batch whose rows now
+        *want* different masks into per-signature sub-runs (p2 sizes
+        only): each sub-run's executed mask is the AND over fewer rows,
+        so cache-willing rows stop being dragged to full compute by one
+        conservative neighbour."""
+        if (fl.kind != "adaptive_fused" or fl.mb.entry.tau <= 0
+                or fl.mb.bucket <= 1 or not fl.row_keyed or fl.rs.done
+                or self._is_linked(fl)
+                or not getattr(self.executor, "supports_split", False)):
+            return
+        sigs = fl.rs.row_signatures()
+        if sigs is None or len(set(sigs)) <= 1:
+            return
+        bysig: Dict[tuple, List[int]] = {}
+        for j, sig in enumerate(sigs):
+            bysig.setdefault(sig, []).append(j)
+        groups = []
+        for sig in sorted(bysig):              # deterministic order
+            groups.extend(self._p2_groups(bysig[sig]))
+        subs = self.executor.split_run(fl.rs, groups)
+        if self.tracer.enabled and fl.track:
+            self.tracer.end(fl.track, "run",
+                            outcome=f"regroup:{len(groups)}")
+        idx = self._inflight.index(fl)
+        repl = []
+        for g, sub in zip(groups, subs):
+            mb = MicroBatch(requests=tuple(fl.mb.requests[j] for j in g),
+                            entry=fl.mb.entry, formed_at=fl.mb.formed_at)
+            rids = ",".join(str(r.rid) for r in mb.requests)
+            serial, track = self._begin_track(mb, fl.kind, parent=fl.serial,
+                                              via="regroup")
+            repl.append(_Inflight(
+                mb=mb, kind=fl.kind, rs=sub, label=self._labels(mb),
+                row_keyed=True,
+                lineage=fl.lineage + (f"regroup@{fl.rs.step}:{rids}",),
+                track=track, serial=serial))
+        self._inflight[idx:idx + 1] = repl
+        self.metrics.observe_regroup(len(repl))
+        self.metrics.observe_lineage("regroup", len(repl))
+
+    def _coalesce(self) -> None:
+        """Opportunistic reverse of regroup: two unlinked runs of the same
+        entry, version and kind, aligned at one step with equal buckets,
+        merge back into one (2·b stays p2, so still on budget).  A τ > 0
+        fused pair must currently want one and the same mask — merging
+        divergent rows would re-impose the AND that regroup removed."""
+        if not getattr(self.executor, "supports_split", False):
+            return
+        for a in list(self._inflight):
+            if a not in self._inflight:
+                continue
+            if (a.kind == "eager" or not a.row_keyed or a.rs.done
+                    or self._is_linked(a)):
+                continue
+            for b in list(self._inflight):
+                if (b is a or b not in self._inflight
+                        or a not in self._inflight):
+                    continue
+                if (b.kind != a.kind or not b.row_keyed or b.rs.done
+                        or self._is_linked(b)
+                        or b.mb.entry.name != a.mb.entry.name
+                        or b.mb.entry.version != a.mb.entry.version
+                        or b.mb.bucket != a.mb.bucket
+                        or a.mb.bucket + b.mb.bucket
+                        > self.batcher.max_batch
+                        or b.rs.step != a.rs.step):
+                    continue
+                if a.kind == "adaptive_fused" and a.mb.entry.tau > 0:
+                    sa, sb = a.rs.row_signatures(), b.rs.row_signatures()
+                    if sa is None or sb is None or set(sa) != set(sb) \
+                            or len(set(sa)) != 1:
+                        continue
+                self._merge_pair(a, b, "coalesce")
 
     def _finish(self, fl: _Inflight) -> None:
         mb, rs = fl.mb, fl.rs
@@ -412,7 +660,7 @@ class ServeEngine:
             rids=mb.rids, seeds=mb.seeds, labels=mb.labels,
             num_steps=entry.plan.num_steps, compute_fraction=frac,
             formed_at=mb.formed_at, finished_at=done, decisions=decisions,
-            tau=entry.tau, quality_cost=qcost)
+            tau=entry.tau, quality_cost=qcost, lineage=fl.lineage)
         self.records.append(record)
         self.policy.on_finish(self, record, mb.requests, done)
 
@@ -429,12 +677,25 @@ class ServeEngine:
             return False
         i = self.policy.select(self, now)
         fl = self._inflight[i]
+        if fl.parked_by is not None:
+            # a parked join target does not advance — its timeslice goes
+            # to the chaser catching up with it
+            fl = fl.parked_by
+            i = self._inflight.index(fl)
         self._advance_traced(fl)
         if fl.rs.done:
             self._inflight.pop(i)
             self._finish(fl)
-        elif self.policy.rotate():
-            self._inflight.append(self._inflight.pop(i))
+        else:
+            if self.continuous:
+                if fl.chaser_for is not None:
+                    self._try_merge(fl)
+                else:
+                    self._maybe_regroup(fl)
+                self._coalesce()
+            if fl in self._inflight and self.policy.rotate():
+                self._inflight.remove(fl)
+                self._inflight.append(fl)
         return True
 
     def run_until_drained(self) -> Dict[int, np.ndarray]:
@@ -477,15 +738,17 @@ class ServeEngine:
     def program_budget(self) -> int:
         """Static upper bound on the shape-specialized model-call variants
         this deployment may dispatch: |admissible buckets| × Σ per-entry
-        cost — a host-dispatched adaptive entry costs its pool size
-        (2^|ever-skipped| signatures), a static entry its plan's unique
-        signatures.  Independent of the traffic actually served."""
+        cost — a fused adaptive entry costs 1 per bucket (the whole pool
+        rides inside one captured graph), a host-dispatched adaptive entry
+        its pool size (2^|ever-skipped| signatures), a static entry its
+        plan's unique signatures.  Independent of the traffic served."""
         buckets = len(bucket_sizes(self.batcher.max_batch))
-        return buckets * sum(self.store.get(name).program_cost(fused=False)
-                             for name in self.store.names())
+        return buckets * sum(
+            self.store.get(name).program_cost(fused=self._fused_adaptive)
+            for name in self.store.names())
 
     #: executor variant kinds that are *model* calls (the budgeted set)
-    MODEL_PROGRAM_KINDS = ("seg", "sigstep", "eager")
+    MODEL_PROGRAM_KINDS = ("seg", "sigstep", "eager", "fused")
 
     def report(self) -> Dict:
         counts = {kind: self.executor.compiled_variant_count(kind)

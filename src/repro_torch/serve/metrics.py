@@ -21,8 +21,8 @@ named registry instruments (counters with labels, histograms with raw
 samples), and the attribute surface — ``metrics.rejects``,
 ``metrics.queue_waits`` — is reconstructed from the registry on read.
 ``report()`` keeps the JAX package's key names for every section this
-package serves; its continuous-batching, fault and durability sections
-arrive with those features (``ROADMAP.md`` queue 1, item 8).
+package serves, continuous batching included; its fault and durability
+sections arrive with those features (``ROADMAP.md`` queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -89,6 +89,10 @@ class ServerMetrics:
         reg = self.registry
         reg.observe("serve.queue_wait_s", req.queue_wait)
         reg.observe("serve.service_s", req.service_time)
+        if req.joined_at is not None:
+            # a boundary join ends the queue wait at the chaser launch —
+            # the distribution joining is meant to improve
+            reg.observe("serve.queue_wait_joined_s", req.queue_wait)
         if self.first_arrival is None or req.arrival < self.first_arrival:
             self.first_arrival = req.arrival
         if self.last_finish is None or req.finished > self.last_finish:
@@ -141,6 +145,30 @@ class ServerMetrics:
         reg.inc("serve.evals_total", evals)
         reg.inc("serve.evals_done", compute_fraction * evals)
 
+    # -- continuous batching -------------------------------------------------
+
+    def observe_join(self, n: int = 1) -> None:
+        """``n`` waiting requests joined an in-flight run at a boundary —
+        their queue wait ends at the join launch, not at batch finish."""
+        self.registry.inc("continuous.joins")
+        self.registry.inc("continuous.joined_requests", int(n))
+
+    def observe_regroup(self, n_subruns: int) -> None:
+        """One in-flight batch split into ``n_subruns`` by realized mask
+        signature at a chunk boundary."""
+        self.registry.inc("continuous.regroups")
+
+    def observe_merge(self, n: int = 1, kind: str = "join") -> None:
+        """``n`` run-state merges; ``kind`` tells a chaser catch-up
+        (``join``) from an opportunistic ``coalesce``."""
+        self.registry.inc("continuous.merges", int(n), kind=kind)
+
+    def observe_lineage(self, tag: str, n: int = 1) -> None:
+        """``n`` run-state lineage events of one kind (``join`` /
+        ``regroup`` / ``coalesce``) — the counts ``BatchRecord.lineage``
+        tags encode."""
+        self.registry.inc("continuous.lineage", int(n), event=tag)
+
     # -- registry-backed attribute view --------------------------------------
 
     @property
@@ -150,6 +178,10 @@ class ServerMetrics:
     @property
     def service_times(self) -> List[float]:
         return self.registry.samples("serve.service_s")
+
+    @property
+    def joined_queue_waits(self) -> List[float]:
+        return self.registry.samples("serve.queue_wait_joined_s")
 
     @property
     def quality_costs(self) -> List[float]:
@@ -202,6 +234,28 @@ class ServerMetrics:
         return {k: int(v) for k, v in
                 self.registry.labeled("serve.rejects", "reason").items()}
 
+    @property
+    def joins(self) -> int:
+        return int(self.registry.counter("continuous.joins"))
+
+    @property
+    def joined_requests(self) -> int:
+        return int(self.registry.counter("continuous.joined_requests"))
+
+    @property
+    def regroups(self) -> int:
+        return int(self.registry.counter("continuous.regroups"))
+
+    @property
+    def merges(self) -> int:
+        return int(self.registry.counter_total("continuous.merges"))
+
+    @property
+    def lineage_events(self) -> Dict[str, int]:
+        return {k: int(v) for k, v in
+                self.registry.labeled("continuous.lineage",
+                                      "event").items()}
+
     # -- reporting -----------------------------------------------------------
 
     @property
@@ -243,6 +297,17 @@ class ServerMetrics:
             "good_requests": self.good,
             "offered": offered,
             "goodput_fraction": (self.good / offered if offered else None),
+        }
+        merges_by_kind = self.registry.labeled("continuous.merges", "kind")
+        out["continuous"] = {
+            "joins": self.joins,
+            "joined_requests": self.joined_requests,
+            "regroups": self.regroups,
+            "merges": self.merges,
+            "join_merges": int(merges_by_kind.get("join", 0)),
+            "coalesces": int(merges_by_kind.get("coalesce", 0)),
+            "lineage_events": dict(sorted(self.lineage_events.items())),
+            "joined_queue_wait_s": _dist(self.joined_queue_waits),
         }
         out["realized_tau"] = {f"{t:g}": c for t, c in
                                sorted(self.tau_counts.items())}

@@ -110,6 +110,7 @@ class Request:
     arrival: Optional[float] = None
     started: Optional[float] = None           # micro-batch launch time
     finished: Optional[float] = None          # result materialized
+    joined_at: Optional[float] = None         # boundary join, if any
 
     @property
     def queue_wait(self) -> Optional[float]:
@@ -122,6 +123,12 @@ class Request:
         if self.finished is None or self.started is None:
             return None
         return self.finished - self.started
+
+    @property
+    def joined(self) -> bool:
+        """Whether this request entered service through a boundary join
+        (a chaser launch) rather than a fresh batch formation."""
+        return self.joined_at is not None
 
     @property
     def deadline(self) -> Optional[float]:

@@ -12,7 +12,7 @@ differ in the last bit), final latents within 5e-5 of the latents' scale.
 Inside the port: τ = 0 ≡ ``sample_compiled`` bitwise; decisions obey
 k_max; validation of τ, k_max and the proxy map; the artifact round-trip
 and a τ mismatch refused; an explicit schedule stays static; generate
-runs the host loop; the health fold."""
+runs the host loop when the fused path is off; the health fold."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -318,12 +318,19 @@ def test_explicit_schedule_override_is_static(port_pipe):
 
 
 def test_generate_runs_the_host_loop(port_pipe, monkeypatch):
-    """The port has no fused adaptive program: generate() serves adaptive
-    policies through the host-dispatched loop, one decision sync per
-    τ > 0 step after the first."""
+    """The DDIM executor has the fused path and divisible run states
+    (``supports_*`` follow the solver, as in the JAX package); an executor
+    whose solver cannot run inside a captured step takes the
+    host-dispatched loop from generate(), one decision sync per τ > 0
+    step after the first, with the fused path's decisions and latents."""
     _, pt = smoke_params()
     ex = port_pipe.executor
-    assert not ex.supports_fused_adaptive and not ex.supports_split
+    assert ex.supports_fused_adaptive and ex.supports_split
+    fused_x, fused_dec = port_pipe.generate(pt, _gen(2), 2,
+                                            label=torch.tensor(LABELS),
+                                            return_decisions=True)
+    monkeypatch.setattr(tex.SmoothCacheExecutor, "supports_fused_adaptive",
+                        False)
     called = {}
     orig = tex.SmoothCacheExecutor.sample_adaptive
 
@@ -338,6 +345,7 @@ def test_generate_runs_the_host_loop(port_pipe, monkeypatch):
     assert called.get("host") and len(dec) == STEPS
     assert ex.host_sync_count - before == STEPS - 1
     assert bool(torch.isfinite(x).all())
+    assert dec == fused_dec and torch.equal(x, fused_x)
 
 
 def test_health_folds_latent_and_accumulator_finiteness():

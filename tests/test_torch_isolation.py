@@ -31,7 +31,8 @@ print("LEAKED", bad)
 need = {"repro_torch.launch.serve", "repro_torch.kernels.ssd",
         "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b",
         "repro_torch.serve.engine", "repro_torch.slo.policy",
-        "repro_torch.obs.tracer", "repro_torch.launch.serve_diffusion"}
+        "repro_torch.obs.tracer", "repro_torch.launch.serve_diffusion",
+        "repro_torch.core.fused", "repro_torch.core.cuda_graphs"}
 print("MISSING", sorted(need - set(sys.modules)))
 """
 

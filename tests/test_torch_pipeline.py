@@ -148,11 +148,11 @@ def test_port_artifact_roundtrip_keeps_checksum(tmp_path):
         tcache.CacheArtifact.load(str(bad))
 
 
-def test_adaptive_generation_not_ported():
-    """Adaptive generation runs the host-dispatched loop (the fused
-    on-device program is what is not ported): finite latents, one
-    decision per step, step 0 computing everything; ``compiled=False``
-    runs the static base schedule."""
+def test_adaptive_host_loop_and_uncompiled_base():
+    """The host-dispatched loop (the non-fused route): finite latents, one
+    decision per step, step 0 computing everything, one decision sync per
+    step after the first, and the decisions and latents of ``generate``'s
+    fused route; ``compiled=False`` runs the static base schedule."""
     _, tcfg = smoke_cfgs()
     _, pt = smoke_params()
     pipe = tcache.DiffusionPipeline(tcfg, tsolvers.ddim(6),
@@ -160,12 +160,19 @@ def test_adaptive_generation_not_ported():
                                     cfg_scale=1.5, device="cpu")
     pipe.calibrate(pt, torch.Generator().manual_seed(0), 2,
                    cond_args={"label": torch.tensor(LABELS)})
-    x, dec = pipe.generate(pt, torch.Generator().manual_seed(1), 2,
-                           label=torch.tensor(LABELS),
-                           return_decisions=True)
+    ex = pipe.executor
+    x, dec = ex.sample_adaptive(
+        pt, torch.Generator().manual_seed(1), 2, schedule=pipe.schedule,
+        tau=pipe.policy.tau, proxy_map=pipe.proxy_map,
+        k_max=pipe.policy.k_max, label=torch.tensor(LABELS),
+        return_decisions=True)
     assert bool(torch.isfinite(x).all()) and len(dec) == 6
-    assert dec[0] == () and pipe.executor.host_sync_count == 5
-    assert not pipe.executor.supports_fused_adaptive
+    assert dec[0] == () and ex.host_sync_count == 5
+    x_gen, dec_gen = pipe.generate(pt, torch.Generator().manual_seed(1), 2,
+                                   label=torch.tensor(LABELS),
+                                   return_decisions=True)
+    assert ex.host_sync_count == 5              # generate took the fused route
+    assert dec_gen == dec and torch.equal(x_gen, x)
     x_base = pipe.generate(pt, torch.Generator().manual_seed(1), 2,
                            label=torch.tensor(LABELS), compiled=False)
     assert torch.equal(x_base, pipe.executor.sample(

@@ -10,7 +10,8 @@ package's ``repro.serve``.
 * Parity: one request trace on a virtual clock through the JAX engine and
   the port's engine gives equal ``BatchRecord``s and report counters.
 * End to end on the smoke DiT (CPU): a mixed static + adaptive queue
-  drains within the program budget, and every served latent equals a
+  drains within the program budget (adaptive entries through the fused
+  path, with no decision sync), and every served latent equals a
   ``DiffusionPipeline.generate`` replay of its batch, bitwise.
 * Arguments of features not ported yet raise ``NotImplementedError``; a
   traced drain exports a valid Chrome trace.
@@ -580,7 +581,7 @@ def test_engine_matches_reference_on_one_trace(scheduler, kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
-    dict(continuous=True), dict(admission=object()),
+    dict(admission=object()),
     dict(resilience=object()), dict(telemetry=True),
     dict(journal="journal.jsonl"), dict(snapshot_dir="snaps")])
 def test_unported_arguments_raise(kw):
@@ -588,14 +589,7 @@ def test_unported_arguments_raise(kw):
         make_engine(**kw)
 
 
-def test_fused_executor_and_recover_raise():
-    clock = serve.VirtualClock()
-
-    class Fused(FakeExecutor):
-        supports_fused_adaptive = True
-
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.ServeEngine(Fused(clock), None, make_store(), clock=clock)
+def test_recover_raises():
     eng, _ = make_engine()
     with pytest.raises(NotImplementedError, match="item 8"):
         eng.recover()
@@ -661,10 +655,10 @@ def test_served_latents_bit_identical_to_generate(tmp_path):
     assert {r.group for r in eng.records} == {"static2", "adaptive"}
     rep = eng.report()
     assert 0 < rep["compiles"]["model_variants"] <= rep["program_budget"]
-    assert ex.compiled_variant_count("sigstep") > 0
-    # one decision sync per adaptive step after the first
-    adaptive = [r for r in eng.records if r.group == "adaptive"]
-    assert ex.host_sync_count == len(adaptive) * (steps - 1)
+    # adaptive entries ride the fused path: no decision sync at all
+    assert ex.compiled_variant_count("fused") > 0
+    assert ex.compiled_variant_count("sigstep") == 0
+    assert ex.host_sync_count == 0
 
     static_pipe = DiffusionPipeline(cfg, solvers.ddim(steps), "static:n=2",
                                     cfg_scale=1.5, device="cpu")
