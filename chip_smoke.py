@@ -7,10 +7,12 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of both CUDA kernels and of the CUDA graph IF-node helper
+2. build of the three CUDA kernels (flash attention, SSD scan, the
+   batch-invariant linear layer) and of the CUDA graph IF-node helper
    (``core/cuda_graphs.cu``) from the checkout's sources, in parallel,
-   and the kernels' SASS: tensor-core instructions, registers and local memory
-   per flash-attention template instance and per SSD pass (``cuobjdump``);
+   and the kernels' SASS: tensor-core instructions, registers and local
+   memory per flash-attention template instance, per SSD pass and for the
+   linear kernel (``cuobjdump``);
 3. the flash-attention kernel against its plain PyTorch version over the
    kernel test sweep (each case with its arithmetic and load path) and at
    the DiT-XL/2 shape, where two launches must agree bitwise, with device
@@ -18,16 +20,26 @@ exits non-zero:
 4. the SSD-scan kernel against its plain PyTorch version over the kernel
    test sweep (f32 and bf16), at the Mamba-2-1.3B prefill shape (where two
    launches must agree bitwise), at a ragged length and on strided views
-   of one projection as the model hands them over, with times;
+   of one projection as the model hands them over, with times; then the
+   linear kernel (``gemm``) against its plain version (cuBLAS f32, TF32
+   off) at every DiT-XL/2 product shape for buckets 1–8 under CFG (≤ 5e-5
+   of the output's scale), each row bitwise against products of fewer and
+   of permuted rows, a captured launch against an eager one, and the
+   device times of one B = 8 forward's products beside their 3xTF32
+   bound and cuBLAS's;
 5. a full-width DiT-XL/2 denoiser forward on the card (kernel attention)
    against the same forward on the CPU (plain attention), then a
    ``torch.profiler`` trace of one forward at B = 8: device time by
-   kernel, the attention kernel's share, the device's idle share;
+   kernel, the attention and linear kernels' shares (every product of the
+   forward through the linear kernel: 201 calls, no library GEMM), the
+   device's idle share;
 6. the DiT slice: full-width DiT-XL/2, DDIM 50, cfg_scale 1.5 — calibrate
    on 10 samples, save the artifact, load it strictly into a fresh pipeline
    and answer 4 requests with no cache, the artifact's SmoothCache schedule
    and ``static:n=2``; every latent finite, kernel launches = 28 × attention
-   steps computed, segmented ≡ eager bitwise; the q/k/v that the model's
+   steps computed, linear launches = 5 + 28 × (1 + 4 per computed
+   attention + 2 per computed MLP) per step, segmented ≡ eager bitwise;
+   the q/k/v that the model's
    attention makes take 3xTF32 with ``cp.async`` loads;
 7. a full-width Mamba-2-1.3B prefill of one 200-token prompt on the card
    (kernel scan) against the same prefill on the CPU (plain scan): logits
@@ -78,9 +90,20 @@ exits non-zero:
    regroups, coalesces, variants against the budget, images/s, queue wait
    and service p50/p95 (joins ≥ 1, merges ≥ 1, variants within the budget
    are checked); every served request against its own solo ``generate``
-   (B = 1): the max abs difference per row, which must stay within 1e-4
-   of the row's largest |latent|, beside the DiT GEMMs' row stability
-   across batch shapes.
+   (B = 1): the max abs difference per row, which must be 0 (bitwise),
+   beside the row stability across batch shapes of the products (the
+   linear kernel: 0; cuBLAS for the record) and of the served path's row
+   reductions (the proxy's ``row_sums``, layernorm, gelu: 0; the plain
+   ``sum`` the proxy replaced, for the record);
+13. the SLO layer (``slo``, ~40 s): a τ ladder [0, 0.05, 0.3] of the
+   adaptive artifact behind ``ElasticPolicy`` and ``AdmissionController``,
+   26 requests of an ``overload_trace`` on a wall clock (1 / s, 4 / s,
+   1 / s; strict and bulk classes): controller changes, sheds by reason,
+   deferrals, attainment, goodput, p95 wait, realized τ; checked: ≥ 1
+   rung change, one graph per served (bucket, τ > 0) pair, a hand-made
+   move between the τ > 0 rungs capturing nothing, variants within the
+   budget, every request served or shed with a reason, every served batch
+   bitwise its ``generate`` at its rung's τ.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
@@ -243,7 +266,8 @@ def kernel_phase(fa, ref, peaks):
 # name fragments of the kernels in each library's SASS; every one of them
 # runs a product on the tensor cores
 SASS_KERNELS = {"flash_attention": ("attn_fwd",),
-                "ssd": ("ssd_cb", "ssd_state", "ssd_out")}
+                "ssd": ("ssd_cb", "ssd_state", "ssd_out"),
+                "gemm": ("gemm_3xtf32",)}
 
 
 def sass_phase(libs):
@@ -280,6 +304,141 @@ def sass_phase(libs):
               f"{lib}: a kernel without tensor-core instructions")
         out[lib] = rows
     return out
+
+
+def dit_gemms(cfg, batch):
+    """Every product of one DiT forward over ``batch`` rows (CFG-doubled
+    requests) as ``(M, K, N, bias, calls)``: the patch embedding, the
+    time MLP, per block the adaLN modulation, q/k/v/o and the MLP, the
+    final modulation and the output projection."""
+    from repro_torch.core.diffusion import TIME_EMB_DIM, token_shape
+    d, ff = cfg.d_model, cfg.stages[0].unit[0].ffn.d_ff
+    n_tok, tok_dim = token_shape(cfg)
+    rows, toks, blocks = batch, batch * n_tok, cfg.num_layers
+    return [(toks, tok_dim, d, True, 1), (rows, TIME_EMB_DIM, d, True, 1),
+            (rows, d, d, True, 1), (rows, d, 6 * d, True, blocks),
+            (toks, d, d, False, 4 * blocks), (toks, d, ff, False, blocks),
+            (toks, ff, d, False, blocks), (rows, d, 2 * d, True, 1),
+            (toks, d, tok_dim, True, 1)]
+
+
+def linear_calls(cfg, computed):
+    """``ops.linear`` calls of one forward whose branches of the types in
+    ``computed`` run: 5 outside the blocks, per block the modulation, 4
+    attention projections, 2 MLP products."""
+    per_block = 1 + sum(4 if "attn" in t else 2 for t in computed)
+    return 5 + cfg.num_layers * per_block
+
+
+def gemm_kernel_phase(gemm, ref, peaks, cfg):
+    """The linear kernel against its plain version (cuBLAS f32, TF32 off)
+    at every DiT-XL/2 product shape for buckets 1–8 under CFG (M = 2B and
+    2B·256 rows), ≤ 5e-5 of the output's scale; each row bitwise against
+    the product of fewer rows and of permuted rows; a captured launch
+    against an eager one; device times of one B = 8 forward's products
+    beside their 3xTF32 bound and cuBLAS's ``addmm`` / ``mm``."""
+    from repro_torch.kernels.timing import device_ms, per_call_ms
+    gen = torch.Generator().manual_seed(SEED + 11)
+
+    def inputs(m, k, n):
+        x = torch.randn(m, k, generator=gen).cuda()
+        w = (torch.randn(k, n, generator=gen) / k ** 0.5).cuda()
+        return x, w, torch.randn(n, generator=gen).cuda()
+
+    shapes = sorted({(k, n, m < 256) for m, k, n, _, _ in dit_gemms(cfg, 2)})
+    sweep, worst, worst_abs = [], 0.0, 0.0
+    for k, n, per_request in shapes:
+        for bucket in (1, 2, 4, 8):
+            m = 2 * bucket * (1 if per_request else 256)
+            x, w, b = inputs(m, k, n)
+            out = gemm.linear_cuda(x, w, b)
+            want = ref.linear_ref(x, w, b)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            rel = err / float(want.abs().max())
+            worst, worst_abs = max(worst, rel), max(worst_abs, err)
+            sweep.append({"m": m, "k": k, "n": n, "max_abs_err": err,
+                          "rel_max_err": rel})
+            check(rel <= 5e-5, f"linear vs plain at {sweep[-1]}")
+    emit({"phase": "gemm_sweep", "limit": 5e-5, "cases": sweep})
+
+    rows = {}
+    for k, n, per_request in shapes:
+        ms = (1, 2, 4, 8) if per_request else (512, 1024, 2048, 4096)
+        x, w, _ = inputs(ms[-1] * (2 if per_request else 1), k, n)
+        full = gemm.linear_cuda(x, w)
+        d = {str(m): float((gemm.linear_cuda(x[:m].contiguous(), w)
+                            - full[:m]).abs().max()) for m in ms}
+        perm = torch.randperm(x.shape[0], generator=gen).cuda()
+        d["permuted"] = float((gemm.linear_cuda(x[perm].contiguous(), w)
+                               - full[perm]).abs().max())
+        rows[f"{k}x{n}"] = d
+    emit({"phase": "gemm_rows", "max_abs_vs_full": rows})
+    check(all(v == 0.0 for d in rows.values() for v in d.values()),
+          f"a row's bits change with the batch: {rows}")
+
+    x, w, b = inputs(512, cfg.d_model, cfg.d_model)
+    eager = gemm.linear_cuda(x, w, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gemm.linear_cuda(x, w, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gemm.linear_cuda(x, w, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(captured, eager)), "captured linear != eager")
+    del graph
+
+    # one B = 8 forward's products (4 requests under CFG), each shape timed
+    # alone and summed by its calls
+    timed, total = [], {"ms": 0.0, "per_call_ms": 0.0, "plain_ms": 0.0,
+                        "library_ms": 0.0, "bound_ms": 0.0, "flops": 0,
+                        "bytes": 0}
+    for m, k, n, bias, calls in dit_gemms(cfg, 8):
+        x, w, b = inputs(m, k, n)
+        b = b if bias else None
+        lib = ((lambda: torch.addmm(b, x, w)) if bias
+               else (lambda: torch.mm(x, w)))
+        flops = 2 * m * k * n
+        nbytes = 4 * (m * k + k * n + m * n + (n if bias else 0))
+        t_ops = 3 * flops / peaks["tf32"] * 1e3
+        t_bytes = nbytes / peaks["hbm"] * 1e3
+        row = {"m": m, "k": k, "n": n, "bias": bias, "calls": calls,
+               "ms": device_ms(lambda: gemm.linear_cuda(x, w, b)),
+               "per_call_ms": per_call_ms(
+                   lambda: gemm.linear_cuda(x, w, b)),
+               "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b)),
+               "library_ms": device_ms(lib),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["tflops"] = flops / row["ms"] / 1e9
+        timed.append(row)
+        for key in ("ms", "per_call_ms", "plain_ms", "library_ms",
+                    "bound_ms"):
+            total[key] += calls * row[key]
+        total["flops"] += calls * flops
+        total["bytes"] += calls * nbytes
+    emit({"phase": "gemm_times", "batch": 8, "shapes": timed,
+          "forward": total})
+    t_ops = 3 * total["flops"] / peaks["tf32"] * 1e3
+    t_bytes = total["bytes"] / peaks["hbm"] * 1e3
+    return {"name": "linear", "route": "cuda",
+            "source": "src/repro_torch/kernels/gemm.cu",
+            "replaces": "no TPU kernel: x @ w, XLA's dot on the TPU "
+                        "(src/repro/models/mlp.py:22), cuBLAS f32 in "
+                        "PyTorch; added for the row contract",
+            "work": "one B = 8 DiT-XL/2 forward's products "
+                    f"({sum(r['calls'] for r in timed)} calls)",
+            "max_abs_err": worst_abs, "max_rel_err": worst,
+            "ms": total["ms"], "per_call_ms": total["per_call_ms"],
+            "plain_ms": total["plain_ms"], "library_ms": total["library_ms"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": total["flops"], "bytes": total["bytes"],
+            "tile": list(gemm.TILE)}
 
 
 def full_width_params(cfg):
@@ -362,7 +521,11 @@ def slice_phase(cfg, params, ops):
                else serve.schedule_for(override) if override else None)
         kw = {} if override == "artifact" else {"schedule": sch}
         attn_steps = 50 if sch is None else int((~sch.skip["attn"]).sum())
+        gemm_calls = sum(linear_calls(cfg, [
+            t for t in cfg.layer_types()
+            if sch is None or not sch.skip[t][s]]) for s in range(50))
         before = ops.LAUNCHES["flash_attention"]
+        before_linear = ops.LAUNCHES["linear"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x = serve.generate(params, torch.Generator().manual_seed(SEED + 3),
@@ -370,6 +533,7 @@ def slice_phase(cfg, params, ops):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.LAUNCHES["flash_attention"] - before
+        linear = ops.LAUNCHES["linear"] - before_linear
         latents[name] = x
         frac = (1.0 if sch is None else float(sum(
             sch.compute_fraction(t) for t in sch.skip) / len(sch.skip)))
@@ -377,10 +541,13 @@ def slice_phase(cfg, params, ops):
         check(launches == n_attn * attn_steps,
               f"{name}: {launches} kernel launches, expected "
               f"{n_attn} x {attn_steps}")
+        check(linear == gemm_calls,
+              f"{name}: {linear} linear launches, expected {gemm_calls}")
         base = latents["no_cache"]
         runs.append({"run": name, "requests": len(REQUEST_LABELS),
                      "wall_s": wall, "compute_fraction": frac,
                      "attn_steps": attn_steps, "launches": launches,
+                     "linear_launches": linear,
                      "rel_l1_to_no_cache": float((x - base).abs().sum()
                                                  / base.abs().sum())})
         emit({"phase": "generate", **runs[-1]})
@@ -674,7 +841,7 @@ def _device_us(prof, fragment):
     return busy / 1e3, part / 1e3, count
 
 
-def dit_profile_phase(cfg, diffusion, params):
+def dit_profile_phase(cfg, diffusion, params, ops):
     """Where a DiT-XL/2 step's time goes: one full-width denoiser forward at
     B = 8 (4 requests under CFG) after one untraced warm-up forward —
     device time by kernel, the attention kernel's and the GEMMs' shares of
@@ -685,18 +852,28 @@ def dit_profile_phase(cfg, diffusion, params):
     label = torch.tensor(REQUEST_LABELS + [cfg.num_classes] * 4,
                          device="cuda")
     diffusion.apply(cfg, params, x, t, label=label)
+    before = ops.LAUNCHES["linear"]
     wall_us, kern = _traced(
         lambda: diffusion.apply(cfg, params, x, t, label=label))
+    launched = ops.LAUNCHES["linear"] - before
     busy = sum(us for us, _ in kern.values())
     attn = [v for k, v in kern.items() if "attn_fwd" in k]
-    gemm = sum(us for k, (us, _) in kern.items() if "gemm" in k.lower())
+    linear = [v for k, v in kern.items() if "gemm_3xtf32" in k]
+    # any other product kernel (cuBLAS, CUTLASS) would break the row
+    # contract: every DiT product must go through the linear kernel
+    library = [k for k in kern if "gemm_3xtf32" not in k and any(
+        f in k.lower() for f in ("gemm", "cutlass", "xmma", "cublas"))]
+    gemm = sum(us for us, _ in linear)
     attn_us = sum(us for us, _ in attn)
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     row = {"phase": "dit_profile", "batch": 8, "wall_ms": wall_us / 1e3,
            "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
            "attn_ms": attn_us / 1e3, "attn_calls": sum(n for _, n in attn),
            "attn_share": attn_us / busy, "gemm_ms": gemm / 1e3,
-           "gemm_share": gemm / busy, "kernels": len(kern),
+           "gemm_share": gemm / busy,
+           "gemm_calls": launched,
+           "gemm_kernels_in_profile": sum(n for _, n in linear),
+           "library_gemm_kernels": library, "kernels": len(kern),
            "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
                    for k, (us, n) in top]}
     emit(row)
@@ -704,6 +881,10 @@ def dit_profile_phase(cfg, diffusion, params):
     check(row["attn_calls"] == cfg.num_layers,
           f"{row['attn_calls']} attention kernels in one forward, expected "
           f"{cfg.num_layers}")
+    want = linear_calls(cfg, cfg.layer_types())
+    check(row["gemm_calls"] == want and linear and not library,
+          f"{row['gemm_calls']} linear launches in one forward (expected "
+          f"{want}), other product kernels {library}")
 
 
 def lm_profile_phase(cfg, T, params, prompts, toks):
@@ -1068,6 +1249,15 @@ def fused_phase(cfg, params, ops, store):
           f"{warm} warm-up and {captured} captured attention calls, "
           f"expected {cfg.num_layers} x {attn_branches(step.stats)} "
           "branches each")
+    # one model call per branch, its products through the linear kernel
+    expect_linear = sum(
+        linear_calls(cfg, [t for t in cfg.layer_types()
+                           if not sig.skip.get(t, False)])
+        for sig in step.table.branches)
+    linear_calls_seen = (ops.LAUNCHES["linear"], ops.CAPTURED["linear"])
+    check(linear_calls_seen == (expect_linear, expect_linear),
+          f"{linear_calls_seen} warm-up and captured linear calls, "
+          f"expected {expect_linear} each")
 
     # the run state's copy into the graph's buffers and out of them, at
     # bucket 4 (median of 5, CUDA events)
@@ -1126,6 +1316,7 @@ def fused_phase(cfg, params, ops, store):
                                      "begin_capture_to_if_node"),
            "graphs": len(executor.fused_graphs()),
            "capture": step.stats, "capture_wall_s": capture_wall,
+           "linear_captured": ops.CAPTURED["linear"],
            "state_copy": copy,
            "device_bytes": {"before": mem0, "after_capture": mem1,
                             "peak_with_capture": peak1},
@@ -1138,6 +1329,30 @@ def fused_phase(cfg, params, ops, store):
     check(df == dh, "fused decisions differ from the host loop's")
     check(row["bitwise_vs_host_loop"],
           f"fused latents differ from the host loop's: max abs {max_abs}")
+
+    # the rule compares a (1,) tensor τ as it compares a float τ (both
+    # round to f32; a float divisor, by contrast, becomes a reciprocal
+    # multiply on CUDA): values one ulp around τ, every k_max edge
+    from repro_torch.core import calibration
+    g = torch.Generator().manual_seed(SEED + 13)
+    tau32 = torch.tensor(entry.tau, dtype=torch.float32)
+    near = torch.stack([torch.nextafter(tau32, torch.tensor(-1.0)), tau32,
+                        torch.nextafter(tau32, torch.tensor(2.0))])
+    acc = torch.cat([near, torch.rand(509, generator=g) * 2 * entry.tau])
+    acc = acc.reshape(128, 4).cuda()
+    lag = torch.randint(0, entry.k_max + 2, (128, 4), generator=g,
+                        dtype=torch.int32).cuda()
+    zeros = (torch.zeros(128, device="cuda"), torch.zeros(4, device="cuda"),
+             torch.zeros(4, device="cuda"))
+    want = calibration.batch_rule(zeros[0], acc, lag, zeros[1], zeros[2],
+                                  entry.tau, entry.k_max)
+    got = calibration.batch_rule(
+        zeros[0], acc, lag, zeros[1], zeros[2],
+        *calibration.rule_limits(entry.tau, entry.k_max, "cuda"))
+    row["tau_buffer_vs_float_bitwise"] = all(
+        bool(torch.equal(a, b)) for a, b in zip(want, got))
+    check(row["tau_buffer_vs_float_bitwise"],
+          "the rule decides otherwise with a tensor tau than a float tau")
 
     # τ = 0 on the base schedule against the segmented path
     x0 = executor.sample_adaptive_fused(params, gen(), n, tau=0.0, **kw)
@@ -1208,29 +1423,51 @@ def fused_phase(cfg, params, ops, store):
     return row
 
 
-def gemm_row_stability(cfg):
-    """Whether cuBLAS keeps a row's bits across batch shapes at the DiT's
-    f32 GEMMs: the first M rows of an (M_max, K) @ (K, N) product against
-    the (M, K) @ (K, N) product of those rows alone, for M = 2·256·bucket
-    (CFG-doubled rows of 1 and 2 requests) against 4 requests.  Seeded
-    N(0, 1) inputs; max abs difference per shape and M."""
+def gemm_row_stability(cfg, ops):
+    """Whether the DiT's f32 products keep a row's bits across batch
+    shapes: the first M rows of an (M_max, K) @ (K, N) product against the
+    (M, K) @ (K, N) product of those rows alone, for M = 2·256·bucket
+    (CFG-doubled rows of 1 and 2 requests) against 4 requests — through
+    ``ops.linear`` (the linear kernel; must read 0) and, for the record,
+    cuBLAS.  The same for the served path's row reductions: the adaptive
+    proxy (``calibration.rel_l1_change_rows``, must read 0; beside it the
+    plain ``sum`` it replaced) over B = 1, 2, 4 of 8 latents, and
+    layernorm and gelu over 2, 4 of 8 requests' tokens (must read 0).
+    Seeded N(0, 1) inputs; max abs difference per shape and M."""
+    from repro_torch.core import calibration
+    from repro_torch.models import layers
     gen = torch.Generator().manual_seed(SEED + 10)
     tok, d = 256, cfg.d_model
     shapes = [(d, d), (d, 3 * d), (d, 4 * d), (4 * d, d), (d, 6 * d)]
-    out = {}
+    out = {"linear": {}, "cublas": {}}
     for k, n in shapes:
         a = torch.randn(2 * 4 * tok, k, generator=gen).cuda()
         b = torch.randn(k, n, generator=gen).cuda()
-        full = a @ b
-        out[f"{k}x{n}"] = {str(m): float((a[:m] @ b - full[:m]).abs().max())
-                           for m in (2 * tok, 2 * 2 * tok)}
+        for name, fn in (("linear", ops.linear), ("cublas", torch.mm)):
+            full = fn(a, b)
+            out[name][f"{k}x{n}"] = {
+                str(m): float((fn(a[:m], b) - full[:m]).abs().max())
+                for m in (2 * tok, 2 * 2 * tok)}
+
+    def rows(fn, x, ms):
+        full = fn(x)
+        return {str(m): float((fn(x[:m]) - full[:m]).abs().max())
+                for m in ms}
+
+    lat = [torch.randn((8,) + cfg.latent_shape, generator=gen).cuda()
+           for _ in range(2)]
+    dims = tuple(range(1, lat[0].dim()))
+    out["proxy"] = rows(lambda x: calibration.rel_l1_change_rows(
+        x, lat[1][:len(x)]), lat[0], (1, 2, 4))
+    out["proxy_plain_sum"] = rows(lambda x: (
+        (x - lat[1][:len(x)]).abs().sum(dim=dims)
+        / (lat[1][:len(x)].abs().sum(dim=dims) + 1e-12)), lat[0], (1, 2, 4))
+    h = torch.randn(2 * 8, tok, d, generator=gen).cuda()
+    norm = {"scale": torch.randn(d, generator=gen).cuda(),
+            "bias": torch.randn(d, generator=gen).cuda()}
+    out["layernorm"] = rows(lambda x: layers.layernorm(norm, x), h, (4, 8))
+    out["gelu"] = rows(layers.gelu_tanh, h, (4, 8))
     return out
-
-
-# a served row against its solo replay, relative to the row's largest
-# |latent|: GEMM rounding across batch shapes gives ~1e-6, a row gathered
-# or merged from the wrong place (a swapped CFG half, permuted rows) ~1
-SOLO_LIMIT = 1e-4
 
 
 def continuous_phase(cfg, params, ops, store):
@@ -1242,7 +1479,7 @@ def continuous_phase(cfg, params, ops, store):
     and once without; joins ≥ 1 and merges ≥ 1, variants within the
     budget; every served request against its own solo ``generate``
     (B = 1) from its seed: the max abs difference per row; and whether
-    the DiT's f32 GEMMs keep a row's bits across batch shapes."""
+    the DiT's f32 products keep a row's bits across batch shapes."""
     import numpy as np
     from repro_torch import serve
     from repro_torch.cache import DiffusionPipeline
@@ -1317,17 +1554,168 @@ def continuous_phase(cfg, params, ops, store):
         rows.append({"rid": i, "entry": pol,
                      "max_abs": float((x[0].cpu() - got).abs().max()),
                      "max_abs_latent": float(got.abs().max())})
+    stability = gemm_row_stability(cfg, ops)
     emit({"phase": "continuous", "requests": 12, "runs": [on, off],
-          "solo_replay_max_abs": rows, "solo_replay_limit": SOLO_LIMIT,
-          "gemm_row_max_abs_vs_4_requests": gemm_row_stability(cfg),
+          "solo_replay_max_abs": rows, "solo_replay_limit": 0.0,
+          "gemm_row_max_abs_vs_4_requests": stability,
           "phase_s": time.perf_counter() - t_phase})
-    # not bitwise on the card (cuBLAS changes a row's reduction order with
-    # the batch shape, ROADMAP.md queue 3), but far from a row mix-up
-    bad = [r for r in rows
-           if not r["max_abs"] <= SOLO_LIMIT * r["max_abs_latent"]]
-    check(not bad, f"served rows differ from their solo replays by more "
-          f"than {SOLO_LIMIT} of their scale: {bad}")
+    check(all(v == 0.0 for d in stability["linear"].values()
+              for v in d.values())
+          and all(v == 0.0 for op in ("proxy", "layernorm", "gelu")
+                  for v in stability[op].values()),
+          f"a served-path op's rows change with the batch: {stability}")
+    # every product goes through the batch-invariant linear kernel and
+    # the proxy's row sums through one fixed tree: bitwise
+    bad = [r for r in rows if r["max_abs"] != 0.0]
+    check(not bad, f"served rows differ from their solo replays: {bad}")
     return on, off, rows
+
+
+SLO_TAUS = [0.0, 0.05, 0.3]
+SLO_CONTROLLER = dict(target_p95_wait_s=2.0, min_samples=2, interval_s=0.5,
+                      cooldown_s=2.0)
+# headroom < 1: the backlog estimate prices two interleaved batches'
+# service times in full, which overstates each one's wait
+SLO_ADMISSION = dict(max_backlog_s=8.0, aging_rate=0.5, headroom=0.75)
+SLO_PHASES = [(1.0, 6), (4.0, 14), (1.0, 6)]   # (requests / s, requests)
+
+
+def slo_phase(cfg, params, ops, store):
+    """The SLO layer at full width (phase 13; budget ~40 s): a τ ladder
+    (``SLO_TAUS``) of the serve phase's adaptive artifact behind an
+    ``ElasticPolicy`` (target p95 wait 2 s) and an ``AdmissionController``
+    (backlog threshold 8 s, aging 0.5 / s), ``max_batch`` 4, 2 in flight, a
+    wall clock; an ``overload_trace`` of 26 requests (6 at ~1 / s, 14 at
+    ~4 / s, above the ~1.7 images / s the drain sustains, then 6 at
+    ~1 / s), strict (max τ 0.05, 6 s deadline, priority 1, 1 in 8) and
+    bulk (8–16 s deadlines).  Then one
+    request at each τ > 0 rung through a second engine on the same
+    executor, the rung set by hand: the second rung must capture no graph.
+    Checks: ≥ 1 controller change; graphs = distinct (bucket, τ > 0) pairs
+    served; variants within the budget; every request served or shed with
+    a reason; every served batch bitwise its ``generate`` at its rung's
+    τ."""
+    import numpy as np
+    from repro_torch import serve, slo
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.serve.metrics import percentile
+    t_phase = time.perf_counter()
+    art = store.get(SERVE_ADAPTIVE).artifact
+    ladder_store = serve.ArtifactStore(cfg, solvers.ddim(50), cfg_scale=1.5)
+    ladder = ladder_store.add_ladder("gen", art, taus=SLO_TAUS)
+    executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+    changes = []
+
+    class Elastic(slo.ElasticPolicy):
+        # records the graphs and captured calls at each rung change
+        def on_finish(self, engine, record, requests, now):
+            before = self.controller.rung
+            super().on_finish(engine, record, requests, now)
+            if self.controller.rung != before:
+                changes.append({
+                    "t": now - t0, "rung": self.controller.rung,
+                    "graphs": len(engine.executor.fused_graphs()),
+                    "captured_linear": ops.CAPTURED["linear"]})
+
+    ctrl = slo.ElasticTauController(len(ladder.taus), **SLO_CONTROLLER)
+    eng = serve.ServeEngine(
+        executor, params, ladder_store, max_batch=4, max_inflight=2,
+        scheduler=Elastic(ctrl),
+        admission=slo.AdmissionController(**SLO_ADMISSION))
+    classes = [slo.RequestClass("strict", "gen", weight=1.0, priority=1,
+                                deadline_budget=6.0, max_tau=0.05),
+               slo.RequestClass("bulk", "gen", weight=7.0,
+                                deadline_budget=(8.0, 16.0))]
+    rng = np.random.RandomState(SEED + 12)
+    t0 = eng.clock.now()
+    reqs = slo.overload_trace(classes, SLO_PHASES, rng, start=t0)
+    for r in reqs:
+        r.label = int(rng.randint(cfg.num_classes))
+    eng.submit(*reqs)
+    torch.cuda.synchronize()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t_phase
+    rep = eng.report()
+    outcomes = {r.rid: eng.outcome(r.rid)[0] for r in reqs}
+    graphs = len(executor.fused_graphs())
+    pairs = {(r.bucket, r.tau > 0) for r in eng.records}
+
+    # the rung moved by hand between the two τ > 0 rungs: one request each
+    # through an engine on the same executor (no controller)
+    probe = serve.ServeEngine(executor, params, ladder_store, max_batch=4,
+                              scheduler="edf")
+    seen = []
+    for i, rung in enumerate((1, 2)):
+        ladder_store.set_rung("gen", rung)
+        probe.submit(serve.Request(rid=1000 + i, seed=1000 + i,
+                                   policy="gen", label=i))
+        probe.run_until_drained()
+        seen.append((len(executor.fused_graphs()), ops.CAPTURED["linear"]))
+    # every served batch against generate at its rung's τ
+    replay = {}
+    for tau in sorted({r.tau for r in eng.records + probe.records}):
+        replay[tau] = DiffusionPipeline(
+            cfg, solvers.ddim(50),
+            f"adaptive:base=smoothcache(alpha=0.18),tau={tau:g}",
+            cfg_scale=1.5)
+        replay[tau].load_artifact(art.at_tau(tau), strict=True)
+    mismatched = []
+    results = {**eng.results, **probe.results}
+    for rec in eng.records + probe.records:
+        x, dec = replay[rec.tau].generate(
+            params, serve.batch_generator(rec.seeds), rec.bucket,
+            label=torch.tensor(rec.labels, device="cuda"),
+            return_decisions=True)
+        served = torch.from_numpy(np.stack([results[i] for i in rec.rids]))
+        if not (torch.equal(x.cpu(), served) and dec == rec.decisions):
+            mismatched.append(rec.rids)
+    waits = [r.queue_wait for r in reqs if r.queue_wait is not None]
+    row = {"phase": "slo", "requests": len(reqs),
+           "classes": {c.name: sum(r.slo.cls == c.name for r in reqs)
+                       for c in classes},
+           "served": rep["requests"], "shed": rep["shed"],
+           "deferrals": rep["deferrals"],
+           "attainment": rep["slo"]["attainment"],
+           "goodput_fraction": rep["slo"]["goodput_fraction"],
+           "goodput_rps": rep["slo"].get("goodput_rps"),
+           "images_per_s": rep.get("throughput_rps"),
+           "queue_wait_p95_s": percentile(waits, 95) if waits else None,
+           "realized_tau": rep["realized_tau"],
+           "batches": [(r.bucket, r.tau) for r in eng.records],
+           "controller_history": [(t - t0, rung, p95)
+                                  for t, rung, p95 in ctrl.history],
+           "changes": changes, "graphs": graphs,
+           "graph_keys_served": sorted(pairs),
+           "graph_records": executor.fused_graphs(),
+           "rung_probe": {"graphs_and_captured_after": seen,
+                          "batches": [(r.bucket, r.tau)
+                                      for r in probe.records]},
+           "model_variants": rep["compiles"]["model_variants"],
+           "program_budget": rep["program_budget"],
+           "controller": SLO_CONTROLLER, "admission": SLO_ADMISSION,
+           "arrivals": SLO_PHASES,
+           "replays": len(eng.records) + len(probe.records),
+           "replays_bitwise": not mismatched,
+           "drain_s": drain_s, "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check(len(ctrl.history) >= 1, "the controller never moved a rung")
+    check(graphs == len(pairs),
+          f"{graphs} fused graphs for the served (bucket, tau > 0) pairs "
+          f"{sorted(pairs)}")
+    check(seen[1] == seen[0],
+          f"moving between tau > 0 rungs captured: {seen}")
+    check(row["model_variants"] <= row["program_budget"],
+          f"{row['model_variants']} model variants over the budget "
+          f"{row['program_budget']}")
+    check(all(o in ("done", "shed") for o in outcomes.values())
+          and all(eng.shed[r][0] for r in eng.shed),
+          f"requests without an outcome: {outcomes}")
+    check(not mismatched, f"served batches differ from generate at their "
+          f"rung's tau: {mismatched}")
+    return row
 
 
 def main():
@@ -1337,7 +1725,7 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.core import cuda_graphs, diffusion
-    from repro_torch.kernels import flash_attention as fa, ops, ref, ssd
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref, ssd
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import tree_map
@@ -1346,18 +1734,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     peaks = card()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {m.__name__.rsplit(".", 1)[-1]: pool.submit(m.build)
-                  for m in (fa, ssd, cuda_graphs)}
+                  for m in (fa, ssd, gemm, cuda_graphs)}
         builds = {k: f.result() for k, f in builds.items()}
     emit({"phase": "build",
           "seconds": {k: r["seconds"] for k, r in builds.items()},
           "wall_s": time.perf_counter() - t0})
     sass_phase({k: r["path"] for k, r in builds.items()})
-    kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
-               "ssd": ssd_kernel_phase(ssd, ref, peaks)}
-
     cfg = configs.get("dit-xl-256")
+    kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
+               "ssd": ssd_kernel_phase(ssd, ref, peaks),
+               "linear": gemm_kernel_phase(gemm, ref, peaks, cfg)}
+
     t0 = time.perf_counter()
     params_cpu = full_width_params(cfg)
     params_gpu = tree_map(lambda a: a.cuda(), params_cpu)
@@ -1366,7 +1755,7 @@ def main():
           "count": sum(a.numel() for a in tree_leaves(params_cpu))})
     cross_check_phase(cfg, diffusion, params_cpu, params_gpu)
     del params_cpu
-    dit_profile_phase(cfg, diffusion, params_gpu)
+    dit_profile_phase(cfg, diffusion, params_gpu, ops)
 
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
@@ -1380,6 +1769,7 @@ def main():
     check(path == {"arith": "3xtf32-mma.sync", "load": "cp.async"},
           f"the DiT slice's attention takes {path}")
     kernels["flash_attention"]["launches"] = dit_launches["flash_attention"]
+    kernels["linear"]["launches"] = dit_launches["linear"]
     serve_launches, serve_calls, store = serve_phase(cfg, params_gpu, ops,
                                                      smooth_art)
     kernels["flash_attention"]["serve_launches"] = serve_launches
@@ -1389,6 +1779,7 @@ def main():
         fused["captured_launches_per_graph"]
     kernels["flash_attention"]["fused_replayed"] = fused["replayed_launches"]
     continuous_phase(cfg, params_gpu, ops, store)
+    slo_phase(cfg, params_gpu, ops, store)
     del params_gpu, store
     gc.collect()              # the DiT weights go before the Mamba phases
 

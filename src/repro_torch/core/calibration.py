@@ -106,14 +106,30 @@ def rel_l1_change(cur, prev):
     return abs(cur - prev).sum() / (abs(prev).sum() + 1e-12)
 
 
+def row_sums(v):
+    """Per-row sums of ``v`` (B, ...) by one fixed pairwise tree of
+    elementwise adds (the row padded with zeros to a power of two, then
+    halved until one value is left): row i's bits depend on row i alone.
+    PyTorch's CUDA reduction shapes its thread blocks by the number of
+    outputs, so ``v.sum(dim)`` would give a row other bits at another B."""
+    v = v.reshape(v.shape[0], -1)
+    n = v.shape[1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        v = torch.nn.functional.pad(v, (0, width - n))
+    while v.shape[1] > 1:
+        half = v.shape[1] // 2
+        v = v[:, :half] + v[:, half:]
+    return v[:, 0]
+
+
 def rel_l1_change_rows(cur, prev):
     """Per-sample :func:`rel_l1_change`: reduce over every axis but the
     leading batch axis, returning one proxy signal per row (in the
     tensors' dtype, on their device), so a batch-1 run and row i of a
-    batch-B run see the same signal."""
-    dims = tuple(range(1, cur.dim()))
-    return ((cur - prev).abs().sum(dim=dims)
-            / (prev.abs().sum(dim=dims) + 1e-12))
+    batch-B run see the same signal, bit for bit (:func:`row_sums`)."""
+    return (row_sums((cur - prev).abs())
+            / (row_sums(prev.abs()) + 1e-12))
 
 
 def _unforced(skip, force_compute):
@@ -145,6 +161,16 @@ def runtime_rule(proxy, acc, lag, a, b, tau, k_max, force_compute=False):
     return skip, acc, lag
 
 
+def rule_limits(tau: float, k_max: int, device):
+    """τ and k_max as the (1,) float32 / int32 device tensors the rule
+    compares against — the form both adaptive loops pass, so that one
+    captured fused step serves every τ > 0 (each a buffer it reads) and
+    the host loop compares exactly as the graph does.  ``torch.full``
+    writes the values on the device: no host-to-device copy."""
+    return (torch.full((1,), float(tau), dtype=torch.float32, device=device),
+            torch.full((1,), int(k_max), dtype=torch.int32, device=device))
+
+
 def batch_rule(proxy_rows, acc, lag, a, b, tau, k_max, force_compute=False):
     """Per-sample adaptive rule over a batch: each row evaluates
     :func:`runtime_rule` arithmetic against its own ``(B, T)``
@@ -153,7 +179,9 @@ def batch_rule(proxy_rows, acc, lag, a, b, tau, k_max, force_compute=False):
     (``realized (T,)`` — one model call refreshes a type's cache for every
     row, so any row needing a type's compute forces it for the batch).
     acc/lag update against the realized bits, so a batch of one realizes
-    exactly its solo trajectory."""
+    exactly its solo trajectory.  ``tau`` / ``k_max`` are the (1,)
+    tensors of :func:`rule_limits` in both adaptive loops (a Python float
+    and int compare to the same bits)."""
     delta = torch.clamp_min(a * proxy_rows[:, None] + b[None, :], 0.0)
     want = _unforced((lag + 1 <= k_max) & (acc + delta < tau),
                      force_compute)

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L, transformer as T
 
 TIME_EMB_DIM = 256
@@ -84,8 +85,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 def _cond_vector(cfg: ModelConfig, params, t, label=None):
     """t: (B,) diffusion time in [0, 1000); label: (B,) int."""
     te = L.sinusoidal_embedding(t.float(), TIME_EMB_DIM)
-    te = F.silu(te @ params["t_mlp"]["w1"] + params["t_mlp"]["b1"])
-    te = te @ params["t_mlp"]["w2"] + params["t_mlp"]["b2"]
+    te = F.silu(ops.linear(te, params["t_mlp"]["w1"], params["t_mlp"]["b1"]))
+    te = ops.linear(te, params["t_mlp"]["w2"], params["t_mlp"]["b2"])
     if label is not None and "label_embed" in params:
         te = te + params["label_embed"][label]
     return te
@@ -99,7 +100,7 @@ def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
     pre-residual branch outputs (the SmoothCache payload) of the types
     ``collect_branches`` names (a bool or a collection of layer types)."""
     tok = patchify(cfg, x)
-    h = tok @ params["patch_in"]["w"] + params["patch_in"]["b"]
+    h = ops.linear(tok, params["patch_in"]["w"], params["patch_in"]["b"])
     # fixed sin-cos positional embedding over flattened tokens (DiT-style)
     pos = torch.arange(h.shape[1], device=h.device)
     h = h + L.sinusoidal_embedding(pos, cfg.d_model)[None].to(h.dtype)
@@ -107,10 +108,11 @@ def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
     out, aux = T.forward(cfg, params["backbone"], embeds=h, cond=cond,
                          skip=skip, branch_caches=branch_caches,
                          collect_branches=collect_branches)
-    mod = F.silu(cond) @ params["final_mod"]["w"] + params["final_mod"]["b"]
+    mod = ops.linear(F.silu(cond), params["final_mod"]["w"],
+                     params["final_mod"]["b"])
     shift, scale = torch.chunk(mod[:, None, :], 2, dim=-1)
     out = out * (1.0 + scale) + shift
-    out = out @ params["out"]["w"] + params["out"]["b"]
+    out = ops.linear(out, params["out"]["w"], params["out"]["b"])
     return unpatchify(cfg, out), aux
 
 

@@ -35,8 +35,9 @@ Run states of all three kinds are divisible values (``split_run`` /
 ``merge_runs``): row gathers and concatenations, bitwise per row, the
 ground continuous batching stands on.  ``row_keys`` draws each row from
 its own generator so that any grouping of the rows samples each row as
-its solo run does (bitwise where the GEMMs keep a row's bits across
-batch shapes: on the CPU, not with cuBLAS on the H100).
+its solo run does, bitwise: on a card the model's products go through the
+batch-invariant ``ops.linear`` kernel and the proxy's row sums through
+one fixed tree (``calibration.row_sums``).
 
 Eager PyTorch compiles nothing, so where the JAX package counts compiled
 programs the executor records every distinct model-call *variant* it
@@ -442,9 +443,8 @@ class SmoothCacheExecutor:
         :meth:`initial_latent` draw of ``generators[i]``, so ANY grouping
         of the rows — one big batch, singletons, any split/merge in
         between — samples each row as its own solo run does (the
-        continuous-batching determinism contract; bitwise where the
-        GEMMs keep a row's bits across batch shapes).  Stochastic solvers are
-        refused: their noise depends on the batch shape."""
+        continuous-batching determinism contract, bitwise).  Stochastic
+        solvers are refused: their noise depends on the batch shape."""
         generators = list(generators)
         if batch is not None and int(batch) != len(generators):
             raise ValueError(f"row_keys has {len(generators)} entries for "
@@ -698,7 +698,8 @@ class SmoothCacheExecutor:
         else:
             _, realized, acc, lag = calibration.batch_rule(
                 calibration.rel_l1_change_rows(x, rs.x_prev), rs.acc,
-                rs.lag, rs.coeff_a, rs.coeff_b, rs.tau, rs.k_max)
+                rs.lag, rs.coeff_a, rs.coeff_b,
+                *calibration.rule_limits(rs.tau, rs.k_max, self.device))
             bits = realized.tolist()
             self.host_sync_count += 1       # the per-step device→host sync
             skipset = frozenset(t for t, hit in zip(rs.pool_types, bits)
@@ -868,7 +869,7 @@ class SmoothCacheExecutor:
         key = fused.graph_key(rs, params)
         g = self._fused.get(key)
         if g is None:
-            self._dispatch("fused", key[1:6], key[0])
+            self._dispatch("fused", key[1:4], key[0])
             g = fused.FusedGraph(self, params, rs, [
                 cache_entry_names(self.cfg, sig.collect)
                 for sig in rs.table.branches])

@@ -14,10 +14,13 @@ the model times, the DDIM coefficients, the static skip table and the
 trace, and the graph advances it; a chunk of ``n`` steps is ``n`` replays
 enqueued back to back.
 
-One :class:`FusedGraph` exists per ``(batch, SwitchTable, runtime, τ,
-k_max, labelled, params)`` key — the counterpart of JAX's one fused
-program per (batch shape, pool).  Its buffers are fixed: a chunk copies
-the run state in, replays, and copies the result out, device to device, so
+One :class:`FusedGraph` exists per ``(batch, SwitchTable, runtime,
+labelled, params)`` key — the counterpart of JAX's one fused program per
+(batch shape, pool, runtime).  τ and k_max are (1,) device tensors in the
+graph's fixed buffers, as JAX passes them as traced arguments: every
+τ > 0 rung of a ladder replays one graph, so a rung change captures
+nothing.  The buffers are fixed: a chunk copies the run state in (τ and
+k_max with it), replays, and copies the result out, device to device, so
 run states stay ordinary tensors that ``split_run`` / ``merge_runs``
 gather by rows.  The executor's graphs share one memory pool; they replay
 one after another on one stream.
@@ -67,7 +70,6 @@ class FusedGraph:
     def __init__(self, executor, params, rs, writes):
         self.params = params                # the graph reads these addresses
         self.table, self.runtime = rs.table, rs.runtime
-        self.tau, self.k_max = rs.tau, rs.k_max
         dev = executor.device
         batch = int(rs.x.shape[0])
         types = self.table.types
@@ -75,6 +77,8 @@ class FusedGraph:
                     for name, v in self._state(rs)}
         self.buf["pred"] = torch.zeros_like(rs.x)
         self.buf["step"] = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.buf["tau"], self.buf["k_max"] = calibration.rule_limits(
+            0.0, 0, dev)
         self.buf["weights"] = torch.tensor(
             [1 << i for i in range(len(types))], dtype=torch.int32,
             device=dev)
@@ -107,6 +111,8 @@ class FusedGraph:
             if v is not None:
                 self.buf[name].copy_(v)
         self.buf["step"].fill_(rs.step)
+        self.buf["tau"].fill_(rs.tau)
+        self.buf["k_max"].fill_(rs.k_max)
         for si, bi, name in self.leaves:
             self.cache[si][bi][name].copy_(rs.cache[si][bi][name])
 
@@ -123,7 +129,7 @@ class FusedGraph:
         if self.runtime:
             want, bits, acc, lag = calibration.batch_rule(
                 calibration.rel_l1_change_rows(x, b["x_prev"]), acc, lag,
-                b["a"], b["b"], self.tau, self.k_max,
+                b["a"], b["b"], b["tau"], b["k_max"],
                 force_compute=s == 0)
         else:
             bits = b["skip_table"].index_select(0, s)[0]
@@ -243,7 +249,8 @@ class FusedGraph:
 
 
 def graph_key(rs, params) -> tuple:
-    """What a captured step is specialized on (τ and k_max are constants
-    of the rule's kernels; the parameters are read by address)."""
-    return (int(rs.x.shape[0]), rs.table, rs.runtime, rs.tau, rs.k_max,
-            rs.label is not None, id(params))
+    """What a captured step is specialized on: the batch, the pool's
+    branch table, τ > 0 or not, labels or not, and the parameters (read
+    by address).  τ and k_max are not in it: they are buffers."""
+    return (int(rs.x.shape[0]), rs.table, rs.runtime, rs.label is not None,
+            id(params))

@@ -6,8 +6,9 @@ no fallback: a kernel that fails to build or launch raises.
 
 ``LAUNCHES`` counts the calls that went to a kernel, so that a run can
 show that it went through the kernels; callers reset it by assigning 0 to
-an entry.  It counts calls of the function, one per model block, not CUDA
-launches: one ``ssd`` call is three launches (``ssd.cu``'s passes).  A
+an entry.  It counts calls of the function, not CUDA launches: one
+``ssd`` call is three launches (``ssd.cu``'s passes), a ``linear`` or
+``flash_attention`` call one.  A
 call made while the stream captures a CUDA graph launches nothing: it
 records the launch into the graph, and counts in ``CAPTURED`` instead.  A
 graph's replays make no call at all.
@@ -19,11 +20,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as _ssd
 
-LAUNCHES = {"flash_attention": 0, "ssd": 0}
-CAPTURED = {"flash_attention": 0, "ssd": 0}
+LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0}
+CAPTURED = {"flash_attention": 0, "ssd": 0, "linear": 0}
 
 
 def _count(name: str) -> None:
@@ -31,6 +33,20 @@ def _count(name: str) -> None:
         CAPTURED[name] += 1
     else:
         LAUNCHES[name] += 1
+
+
+def linear(x, w, b=None):
+    """x: (..., K) @ w: (K, N) (+ b: (N,)) → (..., N).  On a CUDA tensor
+    the batch-invariant kernel over the flattened leading dims (a row's
+    bits do not depend on the other rows); on a CPU tensor ``x @ w (+ b)``
+    as it stands."""
+    if x.device.type == "cuda":
+        out = _gemm.linear_cuda(x.reshape(-1, x.shape[-1]), w, b)
+        _count("linear")
+        return out.reshape(*x.shape[:-1], w.shape[1])
+    if x.device.type == "cpu":
+        return ref.linear_ref(x, w, b)
+    raise ValueError(f"no linear for device {x.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

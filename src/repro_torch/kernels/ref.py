@@ -10,6 +10,12 @@ import torch
 NEG_INF = -2.0e38
 
 
+def linear_ref(x, w, b=None):
+    """``x @ w`` (+ ``b``), the bias added to the finished product."""
+    y = x @ w
+    return y if b is None else y + b
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,

@@ -1,10 +1,12 @@
 """GQA self-attention, full-sequence mode.
 
-Self-attention always runs through :func:`repro_torch.kernels.ops.flash_attention`:
-on a CUDA tensor that is the hand-written Hopper kernel, on a CPU tensor its
-plain PyTorch version.  There is no ``use_flash`` switch.  ``_sdpa`` with
-``_mask_bias`` is the port of the JAX package's einsum attention, kept as an
-independent reference for the kernel path.
+Self-attention always runs through
+:func:`repro_torch.kernels.ops.flash_attention` and its projections through
+:func:`repro_torch.kernels.ops.linear`: on a CUDA tensor those are the
+hand-written Hopper kernels, on a CPU tensor their plain PyTorch versions.
+There is no ``use_flash`` switch.  ``_sdpa`` with ``_mask_bias`` is the
+port of the JAX package's einsum attention, kept as an independent
+reference for the kernel path.
 
 Not ported yet: MLA, decode, RoPE, qk-norm, factorized video attention and
 cross-attention.
@@ -73,13 +75,9 @@ def _sdpa(q, k, v, bias, *, softcap: Optional[float], scale: float):
 
 def _gqa_qkv(spec: AttentionSpec, params, x):
     b, l = x.shape[0], x.shape[1]
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if spec.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+    q, k, v = (ops.linear(x, params["w" + n],
+                          params["b" + n] if spec.qkv_bias else None)
+               for n in "qkv")
     q = q.reshape(b, l, spec.num_heads, spec.head_dim)
     k = k.reshape(b, l, spec.num_kv_heads, spec.head_dim)
     v = v.reshape(b, l, spec.num_kv_heads, spec.head_dim)
@@ -91,7 +89,7 @@ def _gqa_full(spec: AttentionSpec, params, x):
     out = ops.flash_attention(q, k, v, causal=spec.causal, window=spec.window,
                               softcap=spec.logit_softcap,
                               scale=1.0 / math.sqrt(spec.head_dim))
-    return out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
+    return ops.linear(out.reshape(x.shape[0], x.shape[1], -1), params["wo"])
 
 
 def apply(spec: AttentionSpec, params, x):

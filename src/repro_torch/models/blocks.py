@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import BlockSpec, SSMSpec
+from repro_torch.kernels import ops
 from repro_torch.models import attention, layers as L, mlp, ssm
 
 
@@ -51,7 +52,7 @@ def init_cache(spec: BlockSpec, d_model: int, batch: int, device=None):
 def _modulation(spec: BlockSpec, params, cond):
     if not spec.adaln:
         return None
-    m = F.silu(cond) @ params["mod"]["w"] + params["mod"]["b"]
+    m = ops.linear(F.silu(cond), params["mod"]["w"], params["mod"]["b"])
     return torch.chunk(m[:, None, :], 6, dim=-1)  # each (B, 1, d)
 
 

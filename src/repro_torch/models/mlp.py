@@ -1,9 +1,11 @@
-"""Feed-forward layers: (gated) MLPs."""
+"""Feed-forward layers: (gated) MLPs, their products through
+:func:`repro_torch.kernels.ops.linear`."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import MLPSpec
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
@@ -18,9 +20,9 @@ def init(gen: torch.Generator, spec: MLPSpec, d_model: int,
 
 def apply(spec: MLPSpec, params, x):
     act = L.activation(spec.activation)
-    up = x @ params["w_up"]
+    up = ops.linear(x, params["w_up"])
     if spec.gated:
-        up = act(x @ params["w_gate"]) * up
+        up = act(ops.linear(x, params["w_gate"])) * up
     else:
         up = act(up)
-    return up @ params["w_down"]
+    return ops.linear(up, params["w_down"])

@@ -14,14 +14,18 @@ the device: which one advances each tick is decided by a pluggable
 :class:`repro_torch.slo.SchedulingPolicy` — the default ``interleave``
 (round-robin, so a short, heavily-cached schedule admitted behind a
 full-compute one finishes early instead of convoying behind it), ``fcfs``
-(the convoy baseline) or ``edf`` (least-slack-first over member
-deadlines).  Preemption granularity is the advance unit — a batch is never
-torn mid-step.
+(the convoy baseline), ``edf`` (least-slack-first over member deadlines)
+or an ``elastic`` policy object that also drives the store's τ ladders
+from measured p95 waits.  Preemption granularity is the advance unit — a
+batch is never torn mid-step.
 
 SLO semantics (optional): requests may carry a :class:`repro_torch.slo.SLO`;
-each tick first sheds quality-infeasible requests (no registered rung at
-or below the request's ``max_tau``).  Every rejection is recorded with a
-reason in ``ServeEngine.shed`` and the metrics — :meth:`ServeEngine.outcome`
+each tick first runs an SLO sweep that sheds quality-infeasible requests
+(no registered rung at or below the request's ``max_tau``) and, when an
+:class:`repro_torch.slo.AdmissionController` is installed, sheds or defers
+against the estimated backlog (queue depth × the online-calibrated
+per-step service cost).  Every rejection is recorded with a reason in
+``ServeEngine.shed`` and the metrics — :meth:`ServeEngine.outcome`
 resolves any rid.
 
 Continuous batching (``continuous=True``): waiting compatible requests
@@ -30,9 +34,8 @@ them to the run's step, then the two run states merge), τ > 0 fused runs
 *regroup* by their rows' desired masks at chunk boundaries, and aligned
 runs of one entry *coalesce* back.  Launches then draw each row from its
 own generator (``row_keys``), so every request replays alone as
-``generate(params, batch_generator([seed]), 1)`` whatever its lineage —
-bitwise where the GEMMs keep a row's bits across batch shapes (the CPU;
-not cuBLAS on the H100, ``ROADMAP.md`` queue 3).
+``generate(params, batch_generator([seed]), 1)`` whatever its lineage,
+bitwise (the executor's per-row contract).
 
 Determinism contract: a micro-batch over requests ``[r0..rn-1]`` samples
 with ``batch_generator(seeds)`` — serving a batch is *bit-identical* to
@@ -50,9 +53,9 @@ executor's total ``model_variants`` against :meth:`program_budget`.
 Eager PyTorch compiles nothing: the count is of dispatched shapes, the
 programs a compiled version would build.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 8): admission control, the
-elastic τ controller, resilience (with continuous batching's per-row
-split-retry), telemetry and durability.  Their constructor arguments raise
+Not ported yet (``ROADMAP.md`` queue 1, item 8): resilience (with
+continuous batching's per-row split-retry), telemetry and durability.
+Their constructor arguments and :meth:`ServeEngine.recover` raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -179,8 +182,6 @@ class ServeEngine:
                  join_horizon: float = 0.5, admission=None,
                  resilience=None, telemetry: bool = False, journal=None,
                  snapshot_dir=None):
-        if admission is not None:
-            _not_ported("ServeEngine(admission=)", "admission control", 8)
         if resilience is not None:
             _not_ported("ServeEngine(resilience=)", "fault recovery", 8)
         if telemetry:
@@ -216,8 +217,13 @@ class ServeEngine:
             store.tracer = tracer
             self.batcher.tracer = tracer
         self._serial = 0                      # batch serial (trace tracks)
+        #: the scheduling policy object; ``scheduler`` may be a built-in
+        #: name or any repro_torch.slo.SchedulingPolicy (e.g.
+        #: ElasticPolicy(controller))
         self.policy = resolve_policy(scheduler)
         self.scheduler = self.policy.name
+        #: a repro_torch.slo.AdmissionController, or None
+        self.admission = admission
         self.cost_model = (cost_model if cost_model is not None
                            else ServiceCostModel())
         self.load = LoadEstimator(self.cost_model, batch_factor=max_batch)
@@ -237,7 +243,7 @@ class ServeEngine:
         self.shed: Dict[int, Tuple[str, float]] = {}   # rid → (reason, t)
         self._inflight: List[_Inflight] = []
         self._rids: set = set()               # every rid ever submitted
-        self._sweep_needed = False
+        self._sweep_needed = admission is not None
 
     # -- submission ----------------------------------------------------------
 
@@ -287,7 +293,7 @@ class ServeEngine:
     def recover(self, *args, **kwargs):
         _not_ported("ServeEngine.recover()", "restart recovery", 8)
 
-    # -- SLO sweep (quality floors) -------------------------------------------
+    # -- SLO sweep (quality floors + admission) ------------------------------
 
     def _backlog_seconds(self, now: float) -> float:
         """Load estimate: queued steps (batch-amortized) + in-flight
@@ -307,18 +313,41 @@ class ServeEngine:
         self.tracer.instant("shed", rid=req.rid, reason=reason)
 
     def _slo_sweep(self, now: float) -> None:
-        """Shed every ready request whose quality floor no registered rung
-        satisfies (or whose entry the health registry marked
-        unhealthy)."""
+        """Walk the ready queue: shed requests whose quality floor no
+        registered rung satisfies (or whose entry the health registry
+        marked unhealthy), then let the admission controller shed or defer
+        against the backlog estimate.  The backlog is snapshotted once per
+        sweep so decisions are order-independent."""
         if not self._sweep_needed:
             return
+        backlog = None
         for g in list(self.queue.ready_groups(now)):
             for r in self.queue.peek(g, now):
-                if self.store.resolve_entry_for(g, r) is None:
+                entry = self.store.resolve_entry_for(g, r)
+                if entry is None:
                     reason = ("unhealthy_entry"
                               if not self.store.health.is_servable(g)
                               else "quality_floor")
                     self._shed(r, reason, now)
+                    continue
+                if self.admission is None:
+                    continue
+                if backlog is None:
+                    backlog = self._backlog_seconds(now)
+                    self.registry.series("slo.backlog_s").record(now,
+                                                                 backlog)
+                est = self.cost_model.estimate(entry.plan.num_steps,
+                                               group=entry.name)
+                d = self.admission.decide(r, now, backlog_s=backlog,
+                                          est_service_s=est)
+                if d.action == "shed":
+                    self._shed(r, d.reason, now)
+                elif d.action == "defer":
+                    self.queue.take_rids(g, [r.rid], now)
+                    self.metrics.observe_defer(r, now)
+                    self.tracer.instant("defer", rid=r.rid,
+                                        retry_at=d.retry_at)
+                    self.queue.resubmit(r, d.retry_at)
 
     # -- scheduling ----------------------------------------------------------
 
@@ -665,11 +694,12 @@ class ServeEngine:
         self.policy.on_finish(self, record, mb.requests, done)
 
     def step(self) -> bool:
-        """One scheduling tick: shed quality-infeasible requests, admit
-        what fits, then advance the in-flight run the scheduling policy
-        selects by one unit (a plan segment / an adaptive step-chunk / a
-        whole eager batch).  Returns False when nothing is runnable *right
-        now* (requests may still be in flight toward their arrival)."""
+        """One scheduling tick: sweep SLOs (quality-floor sheds, admission
+        shed/defer), admit what fits, then advance the in-flight run the
+        scheduling policy selects by one unit (a plan segment / an
+        adaptive step-chunk / a whole eager batch).  Returns False when
+        nothing is runnable *right now* (requests may still be in flight
+        toward their arrival)."""
         now = self.clock.now()
         self._slo_sweep(now)
         self._admit(now)
@@ -700,9 +730,9 @@ class ServeEngine:
 
     def run_until_drained(self) -> Dict[int, np.ndarray]:
         """Serve until every submitted request has an *outcome* — a result
-        or an explicit shed — sleeping the clock across arrival gaps and
-        batching windows.  Returns {rid: latent row} for the served
-        ones; :meth:`outcome` resolves any rid's fate."""
+        or an explicit shed — sleeping the clock across arrival gaps,
+        batching windows and deferral retries.  Returns {rid: latent row}
+        for the served ones; :meth:`outcome` resolves any rid's fate."""
         stalled = 0
         last_now = None
         while True:

@@ -11,9 +11,9 @@ total ``model_variants``) and reported against the program budget
 
 SLO accounting: deadline **attainment** over deadline-carrying requests,
 **goodput** (deadline-met work) vs throughput over all *offered* traffic
-— shed requests are explicit outcomes with reasons, counted in the
-denominator, never silently dropped — plus the realized-τ histogram and
-the predicted quality cost.
+— shed and deferred requests are explicit outcomes with reasons, counted
+in the denominator, never silently dropped — plus the realized-τ
+histogram and the predicted quality cost under the elastic τ controller.
 
 :class:`ServerMetrics` is a **view over a**
 :class:`~repro_torch.obs.MetricsRegistry`: every ``observe_*`` call writes
@@ -117,6 +117,9 @@ class ServerMetrics:
                 or req.arrival < self.first_arrival):
             self.first_arrival = req.arrival
 
+    def observe_defer(self, req: Request, now: float) -> None:
+        self.registry.inc("serve.deferrals")
+
     def observe_reject(self, reason: str) -> None:
         """A submission rejected at the door with a reasoned outcome
         (``no_entry``, ``duplicate_rid``) instead of an engine-killing
@@ -213,6 +216,10 @@ class ServerMetrics:
                 self.registry.labeled("serve.shed", "reason").items()}
 
     @property
+    def deferrals(self) -> int:
+        return int(self.registry.counter("serve.deferrals"))
+
+    @property
     def slo_total(self) -> int:
         return int(self.registry.counter("slo.with_deadline"))
 
@@ -284,6 +291,7 @@ class ServerMetrics:
             "compute_fraction": self.realized_compute_fraction(),
             "shed": {"total": self.shed_total,
                      "reasons": dict(sorted(self.shed_reasons.items()))},
+            "deferrals": self.deferrals,
             "rejected_submissions": dict(sorted(self.rejects.items())),
         }
         # goodput over *offered* traffic — throughput counts everything

@@ -200,14 +200,22 @@ class RequestQueue:
                   now: Optional[float] = None) -> List[Request]:
         """Remove and return specific ready requests of ``group`` by rid,
         preserving ready order — how the batcher lifts a rung-compatible
-        subset, and how the engine sheds one request without disturbing
-        its neighbors.  Unknown rids are ignored."""
+        subset, and how the engine sheds/defer-removes one request
+        without disturbing its neighbors.  Unknown rids are ignored."""
         self._absorb(self.clock.now() if now is None else now)
         want = set(rids)
         rs = self._ready.get(group, [])
         taken = [r for r in rs if r.rid in want]
         self._ready[group] = [r for r in rs if r.rid not in want]
         return taken
+
+    def resubmit(self, req: Request, not_before: float) -> None:
+        """Defer: re-enqueue an already-removed request so it becomes
+        ready again at ``not_before``.  The original ``arrival`` stamp is
+        deliberately untouched — queue-wait accounting keeps charging the
+        full time since first arrival, so deferral cannot launder latency."""
+        heapq.heappush(self._future,
+                       (float(not_before), next(self._tie), req))
 
     def next_arrival(self, now: Optional[float] = None) -> Optional[float]:
         """Earliest not-yet-ready arrival timestamp (None when everything

@@ -1,17 +1,31 @@
-"""Load estimation: the calibrated per-step service cost and the backlog.
+"""Admission control: load estimation, shedding, deferral, aging.
 
 The load signal is **queue depth × calibrated per-step service cost**: the
 :class:`ServiceCostModel` learns seconds-per-sampling-step online from the
 engine's finished batches (an EWMA, optionally per store entry — a heavily
-cached entry's steps are cheaper than full compute), and the
+cached rung's steps are cheaper than full compute), and the
 :class:`LoadEstimator` turns the ready queue plus the in-flight runs'
-remaining steps into an estimated backlog in seconds.  The engine builds
-both; EDF scheduling reads the cost model.  The JAX package's
-``AdmissionController`` (admit / defer / shed against the backlog) is not
-ported yet (``ROADMAP.md`` queue 1, item 8).
+remaining steps into an estimated backlog in seconds.  Admission then makes
+one of three *explicit* decisions per queued request — requests are never
+silently dropped:
+
+* ``admit`` — proceed to batch formation;
+* ``defer`` — push the request back with a retry time (``retry_at``), used
+  for low-priority traffic during a transient; its arrival timestamp is
+  untouched so queue-wait accounting stays honest;
+* ``shed`` — reject with a reason (``deadline_infeasible`` when the
+  backlog already implies a miss, ``overloaded`` when deferral cannot help
+  either).  The engine records the reason in its metrics and its
+  ``shed`` map.
+
+Starvation freedom: a deferred request's *effective* priority grows with
+its time in queue (``priority + aging_rate × wait``), so under sustained
+overload every class eventually crosses the admit threshold — low-priority
+work is delayed, not starved (``tests/test_slo.py`` asserts this).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterable, Optional
 
 
@@ -111,3 +125,69 @@ class LoadEstimator:
         queued = sum(max(int(s), 0) for s in queued_steps)
         inflight = sum(max(int(s), 0) for s in inflight_steps)
         return c * (queued / self.batch_factor + inflight)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionDecision:
+    action: str                               # "admit" | "defer" | "shed"
+    reason: str = "admitted"
+    retry_at: Optional[float] = None          # set for defer
+
+
+ADMIT = AdmissionDecision("admit")
+
+
+class AdmissionController:
+    """Per-request admit / defer / shed decisions against a backlog
+    estimate.
+
+    ``max_backlog_s`` is the overload threshold: above it only requests
+    whose *effective* priority (priority + ``aging_rate`` × time in queue)
+    reaches ``admit_priority`` are admitted; the rest are deferred by
+    ``defer_interval`` — or shed with reason ``overloaded`` when deferral
+    provably cannot meet their deadline.  Independently of load, a request
+    whose deadline is already infeasible given the backlog is shed
+    immediately (``deadline_infeasible``) rather than served late.
+    ``headroom`` scales the wait estimate (> 1 sheds earlier/safer, < 1 is
+    lenient toward the estimator's pessimism under interleaving)."""
+
+    def __init__(self, *, max_backlog_s: Optional[float] = None,
+                 admit_priority: float = 1.0, aging_rate: float = 0.0,
+                 defer_interval: float = 0.5, headroom: float = 1.0):
+        if max_backlog_s is not None and max_backlog_s < 0:
+            raise ValueError(f"max_backlog_s must be >= 0, got "
+                             f"{max_backlog_s}")
+        if aging_rate < 0:
+            raise ValueError(f"aging_rate must be >= 0, got {aging_rate}")
+        if defer_interval <= 0:
+            raise ValueError(f"defer_interval must be > 0, got "
+                             f"{defer_interval}")
+        if headroom <= 0:
+            raise ValueError(f"headroom must be > 0, got {headroom}")
+        self.max_backlog_s = max_backlog_s
+        self.admit_priority = float(admit_priority)
+        self.aging_rate = float(aging_rate)
+        self.defer_interval = float(defer_interval)
+        self.headroom = float(headroom)
+
+    def effective_priority(self, req, now: float) -> float:
+        wait = 0.0 if req.arrival is None else max(now - req.arrival, 0.0)
+        return float(req.priority) + self.aging_rate * wait
+
+    def decide(self, req, now: float, *, backlog_s: float,
+               est_service_s: float = 0.0) -> AdmissionDecision:
+        deadline = getattr(req, "deadline", None)
+        wait_est = self.headroom * (backlog_s + est_service_s)
+        if deadline is not None and now + wait_est > deadline:
+            return AdmissionDecision("shed", "deadline_infeasible")
+        if self.max_backlog_s is None or backlog_s <= self.max_backlog_s:
+            return ADMIT
+        if self.effective_priority(req, now) >= self.admit_priority:
+            return ADMIT
+        retry = now + self.defer_interval
+        if deadline is not None \
+                and retry + self.headroom * est_service_s > deadline:
+            # a deferral would return past the point of feasibility — be
+            # honest now instead of shedding the same request later
+            return AdmissionDecision("shed", "overloaded")
+        return AdmissionDecision("defer", "overloaded", retry_at=retry)

@@ -19,15 +19,19 @@ Policies:
   themselves.  Preemption happens only at the engine's advance
   granularity (a plan segment / an adaptive step-chunk) — a batch is
   never torn mid-step.
-
-The JAX package's ``elastic`` policy (EDF plus the τ-elastic controller)
-is not ported yet (``ROADMAP.md`` queue 1, item 8).
+* ``elastic`` (:class:`ElasticPolicy`) — EDF ordering plus the
+  :class:`~repro_torch.slo.controller.ElasticTauController` feedback loop:
+  every finished batch's member queue waits feed the controller, and a
+  rung change is pushed to the store's τ ladders (no new graph — see the
+  controller module).  Needs a constructed controller, so it has no
+  bare-string form.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
+from repro_torch.slo.controller import ElasticTauController
 from repro_torch.slo.slo import batch_deadline, remaining_steps
 
 
@@ -88,6 +92,32 @@ class EDFPolicy(SchedulingPolicy):
         return True
 
 
+class ElasticPolicy(EDFPolicy):
+    """EDF + the τ-elastic controller feedback tap.
+
+    ``ladders`` restricts which store ladders the controller drives
+    (default: every ladder registered in the engine's store)."""
+
+    name = "elastic"
+
+    def __init__(self, controller: ElasticTauController,
+                 ladders: Optional[Sequence[str]] = None):
+        self.controller = controller
+        self.ladders = tuple(ladders) if ladders is not None else None
+
+    def on_finish(self, engine, record, requests: Sequence,
+                  now: float) -> None:
+        for r in requests:
+            w = r.queue_wait
+            if w is not None:
+                self.controller.observe_wait(w, now)
+        rung = self.controller.update(now)
+        if rung is not None:
+            for name in (self.ladders if self.ladders is not None
+                         else engine.store.ladders()):
+                engine.store.set_rung(name, rung)
+
+
 _BUILTINS = {
     "interleave": FairnessPolicy,
     "fairness": FairnessPolicy,
@@ -97,13 +127,16 @@ _BUILTINS = {
 
 
 def resolve_policy(spec) -> SchedulingPolicy:
-    """A policy object passes through; a string resolves a built-in."""
+    """A policy object passes through; a string resolves a built-in.
+    ``elastic`` has no string form — it needs a constructed controller
+    (``ElasticPolicy(ElasticTauController(...))``)."""
     if isinstance(spec, SchedulingPolicy):
         return spec
     if spec == "elastic":
-        raise NotImplementedError(
-            "the elastic scheduling policy (EDF + the τ-elastic "
-            "controller) is not ported yet: ROADMAP.md queue 1, item 8")
+        raise ValueError(
+            "the elastic policy needs a controller: pass "
+            "ElasticPolicy(ElasticTauController(num_rungs, target)) "
+            "instead of the string 'elastic'")
     if spec not in _BUILTINS:
         raise ValueError(
             f"scheduler must be one of {sorted(_BUILTINS)} (or a "

@@ -13,8 +13,9 @@ package's ``repro.serve``.
   drains within the program budget (adaptive entries through the fused
   path, with no decision sync), and every served latent equals a
   ``DiffusionPipeline.generate`` replay of its batch, bitwise.
-* Arguments of features not ported yet raise ``NotImplementedError``; a
-  traced drain exports a valid Chrome trace.
+* Arguments of features not ported yet raise ``NotImplementedError``
+  (an admission controller is accepted); a traced drain exports a valid
+  Chrome trace.
 """
 import json
 
@@ -213,10 +214,17 @@ def test_edf_prioritizes_deadline_batch_over_round_robin():
 def test_unknown_and_unported_schedulers():
     with pytest.raises(ValueError, match="scheduler"):
         make_engine(scheduler="bogus")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # as in the JAX package: the elastic policy needs a constructed
+    # controller, so its bare string is refused
+    with pytest.raises(ValueError, match="controller"):
         make_engine(scheduler="elastic")
+    with pytest.raises(ValueError, match="controller"):
+        jt.make_engine(scheduler="elastic")
     eng, _ = make_engine(scheduler=slo.EDFPolicy())
     assert eng.scheduler == "edf"
+    eng, _ = make_engine(scheduler=slo.ElasticPolicy(
+        slo.ElasticTauController(2, target_p95_wait_s=1.0)))
+    assert eng.scheduler == "elastic"
 
 
 def test_adaptive_entries_route_through_adaptive_runs():
@@ -581,12 +589,22 @@ def test_engine_matches_reference_on_one_trace(scheduler, kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
-    dict(admission=object()),
+    dict(admission=slo.AdmissionController(max_backlog_s=1.0),
+         resilience=object()),
     dict(resilience=object()), dict(telemetry=True),
     dict(journal="journal.jsonl"), dict(snapshot_dir="snaps")])
 def test_unported_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         make_engine(**kw)
+
+
+def test_admission_controller_accepted():
+    adm = slo.AdmissionController(max_backlog_s=1.0)
+    eng, _ = make_engine(admission=adm)
+    assert eng.admission is adm
+    eng.submit(*[req(i, "static2") for i in range(3)])
+    assert sorted(eng.run_until_drained()) == [0, 1, 2]
+    assert eng.report()["deferrals"] == eng.metrics.deferrals
 
 
 def test_recover_raises():
