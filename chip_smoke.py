@@ -7,12 +7,13 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the three CUDA kernels (flash attention, SSD scan, the
-   batch-invariant linear layer) and of the CUDA graph IF-node helper
-   (``core/cuda_graphs.cu``) from the checkout's sources, in parallel,
-   and the kernels' SASS: tensor-core instructions, registers and local
-   memory per flash-attention template instance, per SSD pass and for the
-   linear kernel (``cuobjdump``);
+2. build of the three CUDA sources (flash attention, SSD scan, the
+   batch-invariant linear layer's two kernels) and of the CUDA graph
+   IF-node helper (``core/cuda_graphs.cu``) from the checkout's sources,
+   in parallel, and the kernels' SASS: tensor-core instructions
+   (``mma.sync`` HMMA, ``wgmma`` HGMMA), FFMA, registers and local memory
+   per flash-attention template instance, per SSD pass and per linear
+   kernel (``cuobjdump``);
 3. the flash-attention kernel against its plain PyTorch version over the
    kernel test sweep (each case with its arithmetic and load path) and at
    the DiT-XL/2 shape, where two launches must agree bitwise, with device
@@ -21,18 +22,20 @@ exits non-zero:
    test sweep (f32 and bf16), at the Mamba-2-1.3B prefill shape (where two
    launches must agree bitwise), at a ragged length and on strided views
    of one projection as the model hands them over, with times; then the
-   linear kernel (``gemm``) against its plain version (cuBLAS f32, TF32
-   off) at every DiT-XL/2 product shape for buckets 1–8 under CFG (≤ 5e-5
-   of the output's scale), each row bitwise against products of fewer and
-   of permuted rows, a captured launch against an eager one, and the
-   device times of one B = 8 forward's products beside their 3xTF32
-   bound and cuBLAS's;
+   linear kernels (``gemm``: the token rows' 3xTF32 ``wgmma`` kernel, the
+   request rows' FFMA kernel) against their plain version (cuBLAS f32,
+   TF32 off) at every DiT-XL/2 product shape for buckets 1–8 under CFG
+   (≤ 5e-5 of the output's scale), each row bitwise against products of
+   fewer and of permuted rows in both variants, a captured launch against
+   an eager one in both, a capture without a prepared weight raising, and
+   the device times of one B = 8 forward's products beside their bound
+   and cuBLAS's;
 5. a full-width DiT-XL/2 denoiser forward on the card (kernel attention)
    against the same forward on the CPU (plain attention), then a
    ``torch.profiler`` trace of one forward at B = 8: device time by
    kernel, the attention and linear kernels' shares (every product of the
-   forward through the linear kernel: 201 calls, no library GEMM), the
-   device's idle share;
+   forward through the linear kernels: 201 calls, 31 of them request
+   rows, no library GEMM), the device's idle share;
 6. the DiT slice: full-width DiT-XL/2, DDIM 50, cfg_scale 1.5 — calibrate
    on 10 samples, save the artifact, load it strictly into a fresh pipeline
    and answer 4 requests with no cache, the artifact's SmoothCache schedule
@@ -264,18 +267,24 @@ def kernel_phase(fa, ref, peaks):
 
 
 # name fragments of the kernels in each library's SASS; every one of them
-# runs a product on the tensor cores
+# runs a product on the tensor cores but the request-row linear kernel,
+# which is bound by bytes and runs f32 FMAs
 SASS_KERNELS = {"flash_attention": ("attn_fwd",),
                 "ssd": ("ssd_cb", "ssd_state", "ssd_out"),
-                "gemm": ("gemm_3xtf32",)}
+                "gemm": ("gemm_tokens_wgmma", "gemm_requests_ffma")}
+FFMA_KERNELS = ("gemm_requests_ffma",)
+# the port's linear kernels, as a profiler trace names them
+LINEAR_KERNELS = {"tokens": "gemm_tokens_wgmma",
+                  "requests": "gemm_requests_ffma"}
 
 
 def sass_phase(libs):
     """What the compiler made of each CUDA library: per kernel (template
-    instance or SSD pass), tensor-core (HMMA) and f32 FMA (FFMA)
-    instructions in the SASS, and registers, stack and local memory from
-    the resource usage.  Every kernel runs a product, so every one needs
-    HMMA."""
+    instance or SSD pass), tensor-core instructions — ``mma.sync`` (HMMA)
+    and ``wgmma`` (HGMMA) — and f32 FMAs (FFMA) in the SASS, and
+    registers, stack and local memory from the resource usage.  Every
+    kernel needs tensor-core instructions but those of ``FFMA_KERNELS``,
+    which need FFMA; the token linear kernel needs HGMMA."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = str(Path(CUDA_HOME) / "bin" / "cuobjdump")
@@ -291,6 +300,7 @@ def sass_phase(libs):
             name = part.split(None, 1)[0]
             if any(k in name for k in names):
                 rows[name] = {"hmma": part.count("HMMA"),
+                              "hgmma": part.count("HGMMA"),
                               "ffma": len(re.findall(r"\bFFMA\b", part))}
         for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)",
                                       res):
@@ -300,26 +310,35 @@ def sass_phase(libs):
         emit({"phase": "sass", "kernel": lib, "instances": rows})
         check(all(any(k in name for name in rows) for k in names),
               f"{lib}: a kernel of {names} missing from the SASS")
-        check(all(r["hmma"] > 0 for r in rows.values()),
-              f"{lib}: a kernel without tensor-core instructions")
+        for name, r in rows.items():
+            if any(k in name for k in FFMA_KERNELS):
+                check(r["ffma"] > 0, f"{lib}: {name} without FFMA")
+            else:
+                check(r["hmma"] + r["hgmma"] > 0,
+                      f"{lib}: {name} without tensor-core instructions")
+            if LINEAR_KERNELS["tokens"] in name:
+                check(r["hgmma"] > 0, f"{lib}: {name} without HGMMA")
         out[lib] = rows
     return out
 
 
 def dit_gemms(cfg, batch):
     """Every product of one DiT forward over ``batch`` rows (CFG-doubled
-    requests) as ``(M, K, N, bias, calls)``: the patch embedding, the
-    time MLP, per block the adaLN modulation, q/k/v/o and the MLP, the
-    final modulation and the output projection."""
+    requests) as ``(M, K, N, bias, calls, rows)``: the patch embedding,
+    the time MLP, per block the adaLN modulation, q/k/v/o and the MLP, the
+    final modulation and the output projection; ``rows`` is the linear
+    kernel's variant (``"requests"``: one row per request)."""
     from repro_torch.core.diffusion import TIME_EMB_DIM, token_shape
     d, ff = cfg.d_model, cfg.stages[0].unit[0].ffn.d_ff
     n_tok, tok_dim = token_shape(cfg)
     rows, toks, blocks = batch, batch * n_tok, cfg.num_layers
-    return [(toks, tok_dim, d, True, 1), (rows, TIME_EMB_DIM, d, True, 1),
-            (rows, d, d, True, 1), (rows, d, 6 * d, True, blocks),
-            (toks, d, d, False, 4 * blocks), (toks, d, ff, False, blocks),
-            (toks, ff, d, False, blocks), (rows, d, 2 * d, True, 1),
-            (toks, d, tok_dim, True, 1)]
+    t, r = "tokens", "requests"
+    return [(toks, tok_dim, d, True, 1, t),
+            (rows, TIME_EMB_DIM, d, True, 1, r), (rows, d, d, True, 1, r),
+            (rows, d, 6 * d, True, blocks, r),
+            (toks, d, d, False, 4 * blocks, t),
+            (toks, d, ff, False, blocks, t), (toks, ff, d, False, blocks, t),
+            (rows, d, 2 * d, True, 1, r), (toks, d, tok_dim, True, 1, t)]
 
 
 def linear_calls(cfg, computed):
@@ -331,12 +350,14 @@ def linear_calls(cfg, computed):
 
 
 def gemm_kernel_phase(gemm, ref, peaks, cfg):
-    """The linear kernel against its plain version (cuBLAS f32, TF32 off)
-    at every DiT-XL/2 product shape for buckets 1–8 under CFG (M = 2B and
-    2B·256 rows), ≤ 5e-5 of the output's scale; each row bitwise against
-    the product of fewer rows and of permuted rows; a captured launch
-    against an eager one; device times of one B = 8 forward's products
-    beside their 3xTF32 bound and cuBLAS's ``addmm`` / ``mm``."""
+    """The linear kernels against their plain version (cuBLAS f32, TF32
+    off) at every DiT-XL/2 product shape for buckets 1–8 under CFG (M = 2B
+    request rows, 2B·256 token rows), each through its call site's variant,
+    ≤ 5e-5 of the output's scale; each row bitwise against the product of
+    fewer rows and of permuted rows, in both variants; a captured launch
+    against an eager one in both, and a capture that finds no prepared
+    weight raising; device times of one B = 8 forward's products beside
+    their bound and cuBLAS's ``addmm`` / ``mm``, summed per variant."""
     from repro_torch.kernels.timing import device_ms, per_call_ms
     gen = torch.Generator().manual_seed(SEED + 11)
 
@@ -345,86 +366,116 @@ def gemm_kernel_phase(gemm, ref, peaks, cfg):
         w = (torch.randn(k, n, generator=gen) / k ** 0.5).cuda()
         return x, w, torch.randn(n, generator=gen).cuda()
 
-    shapes = sorted({(k, n, m < 256) for m, k, n, _, _ in dit_gemms(cfg, 2)})
+    shapes = sorted({(k, n, rows)
+                     for _, k, n, _, _, rows in dit_gemms(cfg, 2)})
     sweep, worst, worst_abs = [], 0.0, 0.0
-    for k, n, per_request in shapes:
+    for k, n, rows in shapes:
         for bucket in (1, 2, 4, 8):
-            m = 2 * bucket * (1 if per_request else 256)
+            m = 2 * bucket * (1 if rows == "requests" else 256)
             x, w, b = inputs(m, k, n)
-            out = gemm.linear_cuda(x, w, b)
+            out = gemm.linear_cuda(x, w, b, rows=rows)
             want = ref.linear_ref(x, w, b)
             torch.cuda.synchronize()
             err = float((out - want).abs().max())
             rel = err / float(want.abs().max())
             worst, worst_abs = max(worst, rel), max(worst_abs, err)
-            sweep.append({"m": m, "k": k, "n": n, "max_abs_err": err,
-                          "rel_max_err": rel})
+            sweep.append({"m": m, "k": k, "n": n, "rows": rows,
+                          "max_abs_err": err, "rel_max_err": rel})
             check(rel <= 5e-5, f"linear vs plain at {sweep[-1]}")
+        gemm.release()
     emit({"phase": "gemm_sweep", "limit": 5e-5, "cases": sweep})
 
-    rows = {}
-    for k, n, per_request in shapes:
-        ms = (1, 2, 4, 8) if per_request else (512, 1024, 2048, 4096)
-        x, w, _ = inputs(ms[-1] * (2 if per_request else 1), k, n)
-        full = gemm.linear_cuda(x, w)
-        d = {str(m): float((gemm.linear_cuda(x[:m].contiguous(), w)
-                            - full[:m]).abs().max()) for m in ms}
+    out_rows = {}
+    for k, n, rows in shapes:
+        ms = (1, 2, 4, 8, 16) if rows == "requests" else (512, 1024, 2048,
+                                                          4096)
+        x, w, _ = inputs(ms[-1], k, n)
+        full = gemm.linear_cuda(x, w, rows=rows)
+        d = {str(m): float((gemm.linear_cuda(x[:m].contiguous(), w,
+                                             rows=rows)
+                            - full[:m]).abs().max()) for m in ms[:-1]}
         perm = torch.randperm(x.shape[0], generator=gen).cuda()
-        d["permuted"] = float((gemm.linear_cuda(x[perm].contiguous(), w)
+        d["permuted"] = float((gemm.linear_cuda(x[perm].contiguous(), w,
+                                                rows=rows)
                                - full[perm]).abs().max())
-        rows[f"{k}x{n}"] = d
-    emit({"phase": "gemm_rows", "max_abs_vs_full": rows})
-    check(all(v == 0.0 for d in rows.values() for v in d.values()),
-          f"a row's bits change with the batch: {rows}")
+        out_rows[f"{k}x{n}:{rows}"] = d
+        gemm.release()
+    emit({"phase": "gemm_rows", "max_abs_vs_full": out_rows})
+    check(all(v == 0.0 for d in out_rows.values() for v in d.values()),
+          f"a row's bits change with the batch: {out_rows}")
 
-    x, w, b = inputs(512, cfg.d_model, cfg.d_model)
-    eager = gemm.linear_cuda(x, w, b)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        gemm.linear_cuda(x, w, b)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = gemm.linear_cuda(x, w, b)
-    graph.replay()
+    captured_ok = {}
+    for rows, m in (("tokens", 512), ("requests", 8)):
+        x, w, b = inputs(m, cfg.d_model, cfg.d_model)
+        eager = gemm.linear_cuda(x, w, b, rows=rows)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            gemm.linear_cuda(x, w, b, rows=rows)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = gemm.linear_cuda(x, w, b, rows=rows)
+        graph.replay()
+        torch.cuda.synchronize()
+        captured_ok[rows] = bool(torch.equal(captured, eager))
+        del graph
+    # a weight with no prepared copy: the capture raises, it allocates none
+    x, w, _ = inputs(512, cfg.d_model, cfg.d_model)
+    graph, raised = torch.cuda.CUDAGraph(), False
+    try:
+        with torch.cuda.graph(graph):
+            gemm.linear_cuda(x, w)
+    except RuntimeError as e:
+        raised = "prepared copy" in str(e)
     torch.cuda.synchronize()
-    check(bool(torch.equal(captured, eager)), "captured linear != eager")
     del graph
+    gemm.release()
+    emit({"phase": "gemm_capture", "captured_equals_eager": captured_ok,
+          "unprepared_capture_raises": raised})
+    check(all(captured_ok.values()), f"captured linear != eager: "
+          f"{captured_ok}")
+    check(raised, "a capture without a prepared weight did not raise")
 
     # one B = 8 forward's products (4 requests under CFG), each shape timed
-    # alone and summed by its calls
-    timed, total = [], {"ms": 0.0, "per_call_ms": 0.0, "plain_ms": 0.0,
-                        "library_ms": 0.0, "bound_ms": 0.0, "flops": 0,
+    # alone and summed by its calls, in all and per variant
+    keys = ("ms", "per_call_ms", "plain_ms", "library_ms", "bound_ms")
+    timed, total = [], {**{key: 0.0 for key in keys}, "flops": 0,
                         "bytes": 0}
-    for m, k, n, bias, calls in dit_gemms(cfg, 8):
+    variants = {rows: {**{key: 0.0 for key in keys}, "calls": 0}
+                for rows in gemm.ROWS}
+    for m, k, n, bias, calls, rows in dit_gemms(cfg, 8):
         x, w, b = inputs(m, k, n)
         b = b if bias else None
         lib = ((lambda: torch.addmm(b, x, w)) if bias
                else (lambda: torch.mm(x, w)))
         flops = 2 * m * k * n
         nbytes = 4 * (m * k + k * n + m * n + (n if bias else 0))
-        t_ops = 3 * flops / peaks["tf32"] * 1e3
+        # 3xTF32 on the tensor cores for the token rows, f32 FMAs outside
+        # them for the request rows
+        t_ops = (3 * flops / peaks["tf32"] if rows == "tokens"
+                 else flops / peaks["fp32"]) * 1e3
         t_bytes = nbytes / peaks["hbm"] * 1e3
         row = {"m": m, "k": k, "n": n, "bias": bias, "calls": calls,
-               "ms": device_ms(lambda: gemm.linear_cuda(x, w, b)),
+               "plan": gemm.launch_plan(m, k, n, rows),
+               "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows)),
                "per_call_ms": per_call_ms(
-                   lambda: gemm.linear_cuda(x, w, b)),
+                   lambda: gemm.linear_cuda(x, w, b, rows=rows)),
                "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b)),
                "library_ms": device_ms(lib),
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         row["tflops"] = flops / row["ms"] / 1e9
         timed.append(row)
-        for key in ("ms", "per_call_ms", "plain_ms", "library_ms",
-                    "bound_ms"):
+        for key in keys:
             total[key] += calls * row[key]
+            variants[rows][key] += calls * row[key]
+        variants[rows]["calls"] += calls
         total["flops"] += calls * flops
         total["bytes"] += calls * nbytes
+        gemm.release()
     emit({"phase": "gemm_times", "batch": 8, "shapes": timed,
-          "forward": total})
-    t_ops = 3 * total["flops"] / peaks["tf32"] * 1e3
-    t_bytes = total["bytes"] / peaks["hbm"] * 1e3
+          "forward": total, "variants": variants})
     return {"name": "linear", "route": "cuda",
             "source": "src/repro_torch/kernels/gemm.cu",
             "replaces": "no TPU kernel: x @ w, XLA's dot on the TPU "
@@ -435,10 +486,13 @@ def gemm_kernel_phase(gemm, ref, peaks, cfg):
             "max_abs_err": worst_abs, "max_rel_err": worst,
             "ms": total["ms"], "per_call_ms": total["per_call_ms"],
             "plain_ms": total["plain_ms"], "library_ms": total["library_ms"],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # each product's own bound, summed: the token products by
+            # operations, the request-row products by bytes
+            "bound_ms": total["bound_ms"],
+            "bound_by": "operations" if variants["tokens"]["bound_ms"]
+            >= variants["requests"]["bound_ms"] else "bytes",
             "flops": total["flops"], "bytes": total["bytes"],
-            "tile": list(gemm.TILE)}
+            "variants": variants, "tile": gemm.TILE}
 
 
 def full_width_params(cfg):
@@ -852,18 +906,26 @@ def dit_profile_phase(cfg, diffusion, params, ops):
     label = torch.tensor(REQUEST_LABELS + [cfg.num_classes] * 4,
                          device="cuda")
     diffusion.apply(cfg, params, x, t, label=label)
-    before = ops.LAUNCHES["linear"]
+    before = {k: ops.LAUNCHES[k] for k in ("linear", "linear_tokens",
+                                           "linear_requests")}
     wall_us, kern = _traced(
         lambda: diffusion.apply(cfg, params, x, t, label=label))
-    launched = ops.LAUNCHES["linear"] - before
+    launched = {k: ops.LAUNCHES[k] - v for k, v in before.items()}
     busy = sum(us for us, _ in kern.values())
     attn = [v for k, v in kern.items() if "attn_fwd" in k]
-    linear = [v for k, v in kern.items() if "gemm_3xtf32" in k]
+    linear = {rows: [v for k, v in kern.items() if name in k]
+              for rows, name in LINEAR_KERNELS.items()}
     # any other product kernel (cuBLAS, CUTLASS) would break the row
-    # contract: every DiT product must go through the linear kernel
-    library = [k for k in kern if "gemm_3xtf32" not in k and any(
-        f in k.lower() for f in ("gemm", "cutlass", "xmma", "cublas"))]
-    gemm = sum(us for us, _ in linear)
+    # contract: every DiT product must go through the port's linear kernels
+    library = [k for k in kern
+               if not any(n in k for n in LINEAR_KERNELS.values()) and any(
+                   f in k.lower() for f in ("gemm", "cutlass", "xmma",
+                                            "cublas"))]
+    by_variant = {rows: {"ms": sum(us for us, _ in v) / 1e3,
+                         "kernels_in_profile": sum(n for _, n in v),
+                         "calls": launched["linear_" + rows]}
+                  for rows, v in linear.items()}
+    gemm = sum(us for v in linear.values() for us, _ in v)
     attn_us = sum(us for us, _ in attn)
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     row = {"phase": "dit_profile", "batch": 8, "wall_ms": wall_us / 1e3,
@@ -871,8 +933,10 @@ def dit_profile_phase(cfg, diffusion, params, ops):
            "attn_ms": attn_us / 1e3, "attn_calls": sum(n for _, n in attn),
            "attn_share": attn_us / busy, "gemm_ms": gemm / 1e3,
            "gemm_share": gemm / busy,
-           "gemm_calls": launched,
-           "gemm_kernels_in_profile": sum(n for _, n in linear),
+           "gemm_calls": launched["linear"],
+           "gemm_kernels_in_profile": sum(
+               v["kernels_in_profile"] for v in by_variant.values()),
+           "gemm_variants": by_variant,
            "library_gemm_kernels": library, "kernels": len(kern),
            "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
                    for k, (us, n) in top]}
@@ -882,9 +946,16 @@ def dit_profile_phase(cfg, diffusion, params, ops):
           f"{row['attn_calls']} attention kernels in one forward, expected "
           f"{cfg.num_layers}")
     want = linear_calls(cfg, cfg.layer_types())
-    check(row["gemm_calls"] == want and linear and not library,
+    check(row["gemm_calls"] == want and all(linear.values())
+          and not library,
           f"{row['gemm_calls']} linear launches in one forward (expected "
           f"{want}), other product kernels {library}")
+    # the four request-row sites: the adaLN modulation of every block, the
+    # time MLP's two products, the final modulation
+    want = {"requests": cfg.num_layers + 3,
+            "tokens": want - cfg.num_layers - 3}
+    check(all(by_variant[r]["calls"] == n for r, n in want.items()),
+          f"linear calls by variant {by_variant}, expected {want}")
 
 
 def lm_profile_phase(cfg, T, params, prompts, toks):
@@ -1435,6 +1506,7 @@ def gemm_row_stability(cfg, ops):
     layernorm and gelu over 2, 4 of 8 requests' tokens (must read 0).
     Seeded N(0, 1) inputs; max abs difference per shape and M."""
     from repro_torch.core import calibration
+    from repro_torch.kernels import gemm
     from repro_torch.models import layers
     gen = torch.Generator().manual_seed(SEED + 10)
     tok, d = 256, cfg.d_model
@@ -1448,6 +1520,15 @@ def gemm_row_stability(cfg, ops):
             out[name][f"{k}x{n}"] = {
                 str(m): float((fn(a[:m], b) - full[:m]).abs().max())
                 for m in (2 * tok, 2 * 2 * tok)}
+    # the request-row products over the rows of 1 and 2 of 4 requests
+    for k, n in ((256, d), (d, d), (d, 6 * d), (d, 2 * d)):
+        a = torch.randn(2 * 4, k, generator=gen).cuda()
+        b = torch.randn(k, n, generator=gen).cuda()
+        full = ops.linear(a, b, rows="requests")
+        out["linear"][f"{k}x{n}:requests"] = {
+            str(m): float((ops.linear(a[:m], b, rows="requests")
+                           - full[:m]).abs().max()) for m in (2, 4)}
+    gemm.release()
 
     def rows(fn, x, ms):
         full = fn(x)
@@ -1750,9 +1831,23 @@ def main():
     t0 = time.perf_counter()
     params_cpu = full_width_params(cfg)
     params_gpu = tree_map(lambda a: a.cuda(), params_cpu)
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+    # the token products' split weights, made once before anything is
+    # timed or captured
+    t0 = time.perf_counter()
+    prepared = diffusion.prepare_linear(params_gpu)
+    torch.cuda.synchronize()
     emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
-          "d_model": cfg.d_model, "seconds": time.perf_counter() - t0,
-          "count": sum(a.numel() for a in tree_leaves(params_cpu))})
+          "d_model": cfg.d_model, "seconds": params_s,
+          "count": sum(a.numel() for a in tree_leaves(params_cpu)),
+          "linear_prepared_bytes": prepared,
+          "linear_prepare_s": time.perf_counter() - t0,
+          "device_bytes": torch.cuda.memory_allocated()})
+    check(prepared == 2 * 4 * sum(
+        w.numel() for w in diffusion.token_weights(params_gpu)),
+        f"{prepared} prepared bytes")
+    kernels["linear"]["prepared_bytes"] = prepared
     cross_check_phase(cfg, diffusion, params_cpu, params_gpu)
     del params_cpu
     dit_profile_phase(cfg, diffusion, params_gpu, ops)
@@ -1770,6 +1865,12 @@ def main():
           f"the DiT slice's attention takes {path}")
     kernels["flash_attention"]["launches"] = dit_launches["flash_attention"]
     kernels["linear"]["launches"] = dit_launches["linear"]
+    for rows in gemm.ROWS:
+        kernels["linear"]["variants"][rows]["launches"] = \
+            dit_launches["linear_" + rows]
+    check(all(dit_launches["linear_" + rows] > 0 for rows in gemm.ROWS),
+          f"a linear variant never launched in the DiT slice: "
+          f"{dit_launches}")
     serve_launches, serve_calls, store = serve_phase(cfg, params_gpu, ops,
                                                      smooth_art)
     kernels["flash_attention"]["serve_launches"] = serve_launches
@@ -1781,6 +1882,7 @@ def main():
     continuous_phase(cfg, params_gpu, ops, store)
     slo_phase(cfg, params_gpu, ops, store)
     del params_gpu, store
+    gemm.release()            # the prepared halves hold the DiT weights
     gc.collect()              # the DiT weights go before the Mamba phases
 
     cfg = configs.get("mamba2-1.3b")

@@ -11,7 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import gemm as _gemm, ops
 from repro_torch.models import layers as L, transformer as T
 
 TIME_EMB_DIM = 256
@@ -85,8 +85,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 def _cond_vector(cfg: ModelConfig, params, t, label=None):
     """t: (B,) diffusion time in [0, 1000); label: (B,) int."""
     te = L.sinusoidal_embedding(t.float(), TIME_EMB_DIM)
-    te = F.silu(ops.linear(te, params["t_mlp"]["w1"], params["t_mlp"]["b1"]))
-    te = ops.linear(te, params["t_mlp"]["w2"], params["t_mlp"]["b2"])
+    te = F.silu(ops.linear(te, params["t_mlp"]["w1"], params["t_mlp"]["b1"],
+                           rows="requests"))
+    te = ops.linear(te, params["t_mlp"]["w2"], params["t_mlp"]["b2"],
+                    rows="requests")
     if label is not None and "label_embed" in params:
         te = te + params["label_embed"][label]
     return te
@@ -109,11 +111,38 @@ def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
                          skip=skip, branch_caches=branch_caches,
                          collect_branches=collect_branches)
     mod = ops.linear(F.silu(cond), params["final_mod"]["w"],
-                     params["final_mod"]["b"])
+                     params["final_mod"]["b"], rows="requests")
     shift, scale = torch.chunk(mod[:, None, :], 2, dim=-1)
     out = out * (1.0 + scale) + shift
     out = ops.linear(out, params["out"]["w"], params["out"]["b"])
     return unpatchify(cfg, out), aux
+
+
+def token_weights(params):
+    """The weights of the denoiser's token products (patch embedding,
+    q/k/v/o, the MLP, output projection), one per product as the forward
+    takes it: a block's weight as the view ``a[r]`` of its stacked leaf."""
+    out = [params["patch_in"]["w"], params["out"]["w"]]
+    names = {"mixer": ("wq", "wk", "wv", "wo"),
+             "ffn": ("w_up", "w_gate", "w_down")}
+    for stage in params["backbone"]["stages"]:
+        for unit in stage:
+            for group, keys in names.items():
+                for key in keys:
+                    a = unit.get(group, {}).get(key)
+                    if a is not None:
+                        out.extend(a[r] for r in range(a.shape[0]))
+    return out
+
+
+def prepare_linear(params) -> int:
+    """Make the token kernel's prepared weights (``gemm.prepare``) for every
+    token product of the denoiser, before any timed window or CUDA-graph
+    capture; a no-op for parameters on the CPU, where ``ops.linear`` is the
+    plain product.  Returns the bytes the prepared copies hold."""
+    if params["patch_in"]["w"].device.type != "cuda":
+        return 0
+    return _gemm.prepare_params(token_weights(params))
 
 
 # ---------------------------------------------------------------------------

@@ -369,6 +369,12 @@ class SmoothCacheExecutor:
         not depend on the batch they ride in."""
         return not self.solver.stochastic
 
+    def prepare_params(self, params) -> int:
+        """Make the linear kernel's prepared weights for ``params`` up front
+        (``diffusion.prepare_linear``; a no-op on the CPU).  Returns the
+        bytes they hold."""
+        return diffusion.prepare_linear(params)
+
     # -- instrumentation -----------------------------------------------------
 
     def _dispatch(self, kind: str, signature, batch: int) -> None:

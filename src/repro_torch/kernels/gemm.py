@@ -1,50 +1,211 @@
-"""Build and launch of the batch-invariant f32 linear kernel (``gemm.cu``),
-which replaces cuBLAS's f32 GEMM on the DiT path: cuBLAS picks its
+"""Build and launch of the batch-invariant f32 linear kernels (``gemm.cu``),
+which replace cuBLAS's f32 GEMM on the DiT path: cuBLAS picks its
 reduction by M, so a row's bits change with the batch it rides in, and the
 serving stack's per-row contract needs them not to.
 
+Two variants behind one call, picked by the call site (``rows``), never by
+M: ``"tokens"`` (the token products: 3xTF32 ``wgmma`` over the weight's
+split halves, ``prepare``) and ``"requests"`` (the request-row products:
+f32 FMAs streaming w as stored).  ``plan`` gives each variant's tile,
+stages and k order from (K, N) alone; only the grid follows M.
+
 The source is compiled on first use (``kernels/build.py``) into a shared
 library with a plain C interface, called through ``ctypes`` with raw
-pointers, the shape and PyTorch's current stream.  A failed build or launch
-raises; nothing here falls back to cuBLAS or to the plain version.
+pointers, the shape, the tile and PyTorch's current stream.  A failed build
+or launch raises; nothing here falls back to cuBLAS or to the plain
+version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).with_name("gemm.cu")
-#: the kernel's constant block tile (rows, columns) and k-step
-TILE = (64, 64, 16)
+ROWS = ("tokens", "requests")
+#: the token kernel: rows per tile (two warpgroups of 64), the k-tile
+#: (128 B of f32), the tile widths built into ``gemm.cu`` (``TOKEN_TILES``)
+#: and the width picked per (K, N) of the DiT-XL/2 products by timing
+#: candidates (``gemm_ab --tiles``); other shapes take the widest built
+#: width that divides N
+TOKEN_BM, TOKEN_BK = 128, 32
+TOKEN_BN = (144, 16)
+TOKEN_CHOICE = {(16, 1152): 144, (1152, 1152): 144, (4608, 1152): 144,
+                (1152, 4608): 144, (1152, 16): 16}
+#: the request-row kernel: rows per tile, threads per block, column slices
+#: (16 bytes a thread along N), and the blocks it aims for (the H100's 132
+#: SMs)
+REQUEST_ROWS, REQUEST_THREADS, REQUEST_NB = 16, 256, (32, 16, 8)
+REQUEST_BLOCKS = 132
+#: each variant's tile table, as the ``kernels`` line reports it
+TILE = {"tokens": {"bm": TOKEN_BM, "bk": TOKEN_BK, "built_bn": TOKEN_BN,
+                   "bn": {f"{k}x{n}": bn
+                          for (k, n), bn in TOKEN_CHOICE.items()}},
+        "requests": {"rows": REQUEST_ROWS, "nb": REQUEST_NB,
+                     "threads": REQUEST_THREADS}}
 _LIB = None
 
 
-def build() -> dict:
-    """Compile the kernel (a no-op when this source is already built).
-    Returns ``{"path", "seconds"}``."""
-    return _build.build("gemm", SOURCE)
+def token_stages(bn: int) -> int:
+    """Stages of the token kernel's ring at tile width bn, as ``gemm.cu``'s
+    ``TokenTile`` counts them: as many as fit in 220 KB, at most 6."""
+    stage = TOKEN_BM * TOKEN_BK * 4 + 2 * bn * TOKEN_BK * 4
+    return min(6, (220 * 1024) // stage)
+
+
+@functools.lru_cache(maxsize=None)
+def _width(k: int, n: int, rows: str) -> int:
+    if rows == "tokens":
+        if (k, n) in TOKEN_CHOICE:
+            return TOKEN_CHOICE[(k, n)]
+        fits = [bn for bn in TOKEN_BN if n % bn == 0]
+        return fits[0] if fits else min(
+            (bn for bn in TOKEN_BN if bn >= n), default=TOKEN_BN[0])
+    fits = [nb for nb in REQUEST_NB if -(-n // nb) >= REQUEST_BLOCKS]
+    return fits[0] if fits else REQUEST_NB[-1]
+
+
+def plan(k: int, n: int, rows: str = "tokens") -> dict:
+    """What fixes a row's bits in the product of an (M, k) x by a (k, n) w:
+    the kernel, its tile, stages and k order — from (k, n, rows) alone."""
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
+    width = _width(k, n, rows)
+    if rows == "tokens":
+        return {"rows": rows, "kernel": "gemm_tokens_wgmma",
+                "tile": [TOKEN_BM, width], "bk": TOKEN_BK,
+                "stages": token_stages(width),
+                "k_order": "k-tiles of 32 ascending; per k8 slice "
+                           "small_x*big_w, big_x*small_w, big_x*big_w"}
+    slices = REQUEST_THREADS // (width // 4)
+    return {"rows": rows, "kernel": "gemm_requests_ffma",
+            "tile": [REQUEST_ROWS, width], "k_slices": slices,
+            "k_slice": -(-k // slices),
+            "k_order": "each slice ascending by f32 FMA, the slices summed "
+                       "in a pairwise tree"}
+
+
+def launch_plan(m: int, k: int, n: int, rows: str = "tokens") -> dict:
+    """``plan`` and the grid of one launch over m rows on the H100's 132
+    SMs: the token kernel is persistent (one block per SM, at most one per
+    tile), the request-row kernel one block per (column slice, 16 rows)."""
+    p = plan(k, n, rows)
+    bm, bn = p["tile"]
+    tiles = -(-m // bm) * -(-n // bn)
+    grid = ([min(tiles, REQUEST_BLOCKS)] if rows == "tokens"
+            else [-(-n // bn), -(-m // bm)])
+    return {**p, "grid": grid}
+
+
+def build(flags=()) -> dict:
+    """Compile the kernels (a no-op when this source is already built);
+    ``flags`` (for example ``("-DGEMM_ALL_TILES",)``) build a separate
+    library.  Returns ``{"path", "seconds"}``."""
+    name = "gemm" + "".join(f.lstrip("-").split("=")[0].lower()
+                            for f in flags)
+    return _build.build(name, SOURCE, flags=list(flags))
+
+
+def bind(path: str):
+    """The library at path with its C entry points typed."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.linear_tokens_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.linear_tokens_f32.restype = i
+    lib.linear_requests_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.linear_requests_f32.restype = i
+    lib.linear_error_string.argtypes = [i]
+    lib.linear_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _library():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build()["path"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.linear_f32.argtypes = [p, p, p, p, i, i, i, p]
-        lib.linear_f32.restype = i
-        lib.linear_error_string.argtypes = [i]
-        lib.linear_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(build()["path"])
     return _LIB
 
 
-def _check(x, w, b):
-    """Raise ValueError on what the kernel does not take; the device last,
+# ---------------------------------------------------------------------------
+# The token kernel's prepared weights
+# ---------------------------------------------------------------------------
+
+class Prepared(NamedTuple):
+    """A weight's split halves for the token kernel, each (N, K) f32."""
+    weight: torch.Tensor  # held, so that its address is not reused
+    version: int
+    big_t: torch.Tensor
+    small_t: torch.Tensor
+
+
+_PREPARED: dict = {}
+# copies replaced after an in-place change of their weight: a captured
+# graph may still read them, so they live until ``release``
+_RETIRED: list = []
+
+
+def _key(w):
+    # the storage's address plus the view's offset, its shape and strides:
+    # a view of a stacked leaf made anew (a[r]) finds its copy
+    return (w.device, w.data_ptr(), tuple(w.shape), tuple(w.stride()))
+
+
+def prepare(w) -> Prepared:
+    """The split halves of weight w (K, N) for the token kernel, made once
+    (``ref.split_tf32_t``) and kept until ``release``; made anew when w was
+    changed in place (``w._version``).  A copy missing while the stream
+    captures a CUDA graph raises: prepare every weight before a capture."""
+    key = _key(w)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit.version == w._version:
+        return hit
+    if w.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"no prepared copy of a ({w.shape[0]}, {w.shape[1]}) weight "
+            "while a CUDA graph captures: call gemm.prepare (or "
+            "diffusion.prepare_linear) on every weight before the capture")
+    if hit is not None:
+        _RETIRED.append(hit)
+    big_t, small_t = ref.split_tf32_t(w)
+    hit = Prepared(w, w._version, big_t, small_t)
+    _PREPARED[key] = hit
+    return hit
+
+
+def prepare_params(weights) -> int:
+    """Prepare every weight of an iterable; returns the bytes the prepared
+    copies hold in all."""
+    for w in weights:
+        prepare(w)
+    return prepared_bytes()
+
+
+def prepared_bytes() -> int:
+    return sum(p.big_t.numel() * p.big_t.element_size() * 2
+               for p in _PREPARED.values())
+
+
+def release() -> None:
+    """Drop every prepared copy (and the hold on its weight)."""
+    _PREPARED.clear()
+    _RETIRED.clear()
+
+
+# ---------------------------------------------------------------------------
+# The call
+# ---------------------------------------------------------------------------
+
+def _check(x, w, b, rows):
+    """Raise ValueError on what the kernels do not take; the device last,
     so that every other check also runs on CPU tensors."""
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"expected x (M, K) and w (K, N); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -53,8 +214,15 @@ def _check(x, w, b):
     if k % 4 or n % 4 or k == 0 or n == 0:
         raise ValueError(f"K = {k} and N = {n} must be positive multiples "
                          "of 4 (16-byte rows)")
-    if -(-m // TILE[0]) > 65535:
-        raise ValueError(f"M = {m} exceeds the grid's 65535 row tiles")
+    if rows == "tokens" and m > 64 * 65535:
+        raise ValueError(f"M = {m} exceeds 65535 tiles of 64 rows")
+    if rows == "requests":
+        if -(-m // REQUEST_ROWS) > 65535:
+            raise ValueError(f"M = {m} exceeds the grid's 65535 row tiles "
+                             f"of {REQUEST_ROWS}")
+        if k * REQUEST_ROWS * 4 > 227 * 1024:
+            raise ValueError(f"K = {k}: 16 rows of x exceed the request-row "
+                             "kernel's shared memory")
     if b is not None and tuple(b.shape) != (n,):
         raise ValueError(f"bias of shape {tuple(b.shape)}, expected ({n},)")
     named = [("x", x), ("w", w)] + ([] if b is None else [("b", b)])
@@ -72,23 +240,32 @@ def _check(x, w, b):
                              f"device {x.device}")
 
 
-def linear_cuda(x, w, b=None):
+def linear_cuda(x, w, b=None, *, rows: str = "tokens"):
     """x: (M, K), w: (K, N), b: (N,) or None — contiguous float32 CUDA
     tensors → y = x @ w (+ b), (M, N) float32, each row computed from its
-    own row of x alone, in one fixed order."""
-    _check(x, w, b)
+    own row of x alone, in one fixed order; ``rows`` picks the variant
+    (``"tokens"``: w's prepared halves, made here on first use)."""
+    _check(x, w, b, rows)
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
     lib = _library()
+    width = _width(k, n, rows)
+    bias = None if b is None else b.data_ptr()
     with torch.cuda.device(x.device):
-        rc = lib.linear_f32(x.data_ptr(), w.data_ptr(),
-                            None if b is None else b.data_ptr(),
-                            y.data_ptr(), m, n, k,
-                            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if rows == "tokens":
+            p = prepare(w)
+            rc = lib.linear_tokens_f32(x.data_ptr(), p.big_t.data_ptr(),
+                                       p.small_t.data_ptr(), bias,
+                                       y.data_ptr(), m, n, k, width, stream)
+        else:
+            rc = lib.linear_requests_f32(x.data_ptr(), w.data_ptr(), bias,
+                                         y.data_ptr(), m, n, k, width,
+                                         stream)
     if rc != 0:
-        raise RuntimeError("linear launch failed: "
+        raise RuntimeError(f"linear ({rows}) launch failed: "
                            + lib.linear_error_string(rc).decode())
     return y

@@ -8,7 +8,8 @@ no fallback: a kernel that fails to build or launch raises.
 show that it went through the kernels; callers reset it by assigning 0 to
 an entry.  It counts calls of the function, not CUDA launches: one
 ``ssd`` call is three launches (``ssd.cu``'s passes), a ``linear`` or
-``flash_attention`` call one.  A
+``flash_attention`` call one.  ``linear_tokens`` and ``linear_requests``
+count the ``linear`` calls by variant.  A
 call made while the stream captures a CUDA graph launches nothing: it
 records the launch into the graph, and counts in ``CAPTURED`` instead.  A
 graph's replays make no call at all.
@@ -24,8 +25,9 @@ from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as _ssd
 
-LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0}
-CAPTURED = {"flash_attention": 0, "ssd": 0, "linear": 0}
+LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0, "linear_tokens": 0,
+            "linear_requests": 0}
+CAPTURED = dict(LAUNCHES)
 
 
 def _count(name: str) -> None:
@@ -35,14 +37,19 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def linear(x, w, b=None):
+def linear(x, w, b=None, *, rows: str = "tokens"):
     """x: (..., K) @ w: (K, N) (+ b: (N,)) → (..., N).  On a CUDA tensor
     the batch-invariant kernel over the flattened leading dims (a row's
-    bits do not depend on the other rows); on a CPU tensor ``x @ w (+ b)``
-    as it stands."""
+    bits do not depend on the other rows): ``rows="tokens"`` for the
+    token products, ``"requests"`` for the products over one row per
+    request (``gemm.plan``).  On a CPU tensor ``x @ w (+ b)`` as it
+    stands, whatever ``rows`` says."""
+    if rows not in _gemm.ROWS:
+        raise ValueError(f"rows must be one of {_gemm.ROWS}, got {rows!r}")
     if x.device.type == "cuda":
-        out = _gemm.linear_cuda(x.reshape(-1, x.shape[-1]), w, b)
+        out = _gemm.linear_cuda(x.reshape(-1, x.shape[-1]), w, b, rows=rows)
         _count("linear")
+        _count("linear_" + rows)
         return out.reshape(*x.shape[:-1], w.shape[1])
     if x.device.type == "cpu":
         return ref.linear_ref(x, w, b)

@@ -16,6 +16,50 @@ def linear_ref(x, w, b=None):
     return y if b is None else y + b
 
 
+def tf32_round(v):
+    """v (f32) rounded to TF32 (10 mantissa bits, the low 13 bits zero),
+    to nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds any
+    non-NaN: ``gemm.cu``'s ``split`` adds 0x1000 to the bits and masks.  A
+    finite value past the largest TF32 one rounds to ±inf."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32).reshape(v.shape)
+
+
+def tf32_split(v):
+    """v = big + small, both TF32: big = ``tf32_round(v)``, small =
+    ``tf32_round(v - big)`` (the kernel's ``cvt.rna`` of the rest)."""
+    big = tf32_round(v)
+    return big, tf32_round(v - big)
+
+
+def split_tf32_t(w):
+    """The token kernel's prepared weight: w (K, N) split as
+    ``tf32_split`` does, each half transposed to a contiguous (N, K), the
+    K-major operand ``wgmma`` reads."""
+    big, small = tf32_split(w)
+    return big.t().contiguous(), small.t().contiguous()
+
+
+def linear_3xtf32(x, w, b=None):
+    """The token kernel's arithmetic in plain f32: per k8 slice of K, in
+    ascending order, small_x @ big_w, big_x @ small_w, big_x @ big_w added
+    to the sum in that order; the bias added to the finished sum.  Each
+    8-term product of TF32 values is summed by the CPU's f32 matmul, not in
+    the tensor core's order: the bits differ, the error budget does not."""
+    xb, xs = tf32_split(x)
+    wb, ws = tf32_split(w)
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        acc = acc + xs[:, s] @ wb[s]
+        acc = acc + xb[:, s] @ ws[s]
+        acc = acc + xb[:, s] @ wb[s]
+    return acc if b is None else acc + b
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,

@@ -52,7 +52,8 @@ def init_cache(spec: BlockSpec, d_model: int, batch: int, device=None):
 def _modulation(spec: BlockSpec, params, cond):
     if not spec.adaln:
         return None
-    m = ops.linear(F.silu(cond), params["mod"]["w"], params["mod"]["b"])
+    m = ops.linear(F.silu(cond), params["mod"]["w"], params["mod"]["b"],
+                   rows="requests")
     return torch.chunk(m[:, None, :], 6, dim=-1)  # each (B, 1, d)
 
 

@@ -200,6 +200,11 @@ class ServeEngine:
                              f"{join_horizon}")
         self.executor = executor
         self.params = params
+        # the linear kernel's prepared weights, made before any batch runs
+        # or a fused graph captures
+        prepare = getattr(executor, "prepare_params", None)
+        if prepare is not None:
+            prepare(params)
         self.store = store
         self.clock = clock if clock is not None else WallClock()
         self.queue = RequestQueue(self.clock)

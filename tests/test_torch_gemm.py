@@ -7,9 +7,10 @@ precision at the DiT-XL/2 shapes (5e-5 of the output's scale); the CPU
 dispatch is the plain product, bit for bit, and counts no launch; the
 wrapper refuses what the kernel does not take; ``row_sums`` gives a row
 the same bits whatever batch it rides in, and agrees with JAX's sum.  On a
-CUDA card (skipped elsewhere): the kernel against the plain version, a
-row's bits across batch sizes and row orders, and a captured launch
-against an eager one."""
+CUDA card (skipped elsewhere): both kernels (the token and the
+request-row variant) against the plain version, a row's bits across batch
+sizes and row orders, a captured launch against an eager one, and a
+capture that finds no prepared weight raising."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,40 +113,68 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k,n", SHAPES)
-@pytest.mark.parametrize("m", [2, 16, 512, 4096])
-def test_cuda_kernel_matches_plain(cuda, m, k, n):
+# (rows, K, N, M): every DiT shape through the token variant, and through
+# the request-row variant where 16 rows of x fit its shared memory
+CARD_CASES = [("tokens", k, n, m) for k, n in SHAPES
+              for m in (2, 16, 512, 4096)] + [
+    ("requests", k, n, m) for k, n in SHAPES if k <= 1152
+    for m in (1, 2, 8, 16, 40)]
+
+
+@pytest.mark.parametrize("rows,k,n,m", CARD_CASES)
+def test_cuda_kernel_matches_plain(cuda, rows, k, n, m):
     x, w, b = (torch.from_numpy(a).to(cuda) for a in _xwb(m, k, n))
-    got = gemm.linear_cuda(x, w, b)
+    got = gemm.linear_cuda(x, w, b, rows=rows)
     want = ref.linear_ref(x, w, b)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 5e-5 * float(want.abs().max())
+    gemm.release()
 
 
-@pytest.mark.parametrize("k,n", [(D, D), (4 * D, D), (D, 6 * D), (16, D)])
-def test_cuda_rows_are_batch_invariant(cuda, k, n):
-    x, w, _ = (torch.from_numpy(a).to(cuda) for a in _xwb(2048, k, n))
-    full = gemm.linear_cuda(x, w)
-    for m in (1, 2, 4, 8, 512, 1024):
-        assert torch.equal(gemm.linear_cuda(x[:m].contiguous(), w), full[:m])
-    perm = torch.randperm(2048, generator=torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("rows,k,n", [
+    ("tokens", D, D), ("tokens", 4 * D, D), ("tokens", D, 6 * D),
+    ("tokens", 16, D), ("requests", D, 6 * D), ("requests", 256, D),
+    ("requests", D, 2 * D)])
+def test_cuda_rows_are_batch_invariant(cuda, rows, k, n):
+    total = 2048 if rows == "tokens" else 48
+    x, w, _ = (torch.from_numpy(a).to(cuda) for a in _xwb(total, k, n))
+    full = gemm.linear_cuda(x, w, rows=rows)
+    for m in (1, 2, 4, 8, 16, 17, 512, 1024):
+        if m < total:
+            sub = gemm.linear_cuda(x[:m].contiguous(), w, rows=rows)
+            assert torch.equal(sub, full[:m])
+    perm = torch.randperm(total, generator=torch.Generator().manual_seed(0))
     perm = perm.to(cuda)
-    assert torch.equal(gemm.linear_cuda(x[perm].contiguous(), w), full[perm])
+    assert torch.equal(gemm.linear_cuda(x[perm].contiguous(), w, rows=rows),
+                       full[perm])
+    gemm.release()
 
 
-def test_cuda_captured_launch_equals_eager(cuda):
-    x, w, b = (torch.from_numpy(a).to(cuda) for a in _xwb(512, D, D))
-    eager = gemm.linear_cuda(x, w, b)
+@pytest.mark.parametrize("rows,m", [("tokens", 512), ("requests", 8)])
+def test_cuda_captured_launch_equals_eager(cuda, rows, m):
+    x, w, b = (torch.from_numpy(a).to(cuda) for a in _xwb(m, D, D))
+    eager = gemm.linear_cuda(x, w, b, rows=rows)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        gemm.linear_cuda(x, w, b)
+        gemm.linear_cuda(x, w, b, rows=rows)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = dict(ops.CAPTURED)
     with torch.cuda.graph(graph):
-        captured = ops.linear(x, w, b)
+        captured = ops.linear(x, w, b, rows=rows)
     assert ops.CAPTURED["linear"] == before["linear"] + 1
+    assert ops.CAPTURED["linear_" + rows] == before["linear_" + rows] + 1
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+    gemm.release()
+
+
+def test_cuda_capture_without_a_prepared_weight_raises(cuda):
+    x, w, _ = (torch.from_numpy(a).to(cuda) for a in _xwb(512, D, D))
+    gemm.release()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="prepared copy"):
+        with torch.cuda.graph(graph):
+            gemm.linear_cuda(x, w)
