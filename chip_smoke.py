@@ -106,7 +106,20 @@ exits non-zero:
    rung change, one graph per served (bucket, τ > 0) pair, a hand-made
    move between the τ > 0 rungs capturing nothing, variants within the
    budget, every request served or shed with a reason, every served batch
-   bitwise its ``generate`` at its rung's τ.
+   bitwise its ``generate`` at its rung's τ;
+14. fault recovery (``resilience``, ~60 s): the SmoothCache and adaptive
+   artifacts under ``ResiliencePolicy(watchdog_factor=4.0,
+   watchdog_floor_s=0.5)``, the chaos harness writing real NaNs that only
+   the executor's sentinels see — clean drains with resilience off and on
+   (A B B A) bitwise equal; a fixed plan (NaN rows in a fused adaptive
+   and a static batch, an injected fault, a stall past the watchdog's
+   deadline) served in full, its static survivors bitwise their clean
+   rows, every unsplit record bitwise its ``generate``; a seeded ramp at
+   rate 0.3 with every request resolved;
+15. step telemetry (``telemetry``, ~15 s): a fused batch with the proxy
+   trace on and off bitwise under the sync guard, its reports realizing
+   the host loop's decisions; a traced telemetry drain bitwise the plain
+   one, a report per request, a valid trace.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
@@ -1104,9 +1117,7 @@ def serve_phase(cfg, params, ops, smooth_art):
     t_phase = time.perf_counter()
     store, replay = serve_store(cfg, params, smooth_art)
     executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
-        ops.CAPTURED[k] = 0
+    _reset_counts(ops)
     eng, reqs, per = serve_drain(cfg, params, store, ops, executor)
     launches = dict(ops.LAUNCHES)
     drain_syncs = executor.host_sync_count
@@ -1270,6 +1281,12 @@ def serve_phase(cfg, params, ops, smooth_art):
     return attn_kernels, launches["flash_attention"], store
 
 
+def _reset_counts(ops):
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+        ops.CAPTURED[k] = 0
+
+
 def _timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1307,9 +1324,7 @@ def fused_phase(cfg, params, ops, store):
     torch.cuda.reset_peak_memory_stats()
     rs = executor.start_adaptive_fused_run(params, gen(), n, tau=entry.tau,
                                            **kw)
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
-        ops.CAPTURED[k] = 0
+    _reset_counts(ops)
     (step, capture_wall) = _timed(lambda: executor.fused_step_for(params, rs))
     captured = ops.CAPTURED["flash_attention"]
     warm = ops.LAUNCHES["flash_attention"]
@@ -1799,6 +1814,373 @@ def slo_phase(cfg, params, ops, store):
     return row
 
 
+RESILIENCE_POLICY = dict(watchdog_factor=4.0, watchdog_floor_s=0.5)
+RESILIENCE_RAMP = dict(seed=1, nan_rate=0.15, stuck_rate=0.09,
+                       error_rate=0.06)
+
+
+def _replay_pipe(cfg, entry):
+    """A pipeline that replays ``entry``'s batches through ``generate``
+    (its policy, and its artifact where it has one)."""
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import solvers
+    pipe = DiffusionPipeline(cfg, solvers.ddim(50), entry.policy,
+                             cfg_scale=1.5)
+    if entry.artifact is not None:
+        pipe.load_artifact(entry.artifact, strict=True)
+    return pipe
+
+
+def resilience_phase(cfg, params, ops, store):
+    """Fault recovery at full width (phase 14; budget ~60 s): the
+    SmoothCache artifact and the adaptive artifact, ``max_batch`` 4, 2 in
+    flight, a wall clock, ``ResiliencePolicy(watchdog_factor=4.0,
+    watchdog_floor_s=0.5)``, the chaos harness writing real NaNs into
+    latents with ``mark_flags=False`` (only the executor's sentinels
+    detect them).  (a) 8 requests clean, resilience off and on (A B B A):
+    bitwise equal, the same batches, 0 faults, the health reads.  (b) 16
+    requests under a fixed plan — the first batch formed (the adaptive
+    one: the batcher takes groups in name order) a NaN in row 2 at chunk
+    1, the second (static) a NaN in row 1, serial 2 an injected fault,
+    serial 3 a stall 1 s past the deadline the watchdog holds that advance
+    to: every request served, the fault kinds exact, one watchdog fire,
+    records on the degraded and fallback entries, the static survivors
+    bitwise their clean rows, every record without a split replaying
+    bitwise through ``generate``.  (c) 16 requests under a seeded ramp of
+    rate 0.3: every request resolves."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import serve
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.resilience import (ChaosExecutor, FaultPlan, FaultSpec,
+                                        ResiliencePolicy, faults)
+    from repro_torch.serve.store import DEGRADED_PREFIX, FALLBACK_ENTRY
+    from repro_torch.slo.slo import remaining_steps
+    t_phase = time.perf_counter()
+    static, adaptive = "smoothcache:alpha=0.18", SERVE_ADAPTIVE
+    rng = np.random.RandomState(SEED + 19)
+    trace = [(i, (static, adaptive)[i % 2], int(rng.randint(1 << 31)),
+              int(rng.randint(cfg.num_classes))) for i in range(32)]
+    executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+    _reset_counts(ops)
+    # the bucket-4 adaptive graph, captured before any drain is timed
+    entry = store.get(adaptive)
+    warm = executor.start_adaptive_fused_run(
+        params, torch.Generator().manual_seed(0), 4, schedule=entry.schedule,
+        tau=entry.tau, proxy_map=entry.proxy_map, pool=entry.pool(),
+        k_max=entry.k_max,
+        label=torch.zeros(4, dtype=torch.int64, device="cuda"))
+    executor.fused_step_for(params, warm)
+    del warm
+
+    class Stall(ChaosExecutor):
+        """Stalls a ``stuck_batch`` 1 s past the deadline the engine's
+        watchdog will hold that advance to (the engine's own formula on
+        its own cost model, for the batch the plan's serial turns out to
+        be); ``stalls`` records (deadline, stall) per strike."""
+        engine = None
+
+        def _strike(self, rs):
+            spec = rs._spec
+            if (spec is not None and spec.kind == faults.STUCK_BATCH
+                    and not rs._struck and rs._advances >= spec.chunk):
+                fl = next(f for f in self.engine._inflight if f.rs is rs)
+                steps = rs.num_steps - remaining_steps(rs)
+                deadline = self.engine._watchdog_deadline(
+                    steps, fl.mb.group, fl.mb.bucket)
+                rs._spec = dataclasses.replace(spec, stall_s=deadline + 1.0)
+                self.stalls.append({"serial": rs._serial,
+                                    "group": fl.mb.group,
+                                    "bucket": fl.mb.bucket, "steps": steps,
+                                    "deadline_s": deadline,
+                                    "stall_s": deadline + 1.0})
+            super()._strike(rs)
+
+    def drain(reqs, plan=None, chaos=ChaosExecutor):
+        ex = executor
+        if plan is not None:
+            ex = chaos(executor, plan, mutate_latent=True, mark_flags=False)
+            ex.stalls = []
+        eng = serve.ServeEngine(
+            ex, params, store, max_batch=4, max_inflight=2,
+            scheduler="interleave",
+            resilience=(ResiliencePolicy(**RESILIENCE_POLICY)
+                        if plan is not None else None))
+        if plan is not None:
+            ex.engine = eng
+        t0 = eng.clock.now()
+        eng.submit(*[serve.Request(rid=i, seed=seed, policy=pol, label=lab,
+                                   arrival=t0)
+                     for i, pol, seed, lab in reqs])
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - w0
+
+    # (a) clean: off (A), on (B), on (B), off (A)
+    clean = trace[:8]
+    runs = [drain(clean, FaultPlan() if on else None)
+            for on in (False, True, True, False)]
+    off, on = runs[0][0], runs[1][0]
+    same_batches = all([(r.group, r.rids) for r in e.records]
+                       == [(r.group, r.rids) for r in off.records]
+                       for e, _ in runs)
+    bitwise = all(sorted(e.results) == list(range(8)) and all(
+        np.array_equal(e.results[i], off.results[i]) for i in range(8))
+        for e, _ in runs)
+    row_a = {"requests": 8, "walls_ABBA_s": [w for _, w in runs],
+             "order": "A B B A (A: resilience off, B: on)",
+             "bitwise": bitwise, "same_batches": same_batches,
+             "faults": [e.metrics.faults_total for e, _ in runs],
+             "batches": len(on.records), "health_reads": on.health_reads,
+             "health_reads_per_batch": on.health_reads / len(on.records)}
+    check(bitwise and same_batches and row_a["faults"] == [0, 0, 0, 0],
+          f"clean drains differ with resilience on: {row_a}")
+
+    # (b) the fixed plan; the first 8 requests are the clean drain's
+    mem0 = torch.cuda.memory_allocated()
+    graphs0 = len(executor.fused_graphs())
+    plan = FaultPlan(faults={
+        0: FaultSpec(faults.NAN_LATENT, row=2, chunk=1),
+        1: FaultSpec(faults.NAN_LATENT, row=1, chunk=1),
+        2: FaultSpec(faults.INJECTED, chunk=1),
+        3: FaultSpec(faults.STUCK_BATCH, chunk=1)})
+    eng, wall_b = drain(trace[:16], plan, Stall)
+    rep = eng.report()
+    m = eng.metrics
+    last = {}
+    for rec in eng.records:                  # a rid's delivering record is
+        for rid in rec.rids:                 # its last one
+            last[rid] = rec
+    groups = {r.group for r in eng.records}
+    batches0 = eng.executor.serial
+    static_rids = [i for i, pol, _, _ in trace[:8] if pol == static]
+    survivors = [r for r in static_rids if r != static_rids[1]]
+    surv_diff = max(float(np.abs(eng.results[r] - off.results[r]).max())
+                    for r in survivors)
+    adaptive_split = [r for r in eng.records if r.group == adaptive
+                      and any("split_retry@" in t for t in r.lineage)]
+    replays, mismatched = 0, []
+    pipes = {}
+    for rec in eng.records:
+        if any("split_retry@" in t for t in rec.lineage):
+            continue
+        e = store.get(rec.group)
+        pipe = pipes.setdefault(rec.group, _replay_pipe(cfg, e))
+        out = pipe.generate(params, serve.batch_generator(rec.seeds),
+                            rec.bucket,
+                            label=torch.tensor(rec.labels, device="cuda"),
+                            **({"return_decisions": True} if e.adaptive
+                               else {}))
+        x, dec = out if isinstance(out, tuple) else (out, None)
+        x = x.cpu().numpy()
+        replays += 1
+        rows = [j for j, rid in enumerate(rec.rids) if last[rid] is rec]
+        if dec != rec.decisions or not all(
+                np.array_equal(x[j], eng.results[rec.rids[j]])
+                for j in rows):
+            mismatched.append((rec.group, rec.rids))
+    row_b = {"requests": 16, "drain_s": wall_b, "served": len(eng.results),
+             "goodput": len(eng.results) / 16,
+             "goodput_fraction": rep["slo"]["goodput_fraction"],
+             "faults": rep["faults"], "row_retries": m.row_retries,
+             "stalls": eng.executor.stalls,
+             "injected": dict(eng.executor.injected),
+             "launched_serials": batches0,
+             "records": [(r.group, r.bucket, list(r.lineage))
+                         for r in eng.records],
+             "static_survivors": survivors,
+             "static_survivors_max_abs_vs_clean": surv_diff,
+             "adaptive_split_records": len(adaptive_split),
+             "adaptive_survivors_finite": all(
+                 bool(np.isfinite(eng.results[rid]).all())
+                 for r in adaptive_split for rid in r.rids),
+             "replays": replays, "replays_bitwise": not mismatched,
+             "host_sync_count": executor.host_sync_count,
+             "health_reads": eng.health_reads,
+             "model_variants": rep["compiles"]["model_variants"],
+             "program_budget": rep["program_budget"],
+             "new_graphs": executor.fused_graphs()[graphs0:],
+             "device_bytes_added": torch.cuda.memory_allocated() - mem0}
+    check(sorted(eng.results) == list(range(16)),
+          f"fixed plan: served {sorted(eng.results)} of 16")
+    check(m.fault_kinds == {faults.NAN_LATENT: 2, faults.INJECTED: 1,
+                            faults.STUCK_BATCH: 1},
+          f"fixed plan: fault kinds {m.fault_kinds}")
+    check(len(row_b["stalls"]) == 1
+          and row_b["stalls"][0]["stall_s"] > row_b["stalls"][0][
+              "deadline_s"], f"fixed plan: stalls {row_b['stalls']}")
+    check(f"{DEGRADED_PREFIX}{adaptive}/tau0" in groups
+          and FALLBACK_ENTRY in groups,
+          f"fixed plan: no degraded or fallback record in {groups}")
+    check(surv_diff == 0.0,
+          f"static survivors differ from the clean run: {surv_diff}")
+    check(adaptive_split and row_b["adaptive_survivors_finite"],
+          "the adaptive batch did not split its NaN row out, or a "
+          "survivor is not finite")
+    check(not mismatched, f"records differ from generate: {mismatched}")
+    check(executor.host_sync_count == 0,
+          f"{executor.host_sync_count} decision syncs")
+    check(row_b["model_variants"] <= row_b["program_budget"],
+          f"{row_b['model_variants']} variants over the budget "
+          f"{row_b['program_budget']}")
+
+    # (c) a seeded ramp: 50 / 30 / 20 NaN / stall / error at rate 0.3
+    eng, wall_c = drain(trace[16:], FaultPlan(**RESILIENCE_RAMP))
+    rep = eng.report()
+    m = eng.metrics
+    outcomes = {i: eng.outcome(i) for i, _, _, _ in trace[16:]}
+    row_c = {"requests": 16, "plan": RESILIENCE_RAMP, "drain_s": wall_c,
+             "served": len(eng.results),
+             "goodput": len(eng.results) / 16,
+             "shed": rep["shed"], "faults": rep["faults"],
+             "row_retries": m.row_retries,
+             "injected": dict(eng.executor.injected),
+             "host_sync_count": executor.host_sync_count}
+    check(all(k == "done" or (k == "shed" and (v == "stalled"
+                                               or v.startswith("fault:")))
+              for k, v in outcomes.values()),
+          f"ramp: unresolved requests {outcomes}")
+    check(m.faults_total == sum(m.fault_kinds.values()),
+          f"ramp: {m.faults_total} faults against {m.fault_kinds}")
+    check(executor.host_sync_count == 0, "ramp: decision syncs")
+    launches = dict(ops.LAUNCHES)
+    emit({"phase": "resilience", "policy": RESILIENCE_POLICY,
+          "clean": row_a, "fixed_plan": row_b, "ramp": row_c,
+          "launches": launches, "captured": dict(ops.CAPTURED),
+          "phase_s": time.perf_counter() - t_phase})
+    check(launches["flash_attention"] > 0 and launches["linear"] > 0,
+          f"a kernel never launched in the resilience phase: {launches}")
+    return launches
+
+
+def telemetry_phase(cfg, params, ops, store):
+    """Step telemetry at full width (phase 15; budget ~15 s): one fused
+    batch of 4 on the adaptive artifact with ``telemetry=True`` and
+    without, the replays under ``set_sync_debug_mode("error")``: latents,
+    decisions and flags bitwise equal, no decision sync, 4 reports whose
+    realized decisions are the host loop's, proxies finite from step 1;
+    the telemetry graph's capture seconds and device bytes.  Then 8
+    requests (adaptive and SmoothCache) through a ``ServeEngine`` with a
+    ``Tracer`` and ``telemetry=True``, and with both off: bitwise equal,
+    a report per served request, a valid trace."""
+    import math
+    import numpy as np
+    from repro_torch import serve
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.obs import Tracer, run_cache_reports, \
+        validate_chrome_trace
+    t_phase = time.perf_counter()
+    entry = store.get(SERVE_ADAPTIVE)
+    executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+    labels = torch.tensor(REQUEST_LABELS, device="cuda")
+    kw = dict(schedule=entry.schedule, tau=entry.tau,
+              proxy_map=entry.proxy_map, pool=entry.pool(),
+              k_max=entry.k_max, label=labels)
+    n = len(REQUEST_LABELS)
+    _reset_counts(ops)
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 19)
+
+    runs, capture = {}, {}
+    for on in (False, True):
+        rs = executor.start_adaptive_fused_run(params, gen(), n,
+                                               telemetry=on, **kw)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        step, wall = _timed(lambda: executor.fused_step_for(params, rs))
+        capture[on] = {"warmup_s": step.stats["warmup_s"],
+                       "capture_s": step.stats["capture_s"],
+                       "wall_s": wall,
+                       "device_bytes": torch.cuda.memory_allocated() - mem0}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rs = executor.advance_adaptive_fused(params, rs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        runs[on] = rs
+    on, off = runs[True], runs[False]
+    _, dh = executor.sample_adaptive(params, gen(), n, return_decisions=True,
+                                     **kw)
+    host_syncs = executor.host_sync_count
+    reps = run_cache_reports(on, n)
+    fields = ("x", "trace", "healthy", "acc", "lag")
+    row = {"requests": n, "capture": {"off": capture[False],
+                                      "telemetry": capture[True]},
+           "bitwise": {f: bool(torch.equal(getattr(on, f), getattr(off, f)))
+                       for f in fields},
+           "decisions_equal": on.decisions == off.decisions == dh,
+           "sync_guard": "error", "host_loop_syncs": host_syncs,
+           "reports": len(reps),
+           "reports_realized_host_loop": all(r.realized == dh
+                                             for r in reps),
+           "proxy_finite_from_step_1": all(
+               all(p is not None and math.isfinite(p) for p in r.proxy[1:])
+               for r in reps),
+           "proxy_rows": [[round(p, 6) for p in r.proxy[1:6]] for r in reps],
+           "graphs": executor.fused_graphs()}
+    check(all(row["bitwise"].values()) and row["decisions_equal"],
+          f"telemetry changed the run: {row['bitwise']}")
+    check(row["reports"] == n and row["reports_realized_host_loop"]
+          and row["proxy_finite_from_step_1"],
+          "telemetry reports disagree with the host loop or hold a "
+          "non-finite proxy")
+
+    # the engine with a tracer and telemetry, and with both off
+    rng = np.random.RandomState(SEED + 20)
+    reqs = [(i, (SERVE_ADAPTIVE, "smoothcache:alpha=0.18")[i % 2],
+             int(rng.randint(1 << 31)), int(rng.randint(cfg.num_classes)))
+            for i in range(8)]
+    engines = {}
+    for obs_on in (True, False):
+        clock = serve.WallClock()
+        kwe = ({"tracer": Tracer(clock), "telemetry": True} if obs_on
+               else {})
+        eng = serve.ServeEngine(executor, params, store, clock=clock,
+                                max_batch=4, max_inflight=2, **kwe)
+        eng.submit(*[serve.Request(rid=i, seed=seed, policy=pol, label=lab)
+                     for i, pol, seed, lab in reqs])
+        _, wall = _timed(eng.run_until_drained)
+        engines[obs_on] = (eng, wall)
+    e_on, e_off = engines[True][0], engines[False][0]
+    n_events = validate_chrome_trace(e_on.tracer.to_chrome_trace())
+    drain_bitwise = sorted(e_on.results) == sorted(e_off.results) == \
+        list(range(8)) and all(np.array_equal(e_on.results[i],
+                                              e_off.results[i])
+                               for i in range(8))
+    realized = all(e_on.cache_reports[rid].realized == rec.decisions
+                   for rec in e_on.records if rec.decisions
+                   for rid in rec.rids)
+    launches = dict(ops.LAUNCHES)
+    row.update({"engine": {
+        "requests": 8, "walls_s": {"tracer_and_telemetry":
+                                   engines[True][1],
+                                   "both_off": engines[False][1]},
+        "bitwise": drain_bitwise,
+        "reports": sorted(e_on.cache_reports),
+        "reports_realized": realized,
+        "trace_events": n_events,
+        "host_sync_count": executor.host_sync_count - host_syncs},
+        "launches": launches, "captured": dict(ops.CAPTURED),
+        "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "telemetry", **row})
+    check(drain_bitwise, "the traced telemetry drain differs from the "
+          "plain one")
+    check(sorted(e_on.cache_reports) == list(range(8)) and realized,
+          "a served request has no report, or one realizing other "
+          "decisions")
+    check(row["engine"]["host_sync_count"] == 0,
+          "decision syncs in the telemetry drains")
+    check(launches["flash_attention"] > 0 and launches["linear"] > 0,
+          f"a kernel never launched in the telemetry phase: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1881,6 +2263,12 @@ def main():
     kernels["flash_attention"]["fused_replayed"] = fused["replayed_launches"]
     continuous_phase(cfg, params_gpu, ops, store)
     slo_phase(cfg, params_gpu, ops, store)
+    for name, phase in (("resilience", resilience_phase),
+                        ("telemetry", telemetry_phase)):
+        launches = phase(cfg, params_gpu, ops, store)
+        kernels["flash_attention"][name + "_launches"] = \
+            launches["flash_attention"]
+        kernels["linear"][name + "_launches"] = launches["linear"]
     del params_gpu, store
     gemm.release()            # the prepared halves hold the DiT weights
     gc.collect()              # the DiT weights go before the Mamba phases

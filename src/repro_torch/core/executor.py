@@ -297,6 +297,13 @@ class FusedAdaptiveRunState:
     #: (B,) bool tensor — per-sample health, folded inside the step (the
     #: accumulator's finiteness included), read only at boundaries
     healthy: Any = None
+    #: (S, B) float32 tensor of per-row proxy signals, or None — step
+    #: telemetry (``start_adaptive_fused_run(telemetry=True)``): written
+    #: by the fused step like ``trace``, read only at the boundaries the
+    #: host already reads, so it keeps ``host_sync_count`` at 0.  Step 0's
+    #: value is meaningless (``x_prev`` is zeros before the first step);
+    #: report layers mask it
+    proxy_trace: Any = None
 
     @property
     def done(self) -> bool:
@@ -845,11 +852,12 @@ class SmoothCacheExecutor:
         """Begin a resumable fused adaptive run.  Drive it with
         :meth:`advance_adaptive_fused` — a serving engine timeslices with
         ``n_steps`` chunks, each a run of graph replays.  ``row_keys``
-        draws per-row initial latents (see :meth:`start_run`)."""
-        if telemetry:
-            raise NotImplementedError(
-                "start_adaptive_fused_run(telemetry=True): the per-step "
-                "proxy trace is not ported yet — ROADMAP.md queue 1, item 8")
+        draws per-row initial latents (see :meth:`start_run`).
+        ``telemetry=True`` also records each row's proxy signal per step
+        into ``rs.proxy_trace`` (computed at τ = 0 too, where the rule
+        never reads it), for per-request
+        :class:`repro_torch.obs.CacheReport` explainers: a graph of its
+        own, still no host read, and the latents' bits unchanged."""
         schedule, tau, table, runtime, skip_table, coeff_a, coeff_b = \
             self._fused_setup(schedule, tau, proxy_map, pool, k_max)
         x = self._initial(generator, batch, row_keys)
@@ -866,7 +874,10 @@ class SmoothCacheExecutor:
             step=0, schedule=schedule, tau=tau, k_max=int(k_max),
             table=table, runtime=runtime, skip_table=skip_table,
             coeff_a=coeff_a, coeff_b=coeff_b, label=label,
-            healthy=torch.ones(batch, dtype=torch.bool, device=self.device))
+            healthy=torch.ones(batch, dtype=torch.bool, device=self.device),
+            proxy_trace=(torch.zeros((schedule.num_steps, batch),
+                                     dtype=torch.float32, device=self.device)
+                         if telemetry else None))
 
     def fused_step_for(self, params, rs: FusedAdaptiveRunState):
         """The fused step that runs ``rs`` (built, and on a CUDA device
@@ -875,7 +886,7 @@ class SmoothCacheExecutor:
         key = fused.graph_key(rs, params)
         g = self._fused.get(key)
         if g is None:
-            self._dispatch("fused", key[1:4], key[0])
+            self._dispatch("fused", key[1:5], key[0])
             g = fused.FusedGraph(self, params, rs, [
                 cache_entry_names(self.cfg, sig.collect)
                 for sig in rs.table.branches])
@@ -957,6 +968,9 @@ class SmoothCacheExecutor:
                    for f, ax in fields}
             if isinstance(rs, FusedAdaptiveRunState):
                 upd["trace"] = _take_rows(rs.trace, g, batch, axis=1)
+                if rs.proxy_trace is not None:
+                    upd["proxy_trace"] = _take_rows(rs.proxy_trace, g,
+                                                    batch, axis=1)
             out.append(dataclasses.replace(rs, **upd))
         return out
 
@@ -1012,4 +1026,10 @@ class SmoothCacheExecutor:
             # per-row desired traces concat exactly; ``decisions`` (the
             # AND over rows) becomes conservative for pre-merge steps
             upd["trace"] = torch.cat([r.trace for r in runs], dim=1)
+            if all(r.proxy_trace is not None for r in runs):
+                upd["proxy_trace"] = torch.cat([r.proxy_trace for r in runs],
+                                               dim=1)
+            elif any(r.proxy_trace is not None for r in runs):
+                # mixed telemetry: no honest merged trace exists
+                upd["proxy_trace"] = None
         return dataclasses.replace(r0, **upd)

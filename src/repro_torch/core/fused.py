@@ -15,15 +15,18 @@ trace, and the graph advances it; a chunk of ``n`` steps is ``n`` replays
 enqueued back to back.
 
 One :class:`FusedGraph` exists per ``(batch, SwitchTable, runtime,
-labelled, params)`` key — the counterpart of JAX's one fused program per
-(batch shape, pool, runtime).  τ and k_max are (1,) device tensors in the
-graph's fixed buffers, as JAX passes them as traced arguments: every
-τ > 0 rung of a ladder replays one graph, so a rung change captures
-nothing.  The buffers are fixed: a chunk copies the run state in (τ and
-k_max with it), replays, and copies the result out, device to device, so
-run states stay ordinary tensors that ``split_run`` / ``merge_runs``
-gather by rows.  The executor's graphs share one memory pool; they replay
-one after another on one stream.
+labelled, telemetry, params)`` key — the counterpart of JAX's one fused
+program per (batch shape, pool, runtime, telemetry).  A telemetry step
+also writes each row's proxy signal into an (S, B) ``proxy_trace``: a
+graph of its own, so the steps without it stay as they were.  τ and
+k_max are (1,) device tensors in the graph's fixed buffers, as JAX
+passes them as traced arguments: every τ > 0 rung of a ladder replays
+one graph, so a rung change captures nothing.  The buffers are fixed: a
+chunk copies the run state in (τ and k_max with it), replays, and copies
+the result out, device to device, so run states stay ordinary tensors
+that ``split_run`` / ``merge_runs`` gather by rows.  The executor's
+graphs share one memory pool; they replay one after another on one
+stream.
 
 On the CPU (the tests) the same step runs eagerly and the branch is picked
 in Python from the CPU code tensor — reading a CPU tensor waits for no
@@ -70,6 +73,7 @@ class FusedGraph:
     def __init__(self, executor, params, rs, writes):
         self.params = params                # the graph reads these addresses
         self.table, self.runtime = rs.table, rs.runtime
+        self.telemetry = rs.proxy_trace is not None
         dev = executor.device
         batch = int(rs.x.shape[0])
         types = self.table.types
@@ -91,7 +95,8 @@ class FusedGraph:
         self.graph = None
         self.stats: Dict = {"batch": batch, "types": list(types),
                             "branches": len(self.table.branches),
-                            "runtime": self.runtime, "warmup_s": None,
+                            "runtime": self.runtime,
+                            "telemetry": self.telemetry, "warmup_s": None,
                             "capture_s": None, "captured": None}
         if dev.type == "cuda":
             self._load(rs)
@@ -103,7 +108,7 @@ class FusedGraph:
                 ("lag", rs.lag), ("trace", rs.trace),
                 ("healthy", rs.healthy), ("a", rs.coeff_a),
                 ("b", rs.coeff_b), ("skip_table", rs.skip_table),
-                ("label", rs.label))
+                ("label", rs.label), ("proxy_trace", rs.proxy_trace))
 
     def _load(self, rs):
         """Copy a run state into the buffers (device to device)."""
@@ -126,10 +131,11 @@ class FusedGraph:
         b = self.buf
         x, s = b["x"], b["step"]
         acc, lag = b["acc"], b["lag"]
+        if self.runtime or self.telemetry:
+            proxy = calibration.rel_l1_change_rows(x, b["x_prev"])
         if self.runtime:
             want, bits, acc, lag = calibration.batch_rule(
-                calibration.rel_l1_change_rows(x, b["x_prev"]), acc, lag,
-                b["a"], b["b"], b["tau"], b["k_max"],
+                proxy, acc, lag, b["a"], b["b"], b["tau"], b["k_max"],
                 force_compute=s == 0)
         else:
             bits = b["skip_table"].index_select(0, s)[0]
@@ -150,6 +156,8 @@ class FusedGraph:
                     self.cache[si][bi][name].copy_(computed[si][bi][name])
         x_next = ex.solver.step(x, b["pred"], s)
         b["trace"].index_copy_(0, s, want.unsqueeze(0))
+        if self.telemetry:
+            b["proxy_trace"].index_copy_(0, s, proxy.unsqueeze(0))
         healthy = (b["healthy"] & rows_finite(x_next)
                    & torch.isfinite(acc).all(dim=-1))
         b["x_prev"].copy_(x)
@@ -240,17 +248,21 @@ class FusedGraph:
     def _unload(self) -> dict:
         """The run state's tensors, copied out of the buffers."""
         b = self.buf
-        return {"x": b["x"].clone(), "x_prev": b["x_prev"].clone(),
-                "acc": b["acc"].clone(), "lag": b["lag"].clone(),
-                "trace": b["trace"].clone(),
-                "healthy": b["healthy"].clone(),
-                "cache": [tuple({k: v.clone() for k, v in d.items()}
-                                for d in stage) for stage in self.cache]}
+        out = {"x": b["x"].clone(), "x_prev": b["x_prev"].clone(),
+               "acc": b["acc"].clone(), "lag": b["lag"].clone(),
+               "trace": b["trace"].clone(),
+               "healthy": b["healthy"].clone(),
+               "cache": [tuple({k: v.clone() for k, v in d.items()}
+                               for d in stage) for stage in self.cache]}
+        if self.telemetry:
+            out["proxy_trace"] = b["proxy_trace"].clone()
+        return out
 
 
 def graph_key(rs, params) -> tuple:
     """What a captured step is specialized on: the batch, the pool's
-    branch table, τ > 0 or not, labels or not, and the parameters (read
-    by address).  τ and k_max are not in it: they are buffers."""
+    branch table, τ > 0 or not, labels or not, step telemetry or not, and
+    the parameters (read by address).  τ and k_max are not in it: they
+    are buffers."""
     return (int(rs.x.shape[0]), rs.table, rs.runtime, rs.label is not None,
-            id(params))
+            rs.proxy_trace is not None, id(params))

@@ -5,11 +5,10 @@ into: the executor's numerical-health sentinels (NaN/Inf latents, runaway
 accumulators — detected at chunk/segment boundaries, never per step), an
 engine watchdog (an advance that blew its
 :class:`~repro_torch.slo.admission.ServiceCostModel` deadline), and a
-chaos harness (which raises them deliberately).  A recovery path consumes
-*only* this type — programming errors still propagate, faults never do.
-The serving engine of this package has no recovery path yet
-(``ServeEngine(resilience=...)`` raises ``NotImplementedError``), so
-faults propagate to its caller.
+chaos harness (:mod:`repro_torch.resilience.chaos` raises them
+deliberately).  The engine's recovery path (``ServeEngine(resilience=...)``)
+consumes *only* this type — programming errors still propagate, faults
+never do.
 
 Fault kinds (the taxonomy the metrics report against):
 

@@ -53,9 +53,22 @@ executor's total ``model_variants`` against :meth:`program_budget`.
 Eager PyTorch compiles nothing: the count is of dispatched shapes, the
 programs a compiled version would build.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 8): resilience (with
-continuous batching's per-row split-retry), telemetry and durability.
-Their constructor arguments and :meth:`ServeEngine.recover` raise
+Fault recovery (``resilience=`` a
+:class:`~repro_torch.resilience.ResiliencePolicy`): health flags are
+read at every advance boundary, a ``BatchFault`` raised mid-advance or an
+advance past its watchdog deadline aborts the batch instead of the
+engine, poisoned rows retry down the store's degradation ladder (rung →
+τ = 0 → ``no_cache``) with deterministic backoff, healthy rows either
+continue in split-off sub-runs (per-row split-retry) or re-queue at their
+original arrival, and a request that keeps faulting ends as an explicit
+``fault:<kind>`` shed.  Telemetry (``telemetry=True``): fused adaptive
+runs record their per-row proxy signals on the device, and every
+delivered request gets a :class:`~repro_torch.obs.CacheReport` in
+``cache_reports``, built from one read of the traces at the batch's
+finish.
+
+Not ported yet (``ROADMAP.md`` queue 1, item 8): durability —
+``journal=``, ``snapshot_dir=`` and :meth:`ServeEngine.recover` raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -66,7 +79,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.obs import NULL_TRACER, MetricsRegistry
+from repro_torch.obs import NULL_TRACER, MetricsRegistry, run_cache_reports
+from repro_torch.resilience.faults import NAN_LATENT, STUCK_BATCH, BatchFault
 from repro_torch.serve.batcher import MicroBatch, MicroBatcher, bucket_sizes
 from repro_torch.serve.metrics import ServerMetrics
 from repro_torch.serve.request import Request, RequestQueue, WallClock
@@ -122,8 +136,8 @@ class BatchRecord:
     decisions: Optional[Tuple[tuple, ...]] = None   # adaptive runs only
     tau: float = 0.0                          # realized τ (rung at launch)
     quality_cost: Optional[float] = None      # predicted, from proxy map
-    #: continuous-batching provenance: every join / regroup / coalesce
-    #: event this batch's run state went through, in order
+    #: continuous-batching provenance: every join / regroup / coalesce /
+    #: split-retry event this batch's run state went through, in order
     #: (``join@<step>:<rids>``, ``regroup@<step>:<rids>``, …); empty for a
     #: batch that rode formation → finish unchanged
     lineage: Tuple[str, ...] = ()
@@ -148,6 +162,12 @@ class _Inflight:
     kind: str          # "plan" | "adaptive" | "adaptive_fused" | "eager"
     rs: object
     label: object
+    #: per-row health known so far (np bool, True = healthy); None = all
+    #: healthy.  Monotone: a poisoned row never recovers mid-run.
+    taint: object = None
+    #: exclude this batch's service time from the cost-model EWMA (it
+    #: faulted / stalled — retries must not poison admission estimates)
+    cost_excluded: bool = False
     #: continuous-batching linkage: a *chaser* replays joiners from step 0
     #: up to its target's boundary (``chaser_for`` points at the parked
     #: target, whose ``parked_by`` points back); ``row_keyed`` records the
@@ -182,11 +202,6 @@ class ServeEngine:
                  join_horizon: float = 0.5, admission=None,
                  resilience=None, telemetry: bool = False, journal=None,
                  snapshot_dir=None):
-        if resilience is not None:
-            _not_ported("ServeEngine(resilience=)", "fault recovery", 8)
-        if telemetry:
-            _not_ported("ServeEngine(telemetry=True)",
-                        "per-request cache telemetry", 8)
         if journal is not None or snapshot_dir is not None:
             _not_ported("ServeEngine(journal=/snapshot_dir=)",
                         "durable serving", 8)
@@ -221,6 +236,12 @@ class ServeEngine:
         if tracer is not None:
             store.tracer = tracer
             self.batcher.tracer = tracer
+        #: ``telemetry=True`` asks fused adaptive runs to carry their
+        #: per-step proxy values on the device (read only at finish — no
+        #: extra host sync), so every delivered request gets a
+        #: :class:`repro_torch.obs.CacheReport` in ``cache_reports``
+        self.telemetry = bool(telemetry)
+        self.cache_reports: Dict[int, object] = {}   # rid → CacheReport
         self._serial = 0                      # batch serial (trace tracks)
         #: the scheduling policy object; ``scheduler`` may be a built-in
         #: name or any repro_torch.slo.SchedulingPolicy (e.g.
@@ -243,12 +264,28 @@ class ServeEngine:
         #: latest join point as a fraction of the run (a joiner replays
         #: the target's past steps, so late joins cost more than they save)
         self.join_horizon = float(join_horizon)
+        #: a repro_torch.resilience.ResiliencePolicy, or None — None keeps
+        #: the engine without a fault path: no health reads, no watchdog,
+        #: BatchFaults propagate, the stall guard raises
+        self.resilience = resilience
+        if resilience is not None and resilience.entry_fault_threshold \
+                is not None:
+            store.health.fault_threshold = resilience.entry_fault_threshold
+        #: advances whose health flags the fault path read on the host (one
+        #: device→host read each on a card; not decision syncs, so never
+        #: in the executor's ``host_sync_count``)
+        self.health_reads = 0
         self.results: Dict[int, np.ndarray] = {}
         self.records: List[BatchRecord] = []
         self.shed: Dict[int, Tuple[str, float]] = {}   # rid → (reason, t)
         self._inflight: List[_Inflight] = []
         self._rids: set = set()               # every rid ever submitted
-        self._sweep_needed = admission is not None
+        self._attempts: Dict[int, int] = {}   # rid → fault retry count
+        self._requeues: Dict[int, int] = {}   # rid → survivor re-queues
+        self._level: Dict[int, int] = {}      # rid → degradation level
+        self._origin: Dict[int, str] = {}     # rid → group first submitted
+        self._sweep_needed = (admission is not None
+                              or resilience is not None)
 
     # -- submission ----------------------------------------------------------
 
@@ -426,6 +463,10 @@ class ServeEngine:
             start = (self.executor.start_adaptive_fused_run
                      if self._fused_adaptive
                      else self.executor.start_adaptive_run)
+            if self.telemetry and self._fused_adaptive:
+                # passed only when on, so executors (and test fakes)
+                # without the keyword keep working
+                extra["telemetry"] = True
             rs = start(self.params, gen, mb.bucket, schedule=entry.schedule,
                        tau=entry.tau, proxy_map=entry.proxy_map,
                        pool=entry.pool(), k_max=entry.k_max, label=label,
@@ -518,6 +559,21 @@ class ServeEngine:
         return (fl.parked_by is not None or fl.chaser_for is not None
                 or any(o.chaser_for is fl for o in self._inflight))
 
+    def _unlink(self, fl: _Inflight) -> None:
+        """Detach a run leaving flight (fault/abort) from any join pair
+        so its partner does not wait forever: a dying chaser unparks its
+        target; a dying target releases its chaser to run to completion
+        on its own."""
+        if fl.chaser_for is not None and fl.chaser_for.parked_by is fl:
+            fl.chaser_for.parked_by = None
+        fl.chaser_for = None
+        if fl.parked_by is not None:
+            fl.parked_by.chaser_for = None
+            fl.parked_by = None
+        for o in self._inflight:
+            if o.chaser_for is fl:
+                o.chaser_for = None
+
     def _join_waiting(self, now: float) -> None:
         """Continuous feeder: waiting compatible requests join an in-flight
         run at its next boundary instead of queuing for a fresh slot.  The
@@ -559,6 +615,13 @@ class ServeEngine:
         merged_rs = self.executor.merge_runs([a.rs, b.rs])
         mb = MicroBatch(requests=a.mb.requests + b.mb.requests,
                         entry=a.mb.entry, formed_at=a.mb.formed_at)
+        taint = None
+        if a.taint is not None or b.taint is not None:
+            ta = (a.taint if a.taint is not None
+                  else np.ones(a.mb.bucket, bool))
+            tb = (b.taint if b.taint is not None
+                  else np.ones(b.mb.bucket, bool))
+            taint = np.concatenate([ta, tb])
         rids = ",".join(str(r) for r in b.mb.rids)
         # the merged run keeps a's track and serial — in the trace b's
         # span ends here with a "merged into a" outcome
@@ -567,6 +630,7 @@ class ServeEngine:
                             into=a.serial)
         merged = _Inflight(
             mb=mb, kind=a.kind, rs=merged_rs, label=self._labels(mb),
+            taint=taint, cost_excluded=a.cost_excluded or b.cost_excluded,
             row_keyed=True,
             lineage=a.lineage + b.lineage + (f"{tag}@{a.rs.step}:{rids}",),
             track=a.track, serial=a.serial)
@@ -618,7 +682,9 @@ class ServeEngine:
                                               via="regroup")
             repl.append(_Inflight(
                 mb=mb, kind=fl.kind, rs=sub, label=self._labels(mb),
-                row_keyed=True,
+                taint=(None if fl.taint is None
+                       else fl.taint[np.asarray(g)]),
+                cost_excluded=fl.cost_excluded, row_keyed=True,
                 lineage=fl.lineage + (f"regroup@{fl.rs.step}:{rids}",),
                 track=track, serial=serial))
         self._inflight[idx:idx + 1] = repl
@@ -659,17 +725,238 @@ class ServeEngine:
                         continue
                 self._merge_pair(a, b, "coalesce")
 
+    # -- fault handling (degrade, don't die) ---------------------------------
+
+    def _read_health(self, fl: _Inflight):
+        """Merge the run state's sentinel flags into the in-flight taint
+        record.  Returns the merged (B,) bool array, or None when neither
+        the sentinels nor the chaos harness flagged anything.  Newly
+        poisoned rows are counted as one fault event against the group.
+        On a card this is one device→host read (``health_reads``), made
+        after the advance, outside any graph replay."""
+        flags = getattr(fl.rs, "healthy", None)
+        if flags is None:
+            return fl.taint
+        self.health_reads += 1
+        if isinstance(flags, torch.Tensor):
+            flags = flags.cpu().numpy()
+        cur = np.asarray(flags).astype(bool)
+        if fl.taint is not None:
+            cur = cur & fl.taint
+        prev = fl.taint
+        newly = (~cur) if prev is None else (prev & ~cur)
+        if newly.any():
+            self.metrics.observe_fault(fl.mb.group, NAN_LATENT)
+            self.store.report_fault(fl.mb.group, NAN_LATENT)
+        fl.taint = cur
+        return cur
+
+    def _fault_abort(self, fl: _Inflight, kind: str, sample_flags,
+                     now: float, *, count: bool = True) -> None:
+        """Abandon an in-flight batch after a fault.  Rows flagged healthy
+        (per-sample resolution) or all rows (no resolution) *survive*:
+        they re-queue at their original arrival time (``resubmit`` never
+        touches ``arrival``, so queue-wait accounting keeps charging from
+        first arrival).  Poisoned rows go down the degradation ladder via
+        :meth:`_retry_or_fail`.  Survivors that keep landing in aborted
+        batches are bounded too — past the retry budget they join the
+        fault path instead of looping forever."""
+        mb = fl.mb
+        self._unlink(fl)
+        if self.tracer.enabled and fl.track:
+            self.tracer.end(fl.track, "run", outcome=f"fault:{kind}")
+        if count:
+            self.metrics.observe_fault(mb.group, kind)
+            self.store.report_fault(mb.group, kind)
+        flags = sample_flags if sample_flags is not None else fl.taint
+        budget = self.resilience.retry.max_retries
+        for j, r in enumerate(mb.requests):
+            ok = True if flags is None else bool(flags[j])
+            if not ok:
+                self._retry_or_fail(r, kind, now)
+                continue
+            n = self._requeues.get(r.rid, 0) + 1
+            self._requeues[r.rid] = n
+            if n > budget + 1:
+                # repeatedly a bystander of dying batches — stop looping
+                self._retry_or_fail(r, kind, now)
+            else:
+                r.started = None
+                self.queue.resubmit(r, now)
+                self.metrics.observe_requeue(1)
+
+    def _retry_or_fail(self, r: Request, kind: str, now: float) -> None:
+        """Bounded retry of one faulted request, stepping down the
+        degradation ladder (current rung → τ=0 → no_cache) with
+        deterministic backoff; past the budget the request ends as a
+        reasoned terminal outcome (``fault:<kind>``), counted like any
+        shed — never a crash, never a silent drop."""
+        pol = self.resilience
+        att = self._attempts.get(r.rid, 0) + 1
+        self._attempts[r.rid] = att
+        if att > pol.retry.max_retries:
+            self.shed[r.rid] = (f"fault:{kind}", now)
+            self.metrics.observe_shed(r, f"fault:{kind}", now)
+            self.tracer.instant("shed", rid=r.rid, reason=f"fault:{kind}")
+            return
+        origin = self._origin.setdefault(r.rid, r.policy)
+        if pol.degrade:
+            level = self._level.get(r.rid, 0) + 1
+            target = self.store.degraded_entry_name(origin, level)
+            if target is None:    # no τ=0 form for this group: skip a rung
+                level = 2
+                target = self.store.degraded_entry_name(origin, level)
+            self._level[r.rid] = level
+            if target != r.policy:
+                r.policy = target
+                self.metrics.observe_degrade(r)
+        r.started = None
+        self.metrics.observe_retry(r)
+        self.tracer.instant("retry", rid=r.rid, attempt=att,
+                            policy=r.policy)
+        self.queue.resubmit(r, now + pol.retry.delay(att, r.rid))
+
+    def _stall_shed(self, reason: str, now: float) -> None:
+        """Degrade-don't-die replacement for the stall guard: every queued
+        request gets an explicit shed outcome instead of the engine
+        raising out of its serving loop."""
+        for r in self.queue.drain_all():
+            self.shed[r.rid] = (reason, now)
+            self.metrics.observe_shed(r, reason, now)
+            self.tracer.instant("shed", rid=r.rid, reason=reason)
+
+    def _watchdog_deadline(self, steps: int, group: str,
+                           bucket: Optional[int] = None) -> float:
+        # keyed on the same (rung, bucket) the cost model learns on, so
+        # a ladder move or a regrouped bucket size gets its own deadline
+        est = self.cost_model.estimate(max(int(steps), 1), group=group,
+                                       bucket=bucket)
+        return self.resilience.deadline(est)
+
+    def _advance_guarded(self, i: int, fl: _Inflight) -> bool:
+        """Advance under the fault net: a ``BatchFault`` raised
+        mid-advance, a blown watchdog deadline, or sentinel-flagged rows
+        all route into the recovery path instead of propagating.  Returns
+        True when the batch was aborted (``fl`` removed from flight)."""
+        pol = self.resilience
+        build = getattr(self.executor, "fused_step_for", None)
+        if fl.kind == "adaptive_fused" and build is not None:
+            # a new fused step's warm-up and capture happen here, before
+            # the watchdog's clock starts: a capture is not a stall
+            build(self.params, fl.rs)
+        before = self.clock.now()
+        steps_before = remaining_steps(fl.rs)
+        try:
+            self._advance_traced(fl)
+        except BatchFault as bf:
+            self._inflight.pop(i)
+            self._fault_abort(fl, bf.kind, bf.sample_flags,
+                              self.clock.now())
+            return True
+        after = self.clock.now()
+        if pol.watchdog_factor is not None:
+            steps_adv = steps_before - remaining_steps(fl.rs)
+            deadline = self._watchdog_deadline(steps_adv, fl.mb.group,
+                                               fl.mb.bucket)
+            if after - before > deadline:
+                self.tracer.instant("watchdog_fire", tid=fl.track,
+                                    group=fl.mb.group,
+                                    elapsed_s=after - before,
+                                    deadline_s=deadline)
+                if fl.rs.done:
+                    # too late to re-queue — deliver, but keep the stall
+                    # out of the cost model and on the books
+                    fl.cost_excluded = True
+                    self.metrics.observe_fault(fl.mb.group, STUCK_BATCH)
+                    self.store.report_fault(fl.mb.group, STUCK_BATCH)
+                else:
+                    self._inflight.pop(i)
+                    self._fault_abort(fl, STUCK_BATCH, None, after)
+                    return True
+        flags = self._read_health(fl)
+        if flags is not None and not flags.any() and not fl.rs.done:
+            # every row is poisoned — nothing left worth carrying to the
+            # finish line (already counted by _read_health)
+            self._inflight.pop(i)
+            self._fault_abort(fl, NAN_LATENT, flags, after, count=False)
+            return True
+        if (flags is not None and not flags.all() and not fl.rs.done
+                and pol.split_retry
+                and fl.mb.bucket > 1 and fl.kind != "eager"
+                and not self._is_linked(fl)
+                and getattr(self.executor, "supports_split", False)):
+            # per-row retry within a continuing batch: faulted rows split
+            # out and go down the ladder now, survivors keep their run
+            # state (p2 sub-batches — no new shapes) instead of dragging
+            # dead rows to the finish line
+            self._split_retry(i, fl, flags, after)
+            return True
+        return False
+
+    def _split_retry(self, i: int, fl: _Inflight, flags,
+                     now: float) -> None:
+        good = [j for j in range(fl.mb.bucket) if flags[j]]
+        bad = [j for j in range(fl.mb.bucket) if not flags[j]]
+        groups = self._p2_groups(good)
+        subs = self.executor.split_run(fl.rs, groups)
+        if self.tracer.enabled and fl.track:
+            self.tracer.end(fl.track, "run",
+                            outcome=f"split_retry:{len(bad)}")
+        self._inflight.pop(i)
+        for g, sub in zip(groups, subs):
+            mb = MicroBatch(requests=tuple(fl.mb.requests[j] for j in g),
+                            entry=fl.mb.entry, formed_at=fl.mb.formed_at)
+            rids = ",".join(str(r.rid) for r in mb.requests)
+            serial, track = self._begin_track(mb, fl.kind, parent=fl.serial,
+                                              via="split_retry")
+            self._inflight.append(_Inflight(
+                mb=mb, kind=fl.kind, rs=sub, label=self._labels(mb),
+                cost_excluded=fl.cost_excluded, row_keyed=fl.row_keyed,
+                lineage=fl.lineage + (f"split_retry@{fl.rs.step}:{rids}",),
+                track=track, serial=serial))
+        for j in bad:
+            self._retry_or_fail(fl.mb.requests[j], NAN_LATENT, now)
+        self.metrics.observe_row_retry(len(bad))
+        self.metrics.observe_lineage("split_retry", len(groups))
+
     def _finish(self, fl: _Inflight) -> None:
         mb, rs = fl.mb, fl.rs
         # the one device→host copy of a batch (it waits for the device)
         x = rs.x
         x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         done = self.clock.now()
+        # service time of the whole batch, taken before any faulted row's
+        # re-queue resets its start stamp
         service = done - mb.requests[0].started
+        flags = None
+        if self.resilience is not None:
+            # rows are computationally independent (attention is within a
+            # sample, CFG doubles per sample, every product runs the
+            # batch-invariant linear kernel), so a poisoned row never
+            # reaches its neighbours: deliver the healthy rows — bitwise
+            # an uninjected run's — and send only the poisoned ones down
+            # the ladder
+            finite = np.isfinite(x.reshape(x.shape[0], -1)).all(axis=1)
+            flags = finite if fl.taint is None else (fl.taint & finite)
+            if flags.all():
+                flags = None
+            else:
+                newly = ((~flags) if fl.taint is None
+                         else (fl.taint & ~flags))
+                if newly.any():
+                    # the final-latent check found poison the sentinels
+                    # had not counted (paths without health flags)
+                    self.metrics.observe_fault(mb.group, NAN_LATENT)
+                    self.store.report_fault(mb.group, NAN_LATENT)
+        delivered = []
         for j, r in enumerate(mb.requests):
+            if flags is not None and not flags[j]:
+                self._retry_or_fail(r, NAN_LATENT, done)
+                continue
             r.finished = done
             self.results[r.rid] = x[j]
             self.metrics.observe_request(r)
+            delivered.append(r)
         entry = mb.entry
         num_types = len(entry.schedule.skip)
         decisions = rs.decisions
@@ -681,14 +968,25 @@ class ServeEngine:
         self.metrics.observe_batch(mb.group, mb.bucket, frac,
                                    entry.plan.num_steps, num_types)
         # feed the calibrated per-step cost model (service time of the
-        # whole batch — includes interleaving contention)
-        self.cost_model.observe(mb.group, service, entry.plan.num_steps,
-                                bucket=mb.bucket)
+        # whole batch — includes interleaving contention); faulted and
+        # stalled batches stay out, so retries do not skew admission
+        if flags is None and not fl.cost_excluded:
+            self.cost_model.observe(mb.group, service, entry.plan.num_steps,
+                                    bucket=mb.bucket)
         qcost = entry.predicted_quality_cost(decisions)
         self.metrics.observe_quality(entry.tau, qcost, n=mb.bucket)
         if self.tracer.enabled and fl.track:
             self.tracer.end(fl.track, "run", outcome="done",
                             compute_fraction=frac)
+        if self.telemetry:
+            # per-request cache-decision explainers: one boundary read of
+            # the fused run's traces per finished batch
+            reports = run_cache_reports(rs, mb.bucket,
+                                        schedule=entry.schedule,
+                                        tau=entry.tau)
+            for j, r in enumerate(mb.requests):
+                if j < len(reports) and (flags is None or flags[j]):
+                    self.cache_reports[r.rid] = reports[j]
         record = BatchRecord(
             group=mb.group, version=entry.version, bucket=mb.bucket,
             rids=mb.rids, seeds=mb.seeds, labels=mb.labels,
@@ -696,7 +994,9 @@ class ServeEngine:
             formed_at=mb.formed_at, finished_at=done, decisions=decisions,
             tau=entry.tau, quality_cost=qcost, lineage=fl.lineage)
         self.records.append(record)
-        self.policy.on_finish(self, record, mb.requests, done)
+        self.policy.on_finish(self, record,
+                              delivered if flags is not None
+                              else mb.requests, done)
 
     def step(self) -> bool:
         """One scheduling tick: sweep SLOs (quality-floor sheds, admission
@@ -717,7 +1017,10 @@ class ServeEngine:
             # to the chaser catching up with it
             fl = fl.parked_by
             i = self._inflight.index(fl)
-        self._advance_traced(fl)
+        if self.resilience is None:
+            self._advance_traced(fl)
+        elif self._advance_guarded(i, fl):
+            return True                       # batch aborted into recovery
         if fl.rs.done:
             self._inflight.pop(i)
             self._finish(fl)
@@ -749,6 +1052,12 @@ class ServeEngine:
             now = self.clock.now()
             t = self.batcher.next_event(now)
             if t is None:
+                # with a resilience policy the stall guard degrades
+                # instead of dying: every stuck request becomes an
+                # explicit "stalled" shed and the drain completes
+                if self.resilience is not None:
+                    self._stall_shed("stalled", now)
+                    continue
                 raise RuntimeError(
                     "serve engine stalled: queued requests but no "
                     "schedulable event")
@@ -760,6 +1069,10 @@ class ServeEngine:
                 stalled = stalled + 1 if now == last_now else 0
                 last_now = now
                 if stalled > 64:
+                    if self.resilience is not None:
+                        self._stall_shed("stalled", now)
+                        stalled = 0
+                        continue
                     raise RuntimeError(
                         f"serve engine livelocked at t={now}: "
                         f"next_event={t} never becomes schedulable")

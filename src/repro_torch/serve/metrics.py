@@ -19,10 +19,11 @@ histogram and the predicted quality cost under the elastic τ controller.
 :class:`~repro_torch.obs.MetricsRegistry`: every ``observe_*`` call writes
 named registry instruments (counters with labels, histograms with raw
 samples), and the attribute surface — ``metrics.rejects``,
-``metrics.queue_waits`` — is reconstructed from the registry on read.
-``report()`` keeps the JAX package's key names for every section this
-package serves, continuous batching included; its fault and durability
-sections arrive with those features (``ROADMAP.md`` queue 1, item 8).
+``metrics.fault_kinds``, ``metrics.queue_waits`` — is reconstructed from
+the registry on read.  ``report()`` keeps the JAX package's key names for
+every section this package serves, faults and continuous batching
+included; only the durability section is left (``ROADMAP.md`` queue 1,
+item 8).
 """
 from __future__ import annotations
 
@@ -148,6 +149,27 @@ class ServerMetrics:
         reg.inc("serve.evals_total", evals)
         reg.inc("serve.evals_done", compute_fraction * evals)
 
+    # -- resilience ----------------------------------------------------------
+
+    def observe_fault(self, group: str, kind: str) -> None:
+        """One micro-batch fault (NaN latent, stuck advance, injected
+        error, …) — counted per kind and per serving group."""
+        self.registry.inc("resilience.faults", kind=kind)
+        self.registry.inc("resilience.fault_groups", group=group)
+
+    def observe_retry(self, req: Request) -> None:
+        self.registry.inc("resilience.retries")
+
+    def observe_requeue(self, n: int = 1) -> None:
+        """Healthy survivors of an aborted batch put back in the queue at
+        their original arrival."""
+        self.registry.inc("resilience.requeued", int(n))
+
+    def observe_degrade(self, req: Request) -> None:
+        """A faulted request stepped down the degradation ladder for its
+        retry (rung → τ=0 → no_cache)."""
+        self.registry.inc("resilience.degraded")
+
     # -- continuous batching -------------------------------------------------
 
     def observe_join(self, n: int = 1) -> None:
@@ -166,10 +188,15 @@ class ServerMetrics:
         (``join``) from an opportunistic ``coalesce``."""
         self.registry.inc("continuous.merges", int(n), kind=kind)
 
+    def observe_row_retry(self, n: int = 1) -> None:
+        """``n`` faulted rows split out of a continuing batch for retry
+        while the survivors kept their run state."""
+        self.registry.inc("continuous.row_retries", int(n))
+
     def observe_lineage(self, tag: str, n: int = 1) -> None:
         """``n`` run-state lineage events of one kind (``join`` /
-        ``regroup`` / ``coalesce``) — the counts ``BatchRecord.lineage``
-        tags encode."""
+        ``regroup`` / ``coalesce`` / ``split_retry``) — the counts
+        ``BatchRecord.lineage`` tags encode."""
         self.registry.inc("continuous.lineage", int(n), event=tag)
 
     # -- registry-backed attribute view --------------------------------------
@@ -242,6 +269,33 @@ class ServerMetrics:
                 self.registry.labeled("serve.rejects", "reason").items()}
 
     @property
+    def faults_total(self) -> int:
+        return int(self.registry.counter_total("resilience.faults"))
+
+    @property
+    def fault_kinds(self) -> Dict[str, int]:
+        return {k: int(v) for k, v in
+                self.registry.labeled("resilience.faults", "kind").items()}
+
+    @property
+    def fault_groups(self) -> Dict[str, int]:
+        return {k: int(v) for k, v in
+                self.registry.labeled("resilience.fault_groups",
+                                      "group").items()}
+
+    @property
+    def retries(self) -> int:
+        return int(self.registry.counter("resilience.retries"))
+
+    @property
+    def requeued(self) -> int:
+        return int(self.registry.counter("resilience.requeued"))
+
+    @property
+    def degraded(self) -> int:
+        return int(self.registry.counter("resilience.degraded"))
+
+    @property
     def joins(self) -> int:
         return int(self.registry.counter("continuous.joins"))
 
@@ -256,6 +310,10 @@ class ServerMetrics:
     @property
     def merges(self) -> int:
         return int(self.registry.counter_total("continuous.merges"))
+
+    @property
+    def row_retries(self) -> int:
+        return int(self.registry.counter("continuous.row_retries"))
 
     @property
     def lineage_events(self) -> Dict[str, int]:
@@ -292,7 +350,6 @@ class ServerMetrics:
             "shed": {"total": self.shed_total,
                      "reasons": dict(sorted(self.shed_reasons.items()))},
             "deferrals": self.deferrals,
-            "rejected_submissions": dict(sorted(self.rejects.items())),
         }
         # goodput over *offered* traffic — throughput counts everything
         # finished, goodput only deadline-met work, so shedding can never
@@ -306,6 +363,15 @@ class ServerMetrics:
             "offered": offered,
             "goodput_fraction": (self.good / offered if offered else None),
         }
+        out["faults"] = {
+            "total": self.faults_total,
+            "kinds": dict(sorted(self.fault_kinds.items())),
+            "groups": dict(sorted(self.fault_groups.items())),
+            "retries": self.retries,
+            "requeued": self.requeued,
+            "degraded": self.degraded,
+            "rejected_submissions": dict(sorted(self.rejects.items())),
+        }
         merges_by_kind = self.registry.labeled("continuous.merges", "kind")
         out["continuous"] = {
             "joins": self.joins,
@@ -314,6 +380,7 @@ class ServerMetrics:
             "merges": self.merges,
             "join_merges": int(merges_by_kind.get("join", 0)),
             "coalesces": int(merges_by_kind.get("coalesce", 0)),
+            "row_retries": self.row_retries,
             "lineage_events": dict(sorted(self.lineage_events.items())),
             "joined_queue_wait_s": _dist(self.joined_queue_waits),
         }

@@ -226,3 +226,15 @@ class RequestQueue:
     def __len__(self) -> int:
         return len(self._future) + sum(len(rs) for rs in
                                        self._ready.values())
+
+    def drain_all(self) -> List[Request]:
+        """Remove and return every queued request (ready and future) —
+        the engine's stall-shed path: when nothing queued can ever become
+        schedulable, each drained request gets an explicit shed outcome
+        instead of an engine-killing exception."""
+        out = [req for _, _, req in sorted(self._future)]
+        self._future = []
+        for rs in self._ready.values():
+            out.extend(rs)
+        self._ready = {}
+        return out

@@ -33,6 +33,11 @@ from repro_torch.core.schedule import Schedule
 from repro_torch.obs import NULL_TRACER
 from repro_torch.resilience.integrity import HealthRegistry
 
+#: reserved entry-name prefix for store-materialized degradation targets
+#: (fault-retry rungs) — not client-addressable policies
+DEGRADED_PREFIX = "!degraded/"
+FALLBACK_ENTRY = "!fallback/no_cache"
+
 
 @dataclasses.dataclass
 class ServableEntry:
@@ -429,6 +434,56 @@ class ArtifactStore:
         if tripped:
             self.tracer.instant("entry_unhealthy", entry=group, kind=kind)
         return tripped
+
+    def degraded_entry_name(self, group: str,
+                            level: int) -> Optional[str]:
+        """The entry a faulted ``group`` request should retry on, one
+        ``level`` down the degradation ladder:
+
+        * level 0 — ``group`` itself (retry in place),
+        * level 1 — the τ=0 form: a ladder's τ=0 rung, or (plain adaptive
+          entries) a store-materialized ``!degraded/<group>/tau0`` entry
+          built from the artifact's ``at_tau(0.0)``; None when the group
+          has no distinct τ=0 form (static entries — skip to level 2),
+        * level ≥ 2 — the universal :data:`FALLBACK_ENTRY` (``no_cache``:
+          full compute, no reuse — the rung that cannot be poisoned by a
+          mis-calibrated schedule).
+        """
+        if level <= 0:
+            return group
+        if level == 1:
+            if group in self._ladders:
+                lad = self._ladders[group]
+                i = lad.rung_for_cap(0.0)
+                if i is not None and lad.taus[i] == 0.0:
+                    return lad.rung_names[i]
+                return None
+            entry = self.get(group)
+            if (entry.adaptive and entry.tau > 0
+                    and entry.artifact is not None):
+                dname = f"{DEGRADED_PREFIX}{group}/tau0"
+                if dname not in self._entries:
+                    pol = registry.from_config(
+                        {**dict(entry.artifact.policy), "tau": 0.0})
+                    self._entries[dname] = self._build_entry(
+                        dname, entry.artifact.at_tau(0.0), pol,
+                        strict=True, version=1)
+                return dname
+            return None
+        return self.ensure_fallback_entry()
+
+    def ensure_fallback_entry(self) -> str:
+        """Materialize (once) and name the terminal degradation rung: a
+        calibration-free ``no_cache`` entry — every layer computed every
+        step, nothing reused, nothing a bad artifact can corrupt."""
+        if FALLBACK_ENTRY not in self._entries:
+            pol = registry.get("none")
+            schedule = pol.build(self.cfg.layer_types(),
+                                 self.solver.num_steps)
+            self._entries[FALLBACK_ENTRY] = ServableEntry(
+                name=FALLBACK_ENTRY, policy=pol, schedule=schedule,
+                plan=plan_lib.analyze(schedule))
+        return FALLBACK_ENTRY
 
     def names(self) -> List[str]:
         """Real entry names (ladder rungs included, ladder aliases not —

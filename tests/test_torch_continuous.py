@@ -294,8 +294,7 @@ def test_engine_matches_reference_on_one_continuous_trace():
                                       jc._expected_row(seed))
     rj, rt = ref.report(), got.report()
     cj, ct = dict(rj["continuous"]), dict(rt["continuous"])
-    assert cj.pop("row_retries") == 0          # split-retry is not ported
-    assert ct == cj
+    assert ct == cj and ct["row_retries"] == 0  # no fault path on this trace
     assert ct["joins"] >= 1 and ct["regroups"] >= 1 and ct["coalesces"] >= 1
     for k in ("requests", "batches", "buckets", "queue_wait_s", "service_s",
               "makespan_s", "program_budget"):

@@ -178,9 +178,6 @@ def test_fused_health_flags_a_poisoned_row(port_pipe):
 def test_fused_path_validates_and_refuses_what_is_not_ported(port_pipe):
     _, pt = smoke_params()
     ex = _executor()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ex.start_adaptive_fused_run(pt, _gen(0), 2, telemetry=True,
-                                    **_kw(port_pipe))
     with pytest.raises(ValueError, match="proxy_map"):
         ex.start_adaptive_fused_run(pt, _gen(0), 2, schedule=port_pipe.schedule,
                                     tau=0.1, label=torch.tensor(LABELS))

@@ -13,9 +13,10 @@ package's ``repro.serve``.
   drains within the program budget (adaptive entries through the fused
   path, with no decision sync), and every served latent equals a
   ``DiffusionPipeline.generate`` replay of its batch, bitwise.
-* Arguments of features not ported yet raise ``NotImplementedError``
-  (an admission controller is accepted); a traced drain exports a valid
-  Chrome trace.
+* Arguments of features not ported yet (durability) raise
+  ``NotImplementedError``; an admission controller, a resilience policy
+  and telemetry are accepted; a traced drain exports a valid Chrome
+  trace.
 """
 import json
 
@@ -30,7 +31,7 @@ from repro_torch import serve, slo
 from repro_torch.cache import registry
 from repro_torch.cache.artifact import CacheArtifact
 from repro_torch.obs import Tracer, validate_chrome_trace
-from repro_torch.resilience import faults
+from repro_torch.resilience import ResiliencePolicy, faults
 from repro_torch.serve.batcher import bucket_for, bucket_sizes
 from repro_torch.serve.metrics import percentile
 
@@ -576,7 +577,7 @@ def test_engine_matches_reference_on_one_trace(scheduler, kw):
     rj, rt = ref.report(), got.report()
     for k in REPORT_KEYS:
         assert rt.get(k) == rj.get(k), k
-    assert rt["rejected_submissions"] == rj["faults"]["rejected_submissions"]
+    assert rt["faults"] == rj["faults"]
     cj, ct = dict(rj["compiles"]), dict(rt["compiles"])
     assert ct.pop("model_variants") == cj.pop("xla_programs")
     assert ct == cj
@@ -589,13 +590,36 @@ def test_engine_matches_reference_on_one_trace(scheduler, kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
-    dict(admission=slo.AdmissionController(max_backlog_s=1.0),
-         resilience=object()),
-    dict(resilience=object()), dict(telemetry=True),
     dict(journal="journal.jsonl"), dict(snapshot_dir="snaps")])
 def test_unported_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         make_engine(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(resilience=ResiliencePolicy()),
+    dict(resilience=ResiliencePolicy(entry_fault_threshold=3),
+         admission=slo.AdmissionController(max_backlog_s=100.0)),
+    dict(telemetry=True)])
+def test_resilience_and_telemetry_arguments_accepted(kw):
+    """Both serve a drain, with the same records as a plain engine; a
+    threshold lands in the store's health registry; telemetry gives every
+    served request a report."""
+    eng, _ = make_engine(**kw)
+    assert eng.resilience is kw.get("resilience")
+    assert eng.telemetry is bool(kw.get("telemetry"))
+    pol = kw.get("resilience")
+    if pol is not None and pol.entry_fault_threshold is not None:
+        assert eng.store.health.fault_threshold == 3
+    eng.submit(*[req(i, "static2") for i in range(3)])
+    assert sorted(eng.run_until_drained()) == [0, 1, 2]
+    plain, _ = make_engine()
+    plain.submit(*[req(i, "static2") for i in range(3)])
+    plain.run_until_drained()
+    assert [r.rids for r in eng.records] == [r.rids for r in plain.records]
+    assert eng.metrics.faults_total == 0
+    assert sorted(eng.cache_reports) == ([0, 1, 2] if eng.telemetry
+                                         else [])
 
 
 def test_admission_controller_accepted():
