@@ -119,7 +119,19 @@ exits non-zero:
 15. step telemetry (``telemetry``, ~15 s): a fused batch with the proxy
    trace on and off bitwise under the sync guard, its reports realizing
    the host loop's decisions; a traced telemetry drain bitwise the plain
-   one, a report per request, a valid trace.
+   one, a report per request, a valid trace;
+16. durable serving (``durable``, ~60 s): the SmoothCache and adaptive
+   artifacts, ``max_batch`` 2, 2 in flight, ``adaptive_chunk`` 4, the
+   fused advances under the sync guard, snapshots in a temporary
+   directory with at least 4 GB free — 8 requests with durability off,
+   on, on, off at ``checkpoint_every=1`` and on / off at 4 (walls,
+   overhead, bytes per snapshot and seconds of its device→host copy,
+   sha256 and write per run kind, journal fsyncs); a kill with a static
+   and a fused batch in flight restored by a fresh engine on a fresh
+   executor bitwise the uninterrupted rows; a torn and a drifted snapshot
+   quarantined with reasons and replayed bitwise; a seeded kill ramp
+   (``KillPlan(seed=0, kill_rate=0.3, max_kills=4)``) losing nothing,
+   every row bitwise, device memory at each restart not growing.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
@@ -2181,6 +2193,293 @@ def telemetry_phase(cfg, params, ops, store):
     return launches
 
 
+DURABLE_KILLS = dict(seed=0, kill_rate=0.3, max_kills=4)
+DURABLE_MIN_FREE = 4e9        # bytes the snapshot directory must have free
+
+
+def _free_engine(eng):
+    """What a process death frees on the card: the engine's in-flight run
+    states and its executor's captured graphs (buffers and memory pool)."""
+    eng._inflight.clear()
+    eng.executor._fused.clear()
+    eng.executor._capture = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def durable_phase(cfg, params, ops, store):
+    """Durable serving at full width (phase 16; budget ~60 s): the
+    SmoothCache artifact and the adaptive artifact (fused), ``max_batch``
+    2, 2 in flight, ``adaptive_chunk`` 4, a wall clock, the fused
+    advances under ``set_sync_debug_mode("error")`` (captures and
+    checkpoints outside it).  (d) 8 requests with durability off, on, on,
+    off at ``checkpoint_every=1`` and one on / off pair at 4: walls,
+    overhead, and per run kind the bytes of a snapshot and the seconds of
+    its device→host copy, sha256 and file write, with the journal's
+    fsyncs; the off drains' rows are the uninterrupted rows below.  (a)
+    2 + 2 requests stepped until both batches hold a snapshot, killed; a
+    fresh engine on a fresh executor (the old one's graphs freed)
+    restores both and finishes bitwise the uninterrupted rows.  (b) the
+    same with one snapshot's body byte flipped and the other's entry
+    re-registered under a new version: both quarantined with reasons,
+    their requests replayed from the start, bitwise.  (c) the 8 requests
+    under ``KillPlan(seed=0, kill_rate=0.3, max_kills=4)``, a fresh
+    engine and executor per incarnation: 0 lost, rows bitwise, every rid
+    ``done`` in a probe recovered from the journal alone, device memory
+    at each restart not growing."""
+    import shutil
+
+    import numpy as np
+    from repro_torch import serve
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.durable import KillPlan, crash, drain_with_kills
+    t_phase = time.perf_counter()
+    static, adaptive = "smoothcache:alpha=0.18", SERVE_ADAPTIVE
+    rng = np.random.RandomState(SEED + 23)
+    reqs = [(i, (adaptive, static)[i % 2], int(rng.randint(1 << 31)),
+             int(rng.randint(cfg.num_classes))) for i in range(8)]
+    _reset_counts(ops)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    free = shutil.disk_usage(tmp).free
+    check(free >= DURABLE_MIN_FREE,
+          f"{tmp} has {free} bytes free; the durable phase needs "
+          f"{DURABLE_MIN_FREE:.0f}")
+    costs = {}                               # run kind → checkpoint costs
+
+    def make_store(bump=None):
+        dstore = serve.ArtifactStore(cfg, solvers.ddim(50), cfg_scale=1.5)
+        for name in (static, adaptive):
+            dstore.add_artifact(name, store.get(name).artifact)
+        if bump is not None:                 # re-registered: version 2
+            dstore.reload(bump, store.get(bump).artifact)
+        return dstore
+
+    class Engine(serve.ServeEngine):
+        """Fused advances under the sync guard (a new graph's capture
+        before it); each checkpoint's bytes and seconds by run kind."""
+
+        def _advance(self, fl):
+            if fl.kind != "adaptive_fused":
+                return super()._advance(fl)
+            self.executor.fused_step_for(self.params, fl.rs)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super()._advance(fl)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def _checkpoint(self, fl):
+            t0 = dict(self._snapshots.timings)
+            b0, n0 = self.metrics.checkpoint_bytes, self.metrics.checkpoints
+            super()._checkpoint(fl)
+            row = costs.setdefault(fl.kind, {"snapshots": 0, "bytes": 0})
+            row["snapshots"] += self.metrics.checkpoints - n0
+            row["bytes"] += self.metrics.checkpoint_bytes - b0
+            for k, v in self._snapshots.timings.items():
+                row[k] = row.get(k, 0.0) + v - t0.get(k, 0.0)
+
+    def engine(ex, dstore=None, sub=None, **kw):
+        dur = {}
+        if sub is not None:
+            dur = dict(journal=str(Path(tmp) / sub / "journal.jsonl"),
+                       snapshot_dir=str(Path(tmp) / sub / "snapshots"))
+        return Engine(ex, params, dstore or make_store(), max_batch=2,
+                      max_inflight=2, adaptive_chunk=4, **dur, **kw)
+
+    def submit(eng, rows):
+        t0 = eng.clock.now()
+        eng.submit(*[serve.Request(rid=i, seed=seed, policy=pol, label=lab,
+                                   arrival=t0) for i, pol, seed, lab in rows])
+
+    def executor():
+        return SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
+
+    def bitwise(results, rids):
+        return (sorted(results) == sorted(rids) and max(
+            float(np.abs(results[i] - clean[i]).max()) for i in rids) == 0.0)
+
+    # (d) what durability costs: off, on, on, off at checkpoint_every=1,
+    # then on, off at 4; one executor, its bucket-2 graph captured first
+    ex = executor()
+    warm = engine(ex)
+    submit(warm, reqs[:2])
+    warm.run_until_drained()
+    drains, syncs = [], []
+    for on, every in ((False, 1), (True, 1), (True, 1), (False, 1),
+                      (True, 4), (False, 4)):
+        costs.clear()
+        eng = engine(ex, sub=f"d{len(drains)}" if on else None,
+                     checkpoint_every=every)
+        submit(eng, reqs)
+        _, wall = _timed(eng.run_until_drained)
+        row = {"durability": on, "checkpoint_every": every, "wall_s": wall,
+               "checkpoints": eng.metrics.checkpoints,
+               "checkpoint_bytes": eng.metrics.checkpoint_bytes}
+        if on:
+            row.update(fsyncs=eng.journal.synced,
+                       fsync_s=eng.journal.sync_s,
+                       by_kind={k: dict(v) for k, v in costs.items()})
+        drains.append(row)
+        syncs.append(ex.host_sync_count)
+        if not on and every == 1:
+            if len(drains) == 1:
+                clean = dict(eng.results)
+            check(bitwise(eng.results, [r[0] for r in reqs]),
+                  "two durability-off drains differ")
+        else:
+            check(bitwise(eng.results, [r[0] for r in reqs]),
+                  f"a drain with durability on differs: {row}")
+    walls = [d["wall_s"] for d in drains]
+    per_kind = {}
+    for kind in ("plan", "adaptive_fused"):
+        rows = [d["by_kind"][kind] for d in drains[1:3]
+                if kind in d["by_kind"]]
+        n = sum(r["snapshots"] for r in rows)
+        check(n > 0, f"no {kind} snapshot in the durable drains")
+        per_kind[kind] = {"snapshots": n,
+                          "bytes_per_snapshot": sum(r["bytes"]
+                                                    for r in rows) / n}
+        for k in ("sync_s", "copy_s", "hash_s", "write_s"):
+            per_kind[kind][k + "_per_snapshot"] = sum(
+                r.get(k, 0.0) for r in rows) / n
+    off1, on1 = (walls[0] + walls[3]) / 2, (walls[1] + walls[2]) / 2
+    row_d = {"requests": 8, "walls_s": walls,
+             "order": "off, on, on, off at checkpoint_every=1; on, off at 4",
+             "drains": drains, "per_kind": per_kind,
+             "overhead_every_1": (on1 - off1) / off1,
+             "overhead_every_4": (walls[4] - walls[5]) / walls[5],
+             "host_sync_count": ex.host_sync_count}
+    check(ex.host_sync_count == 0, f"decision syncs: {syncs}")
+    _free_engine(warm)
+    del warm, eng, ex
+
+    # (a) kill with a static and a fused batch in flight, restore, finish
+    def kill_midflight(sub):
+        ex = executor()
+        eng = engine(ex, sub=sub)
+        submit(eng, reqs[:4])
+        for _ in range(64):
+            if (len(eng._inflight) == 2 and len(eng._snapshots.live()) == 2
+                    and all(not fl.rs.done for fl in eng._inflight)):
+                break
+            eng.step()
+        kinds = sorted(fl.kind for fl in eng._inflight)
+        steps = [int(fl.rs.step) for fl in eng._inflight]
+        check(len(eng._snapshots.live()) == 2,
+              f"{sub}: no snapshot of both batches ({kinds}, {steps})")
+        crash(eng)
+        _free_engine(eng)
+        return kinds, steps
+
+    kinds, steps = kill_midflight("a")
+    mem0 = torch.cuda.memory_allocated()
+    ex = executor()
+    eng = engine(ex, sub="a")
+    summary = eng.recover()
+    _, wall = _timed(eng.run_until_drained)
+    rids = [r[0] for r in reqs[:4]]
+    diff = max(float(np.abs(eng.results[i] - clean[i]).max()) for i in rids)
+    row_a = {"requests": 4, "killed_kinds": kinds, "killed_at_steps": steps,
+             "summary": summary, "drain_s": wall, "max_abs_vs_clean": diff,
+             "lineage": [list(r.lineage) for r in eng.records],
+             "host_sync_count": ex.host_sync_count,
+             "device_bytes_before_restart": mem0}
+    check(summary["restored_runs"] == 2 and summary["replayed"] == 0
+          and not summary["refused"], f"(a) recover: {summary}")
+    check(kinds == ["adaptive_fused", "plan"], f"(a) in flight: {kinds}")
+    check(bitwise(eng.results, rids), f"(a) restored rows differ: {diff}")
+    check(ex.host_sync_count == 0, "(a) decision syncs")
+    _free_engine(eng)
+    del eng, ex
+
+    # (b) one snapshot torn by a flipped body byte, the other's entry
+    # re-registered under a new version
+    kill_midflight("b")
+    sdir = Path(tmp) / "b" / "snapshots"
+    for path in sorted(sdir.iterdir()):
+        if ckpt_io.read_meta(str(path))["kind"] == "plan":
+            raw = bytearray(path.read_bytes())
+            raw[-1] ^= 0xFF
+            path.write_bytes(bytes(raw))
+    dstore = make_store(bump=adaptive)
+    ex = executor()
+    eng = engine(ex, dstore, sub="b")
+    summary = eng.recover()
+    eng.run_until_drained()
+    reasons = {q: dstore.health.quarantine_reason(f"snapshot:{q}")
+               for q, _ in summary["refused"]}
+    row_b = {"summary": summary, "health": reasons,
+             "quarantined_files": sorted(p.name for p in sdir.iterdir()),
+             "max_abs_vs_clean": max(float(np.abs(
+                 eng.results[i] - clean[i]).max()) for i in rids)}
+    check(summary["restored_runs"] == 0 and summary["replayed"] == 4
+          and len(summary["refused"]) == 2, f"(b) recover: {summary}")
+    check(all(reasons[q] == r for q, r in summary["refused"])
+          and any("CheckpointError" in r for r in reasons.values())
+          and any("provenance drift on version" in r
+                  for r in reasons.values()),
+          f"(b) quarantine reasons: {reasons}")
+    check(bitwise(eng.results, rids), "(b) replayed rows differ")
+    _free_engine(eng)
+    del eng, ex
+
+    # (c) the kill ramp: a fresh engine and executor per incarnation
+    incarnations, live = [], {}
+
+    def factory():
+        old = live.pop("eng", None)
+        if old is not None:
+            incarnations[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+            _free_engine(old)
+        torch.cuda.reset_peak_memory_stats()
+        incarnations.append({"start_bytes": torch.cuda.memory_allocated()})
+        live["eng"] = engine(executor(), sub="c")
+        return live["eng"]
+
+    first = factory()
+    submit(first, reqs)
+    crash(first)
+    plan = KillPlan(**DURABLE_KILLS)
+    t0 = time.perf_counter()
+    rep = drain_with_kills(factory, plan)
+    ramp_s = time.perf_counter() - t0
+    incarnations[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    final = rep.engine.report()["durable"]
+    probe = factory()
+    probe.recover()
+    outcomes = {r[0]: probe.outcome(r[0])[0] for r in reqs}
+    starts = [m["start_bytes"] for m in incarnations[:-1]]
+    row_c = {"requests": 8, "plan": DURABLE_KILLS, "restarts": rep.restarts,
+             "kill_ticks": sorted(t for t, hit in plan._memo.items() if hit),
+             "ticks": rep.ticks, "ramp_s": ramp_s,
+             "delivered": len(rep.delivered),
+             "max_abs_vs_clean": max(float(np.abs(
+                 rep.delivered[i] - clean[i]).max()) for i in rep.delivered),
+             "final_durable": final, "probe_outcomes": outcomes,
+             "incarnations": incarnations[:-1]}
+    check(rep.restarts == DURABLE_KILLS["max_kills"],
+          f"(c) {rep.restarts} restarts")
+    check(bitwise(rep.delivered, [r[0] for r in reqs]),
+          f"(c) lost or changed rows: {sorted(rep.delivered)}")
+    check(all(v == "done" for v in outcomes.values()),
+          f"(c) probe outcomes: {outcomes}")
+    check(max(starts) - starts[0] <= 64 << 20,
+          f"(c) device memory grew across restarts: {starts}")
+    _free_engine(probe)
+    del probe, first, rep, live
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(ops.LAUNCHES)
+    emit({"phase": "durable", "costs": row_d, "restore": row_a,
+          "refusals": row_b, "kill_ramp": row_c, "launches": launches,
+          "captured": dict(ops.CAPTURED),
+          "phase_s": time.perf_counter() - t_phase})
+    check(launches["flash_attention"] > 0 and launches["linear"] > 0,
+          f"a kernel never launched in the durable phase: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2264,7 +2563,8 @@ def main():
     continuous_phase(cfg, params_gpu, ops, store)
     slo_phase(cfg, params_gpu, ops, store)
     for name, phase in (("resilience", resilience_phase),
-                        ("telemetry", telemetry_phase)):
+                        ("telemetry", telemetry_phase),
+                        ("durable", durable_phase)):
         launches = phase(cfg, params_gpu, ops, store)
         kernels["flash_attention"][name + "_launches"] = \
             launches["flash_attention"]

@@ -52,6 +52,7 @@ the paper's DiT-XL protocol; the cache covers both halves.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -1033,3 +1034,119 @@ class SmoothCacheExecutor:
                 # mixed telemetry: no honest merged trace exists
                 upd["proxy_trace"] = None
         return dataclasses.replace(r0, **upd)
+
+    # -- run-state snapshot seams (durable serving) ---------------------------
+
+    @property
+    def supports_export(self) -> bool:
+        """Whether run states can cross a process boundary via
+        :meth:`export_run` / :meth:`import_run` — true for all three run
+        kinds of this executor (the durable layer checks the attribute so
+        test fakes opt in explicitly)."""
+        return True
+
+    def export_run(self, rs) -> Tuple[str, Dict, Dict]:
+        """Run state → ``(kind, arrays, static)``, the snapshot seam of
+        the durable serving layer.  ``arrays`` is a tree of the run's
+        tensors, on its device (:mod:`repro_torch.checkpoint.io` copies
+        them to the host); ``static`` is the small JSON-safe
+        position/parameter stamp needed to rebuild the rest.  Derived
+        objects — plan, schedule, pool index, branch table, proxy-map
+        coefficients — are deliberately NOT exported: :meth:`import_run`
+        rebuilds them from the serving entry, and the caller's provenance
+        stamp (entry name/version, schedule fingerprint, plan hash) is
+        what guarantees it rebuilds the *same* ones.  Reading the arrays
+        is a boundary transfer the host was already allowed to make —
+        never a per-step sync, so ``host_sync_count`` stays untouched."""
+        if not isinstance(rs, (RunState, AdaptiveRunState,
+                               FusedAdaptiveRunState)):
+            raise ValueError(
+                f"not an exportable run state: {type(rs).__name__}")
+        arrays = {"x": rs.x, "cache": rs.cache, "label": rs.label,
+                  "healthy": rs.healthy}
+        if isinstance(rs, RunState):
+            return "plan", arrays, {"batch": int(rs.x.shape[0]),
+                                    "run_index": int(rs.run_index)}
+        arrays.update(x_prev=rs.x_prev, acc=rs.acc, lag=rs.lag)
+        static = {"batch": int(rs.x.shape[0]), "step": int(rs.step),
+                  "tau": float(rs.tau), "k_max": int(rs.k_max)}
+        if isinstance(rs, AdaptiveRunState):
+            static["decisions"] = [list(d) for d in rs.decisions]
+            return "adaptive", arrays, static
+        arrays.update(trace=rs.trace, proxy_trace=rs.proxy_trace)
+        return "adaptive_fused", arrays, static
+
+    def import_run(self, params, kind: str, arrays: Dict, static: Dict, *,
+                   plan=None, schedule=None, tau: float = 0.0,
+                   proxy_map=None, pool=None, k_max: int = 3):
+        """``(kind, arrays, static)`` → run state on this executor's
+        device, the inverse of :meth:`export_run`.  The entry-side
+        parameters (``plan`` / ``schedule`` / ``tau`` / ``proxy_map`` /
+        ``pool`` / ``k_max``) come from the serving entry the run launched
+        under; every derived structure is rebuilt exactly as the matching
+        ``start_*`` builds it, and every tensor lands on the device with
+        its saved dtype, so advancing the restored state is bitwise
+        advancing the original (a fused run keeps its ``graph_key``: it
+        replays the graph this executor already holds, or captures one).
+        Disagreements between the snapshot stamp and the entry are refused
+        (``ValueError``), not absorbed — the caller quarantines and
+        replays from the start.  ``params`` is unused (the run states hold
+        no parameter-derived tensors); the seam keeps the JAX package's
+        signature."""
+        del params
+        on_dev = functools.partial(_map_leaves, lambda a: (
+            a.to(self.device) if isinstance(a, torch.Tensor) else a))
+        arrays = {k: on_dev(v) for k, v in arrays.items()}
+        common = dict(x=arrays["x"], cache=arrays["cache"],
+                      label=arrays.get("label"),
+                      healthy=arrays.get("healthy"))
+        if kind == "plan":
+            if plan is None:
+                raise ValueError(
+                    "import_run kind='plan' needs the plan= the run was "
+                    "launched with")
+            run_index = int(static["run_index"])
+            if not 0 <= run_index <= len(plan.runs):
+                raise ValueError(
+                    f"snapshot run_index {run_index} out of range for a "
+                    f"{len(plan.runs)}-segment plan — wrong plan?")
+            return RunState(plan=plan, run_index=run_index, **common)
+        if kind not in ("adaptive", "adaptive_fused"):
+            raise ValueError(f"unknown run kind {kind!r}")
+        # defense in depth: the stamp's decision parameters must equal the
+        # entry's — a drifted τ/k_max would silently change every decision
+        # from the restore point on
+        if float(static.get("tau", tau)) != float(tau) \
+                or int(static.get("k_max", k_max)) != int(k_max):
+            raise ValueError(
+                f"snapshot tau/k_max ({static.get('tau')}/"
+                f"{static.get('k_max')}) disagree with the serving entry "
+                f"({float(tau)}/{int(k_max)})")
+        step = int(static["step"])
+        common.update(x_prev=arrays.get("x_prev"), acc=arrays["acc"],
+                      lag=arrays["lag"], step=step, k_max=int(k_max))
+        if kind == "adaptive":
+            schedule, tau, by_skipset, pool_types, coeff_a, coeff_b = \
+                self._adaptive_setup(schedule, tau, proxy_map, pool, k_max)
+            _check_step(step, schedule)
+            return AdaptiveRunState(
+                decisions=tuple(tuple(d)
+                                for d in static.get("decisions", ())),
+                schedule=schedule, tau=tau, by_skipset=by_skipset,
+                pool_types=pool_types, coeff_a=coeff_a, coeff_b=coeff_b,
+                **common)
+        schedule, tau, table, runtime, skip_table, coeff_a, coeff_b = \
+            self._fused_setup(schedule, tau, proxy_map, pool, k_max)
+        _check_step(step, schedule)
+        return FusedAdaptiveRunState(
+            trace=arrays["trace"], schedule=schedule, tau=tau, table=table,
+            runtime=runtime, skip_table=skip_table, coeff_a=coeff_a,
+            coeff_b=coeff_b, proxy_trace=arrays.get("proxy_trace"),
+            **common)
+
+
+def _check_step(step: int, schedule) -> None:
+    if not 0 <= step <= schedule.num_steps:
+        raise ValueError(
+            f"snapshot step {step} out of range for the schedule's "
+            f"{schedule.num_steps} steps — wrong schedule?")

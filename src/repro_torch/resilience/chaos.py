@@ -318,16 +318,20 @@ class ChaosExecutor:
     # -- snapshot seams (durable serving) ------------------------------------
 
     def export_run(self, rs):
-        """The durable slice's seam: not ported yet."""
-        raise NotImplementedError(
-            "ChaosExecutor.export_run: run-state snapshots are not ported "
-            "yet — ROADMAP.md queue 1, item 8")
+        """Unwrap the proxy and export the real run state.  Chaos
+        bookkeeping (pending :class:`FaultSpec`, poisoned-row marks) is
+        deliberately NOT serialized — a restart is a fresh process and
+        the plan keys on launch serials, which a restore is not."""
+        inner = rs._inner if isinstance(rs, ChaosRun) else rs
+        return self._inner.export_run(inner)
 
     def import_run(self, params, kind, arrays, static, **kw):
-        """The durable slice's seam: not ported yet."""
-        raise NotImplementedError(
-            "ChaosExecutor.import_run: run-state snapshots are not ported "
-            "yet — ROADMAP.md queue 1, item 8")
+        """Import through the wrapped executor, then re-wrap so the
+        engine keeps seeing the proxy type it launched with.  The
+        restored run carries no pending fault (same rationale as
+        :meth:`split_run`)."""
+        rs = self._inner.import_run(params, kind, arrays, static, **kw)
+        return ChaosRun(rs, None, int(static["batch"]), -1)
 
     # -- fault application ---------------------------------------------------
 

@@ -26,6 +26,12 @@ ladders; serving never recalibrates), :class:`ServeEngine`
 :class:`ServerMetrics` (queue wait vs service percentiles, model-call
 variants, realized compute fraction).  The PyTorch port of the JAX
 package's ``repro.serve``.
+
+Crash safety lives one layer down in :mod:`repro_torch.durable`: an
+engine built with ``journal=`` / ``snapshot_dir=`` journals every
+submission before acting on it, snapshots in-flight runs at boundaries,
+and after a restart ``engine.recover()`` restores or replays everything
+that was pending.
 """
 from repro_torch.serve.batcher import (  # noqa: F401
     MicroBatch, MicroBatcher, bucket_for, bucket_sizes)

@@ -67,9 +67,18 @@ delivered request gets a :class:`~repro_torch.obs.CacheReport` in
 ``cache_reports``, built from one read of the traces at the batch's
 finish.
 
-Not ported yet (``ROADMAP.md`` queue 1, item 8): durability —
-``journal=``, ``snapshot_dir=`` and :meth:`ServeEngine.recover` raise
-``NotImplementedError``.
+Durability (``journal=`` a path or a
+:class:`~repro_torch.durable.RequestJournal`, ``snapshot_dir=``): every
+submission is on disk (one fsync per submit burst) before the queue acts
+on it, finishes and sheds are journaled and synced before the engine
+moves on, and every ``checkpoint_every``-th boundary advance of a run
+writes a provenance-stamped snapshot of its state (device→host copy,
+sha256, file write — outside any graph replay, never a decision sync).
+After a crash, :meth:`ServeEngine.recover` on a fresh engine (and a fresh
+executor) answers ``outcome`` for journaled verdicts, restores in-flight
+runs from their newest valid snapshots, quarantines refused ones with a
+reason, and replays the rest from the start — bitwise the uninterrupted
+run either way.
 """
 from __future__ import annotations
 
@@ -79,6 +88,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointError
+from repro_torch.durable import (JournalState, RequestJournal, SnapshotError,
+                                 SnapshotStore)
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, run_cache_reports
 from repro_torch.resilience.faults import NAN_LATENT, STUCK_BATCH, BatchFault
 from repro_torch.serve.batcher import MicroBatch, MicroBatcher, bucket_sizes
@@ -87,7 +99,7 @@ from repro_torch.serve.request import Request, RequestQueue, WallClock
 from repro_torch.serve.store import ArtifactStore
 from repro_torch.slo.admission import LoadEstimator, ServiceCostModel
 from repro_torch.slo.policy import resolve_policy
-from repro_torch.slo.slo import remaining_steps
+from repro_torch.slo.slo import SLO, remaining_steps
 
 #: built-in scheduler names (resolved through repro_torch.slo.resolve_policy)
 SCHEDULERS = ("interleave", "fcfs", "edf")
@@ -181,12 +193,9 @@ class _Inflight:
     #: engine-wide batch serial the track is named after
     track: int = 0
     serial: int = 0
-
-
-def _not_ported(where: str, what: str, item: int):
-    raise NotImplementedError(
-        f"{where}: {what} is not ported yet — ROADMAP.md queue 1, "
-        f"item {item}")
+    #: durability: boundary advances survived so far — the checkpoint
+    #: cadence counter (a snapshot lands every ``checkpoint_every``-th)
+    advances: int = 0
 
 
 class ServeEngine:
@@ -201,10 +210,7 @@ class ServeEngine:
                  registry=None, continuous: bool = False,
                  join_horizon: float = 0.5, admission=None,
                  resilience=None, telemetry: bool = False, journal=None,
-                 snapshot_dir=None):
-        if journal is not None or snapshot_dir is not None:
-            _not_ported("ServeEngine(journal=/snapshot_dir=)",
-                        "durable serving", 8)
+                 snapshot_dir=None, checkpoint_every: int = 1):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if adaptive_chunk < 1:
@@ -284,6 +290,25 @@ class ServeEngine:
         self._requeues: Dict[int, int] = {}   # rid → survivor re-queues
         self._level: Dict[int, int] = {}      # rid → degradation level
         self._origin: Dict[int, str] = {}     # rid → group first submitted
+        #: durability (repro_torch.durable): optional write-ahead journal
+        #: (a path or a RequestJournal) + boundary run-state snapshots;
+        #: ``recover()`` replays both after a restart
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got "
+                             f"{checkpoint_every}")
+        self.checkpoint_every = int(checkpoint_every)
+        self.journal = None
+        if journal is not None:
+            self.journal = (journal if isinstance(journal, RequestJournal)
+                            else RequestJournal(str(journal)))
+        self._snapshots = None
+        if snapshot_dir is not None:
+            if not getattr(executor, "supports_export", False):
+                raise ValueError(
+                    "snapshot_dir= needs an executor with run-state "
+                    "export/import seams (supports_export)")
+            self._snapshots = SnapshotStore(str(snapshot_dir))
+        self._done: set = set()               # journal-known finishes
         self._sweep_needed = (admission is not None
                               or resilience is not None)
 
@@ -299,6 +324,7 @@ class ServeEngine:
         dropped and counted, leaving the original request untouched."""
         now = self.clock.now()
         accepted = []
+        recs = []
         for r in reqs:
             if r.rid in self._rids:
                 self.metrics.observe_reject("duplicate_rid")
@@ -306,11 +332,16 @@ class ServeEngine:
                                     reason="duplicate_rid")
                 continue
             self._rids.add(r.rid)
+            if self.journal is not None:
+                recs.append(self._submit_rec(r, now))
             if r.policy not in self.store:
                 self.shed[r.rid] = ("no_entry", now)
                 self.metrics.observe_shed(r, "no_entry", now)
                 self.metrics.observe_reject("no_entry")
                 self.tracer.instant("reject", rid=r.rid, reason="no_entry")
+                if self.journal is not None:
+                    recs.append({"ev": "shed", "rid": r.rid,
+                                 "reason": "no_entry", "t": now})
                 continue
             accepted.append(r)
             if r.max_tau is not None:
@@ -318,22 +349,58 @@ class ServeEngine:
             if self.tracer.enabled:
                 self.tracer.instant("submit", rid=r.rid, policy=r.policy,
                                     priority=r.priority)
+        if recs:
+            # the write-ahead contract: a submission is on disk (fsynced)
+            # before the queue can act on it — a crash after this line
+            # cannot lose an accepted request
+            self.journal.append_many(recs, sync=True)
         self.queue.submit_many(accepted)
 
     def outcome(self, rid: int):
         """Explicit fate of a submitted request — never silently dropped:
         ``("done", latent)``, ``("shed", reason)``, or ``("pending",
-        None)``."""
+        None)``.  After a restart the *verdict* of a pre-crash finish
+        survives via the journal — ``("done", None)``: the latent itself
+        is not journaled (it was delivered before the crash), but the
+        request is provably not lost."""
         if rid not in self._rids:
             raise KeyError(f"rid {rid} was never submitted")
         if rid in self.results:
             return ("done", self.results[rid])
         if rid in self.shed:
             return ("shed", self.shed[rid][0])
+        if rid in self._done:
+            return ("done", None)
         return ("pending", None)
 
-    def recover(self, *args, **kwargs):
-        _not_ported("ServeEngine.recover()", "restart recovery", 8)
+    # -- durability plumbing --------------------------------------------------
+
+    def _submit_rec(self, r: Request, now: float) -> Dict:
+        """The journaled form of one submission — everything needed to
+        rebuild the Request verbatim after a restart (original arrival
+        included, so re-admission never launders queue wait)."""
+        rec = {"ev": "submit", "rid": r.rid, "seed": int(r.seed),
+               "policy": r.policy,
+               "arrival": float(r.arrival) if r.arrival is not None
+               else float(now)}
+        if r.label is not None:
+            rec["label"] = int(r.label)
+        if r.priority:
+            rec["priority"] = int(r.priority)
+        if r.slo is not None:
+            rec["slo"] = {"deadline": r.slo.deadline,
+                          "max_tau": r.slo.max_tau, "cls": r.slo.cls}
+        return rec
+
+    def _journal(self, ev: str, *, sync: bool = True, **fields) -> None:
+        if self.journal is not None:
+            self.journal.append(ev, sync=sync, **fields)
+
+    def _drop_snapshot(self, fl: "_Inflight") -> None:
+        """The run left flight (finished / faulted / merged away /
+        regrouped / split) — its snapshot no longer describes anything."""
+        if self._snapshots is not None:
+            self._snapshots.drop(fl.serial)
 
     # -- SLO sweep (quality floors + admission) ------------------------------
 
@@ -353,6 +420,7 @@ class ServeEngine:
         self.shed[req.rid] = (reason, now)
         self.metrics.observe_shed(req, reason, now)
         self.tracer.instant("shed", rid=req.rid, reason=reason)
+        self._journal("shed", rid=req.rid, reason=reason, t=float(now))
 
     def _slo_sweep(self, now: float) -> None:
         """Walk the ready queue: shed requests whose quality floor no
@@ -486,6 +554,11 @@ class ServeEngine:
                        serial=serial, row_keyed=row_keyed,
                        chaser_for=chaser_for)
         self._inflight.append(fl)
+        # progress event, not an ack — flushed, not fsynced: losing it in
+        # a crash only re-launches the batch from its submit records
+        self._journal("launch", sync=False, serial=serial, kind=kind,
+                      entry=entry.name, version=entry.version,
+                      bucket=mb.bucket, rids=list(mb.rids), t=float(now))
         return fl
 
     def _advance(self, fl: _Inflight) -> None:
@@ -628,6 +701,10 @@ class ServeEngine:
         if self.tracer.enabled and b.track:
             self.tracer.end(b.track, "run", outcome=f"merged:{tag}",
                             into=a.serial)
+        # b's run state is gone; a's snapshot (if any) is superseded at its
+        # next boundary checkpoint and the rid-vs-pending staleness check
+        # guards the window in between
+        self._drop_snapshot(b)
         merged = _Inflight(
             mb=mb, kind=a.kind, rs=merged_rs, label=self._labels(mb),
             taint=taint, cost_excluded=a.cost_excluded or b.cost_excluded,
@@ -672,6 +749,7 @@ class ServeEngine:
         if self.tracer.enabled and fl.track:
             self.tracer.end(fl.track, "run",
                             outcome=f"regroup:{len(groups)}")
+        self._drop_snapshot(fl)
         idx = self._inflight.index(fl)
         repl = []
         for g, sub in zip(groups, subs):
@@ -763,6 +841,7 @@ class ServeEngine:
         fault path instead of looping forever."""
         mb = fl.mb
         self._unlink(fl)
+        self._drop_snapshot(fl)
         if self.tracer.enabled and fl.track:
             self.tracer.end(fl.track, "run", outcome=f"fault:{kind}")
         if count:
@@ -798,6 +877,8 @@ class ServeEngine:
             self.shed[r.rid] = (f"fault:{kind}", now)
             self.metrics.observe_shed(r, f"fault:{kind}", now)
             self.tracer.instant("shed", rid=r.rid, reason=f"fault:{kind}")
+            self._journal("shed", rid=r.rid, reason=f"fault:{kind}",
+                          t=float(now))
             return
         origin = self._origin.setdefault(r.rid, r.policy)
         if pol.degrade:
@@ -814,16 +895,24 @@ class ServeEngine:
         self.metrics.observe_retry(r)
         self.tracer.instant("retry", rid=r.rid, attempt=att,
                             policy=r.policy)
+        self._journal("retry", sync=False, rid=r.rid, attempt=att,
+                      policy=r.policy, level=self._level.get(r.rid, 0),
+                      t=float(now))
         self.queue.resubmit(r, now + pol.retry.delay(att, r.rid))
 
     def _stall_shed(self, reason: str, now: float) -> None:
         """Degrade-don't-die replacement for the stall guard: every queued
         request gets an explicit shed outcome instead of the engine
         raising out of its serving loop."""
+        recs = []
         for r in self.queue.drain_all():
             self.shed[r.rid] = (reason, now)
             self.metrics.observe_shed(r, reason, now)
             self.tracer.instant("shed", rid=r.rid, reason=reason)
+            recs.append({"ev": "shed", "rid": r.rid, "reason": reason,
+                         "t": float(now)})
+        if recs and self.journal is not None:
+            self.journal.append_many(recs, sync=True)
 
     def _watchdog_deadline(self, steps: int, group: str,
                            bucket: Optional[int] = None) -> float:
@@ -902,6 +991,7 @@ class ServeEngine:
         if self.tracer.enabled and fl.track:
             self.tracer.end(fl.track, "run",
                             outcome=f"split_retry:{len(bad)}")
+        self._drop_snapshot(fl)
         self._inflight.pop(i)
         for g, sub in zip(groups, subs):
             mb = MicroBatch(requests=tuple(fl.mb.requests[j] for j in g),
@@ -957,6 +1047,15 @@ class ServeEngine:
             self.results[r.rid] = x[j]
             self.metrics.observe_request(r)
             delivered.append(r)
+        if delivered and self.journal is not None:
+            # ack event: the finish verdict is on disk before the engine
+            # moves on — outcome(rid) survives the process
+            self.journal.append("finish", sync=True,
+                                rids=[r.rid for r in delivered],
+                                t=float(done))
+        for r in delivered:
+            self._done.add(r.rid)
+        self._drop_snapshot(fl)
         entry = mb.entry
         num_types = len(entry.schedule.skip)
         decisions = rs.decisions
@@ -998,6 +1097,222 @@ class ServeEngine:
                               delivered if flags is not None
                               else mb.requests, done)
 
+    # -- durability: boundary checkpoints + restart recovery ------------------
+
+    def _maybe_checkpoint(self, fl: _Inflight) -> None:
+        """Count a survived boundary advance; every
+        ``checkpoint_every``-th one snapshots the run.  Eager runs have
+        no boundaries (one advance = the whole batch) and finished runs
+        are about to deliver — neither checkpoints."""
+        if self._snapshots is None or fl.kind == "eager" or fl.rs.done:
+            return
+        fl.advances += 1
+        if fl.advances % self.checkpoint_every:
+            return
+        self._checkpoint(fl)
+
+    def _checkpoint(self, fl: _Inflight) -> None:
+        """Snapshot one in-flight run (tensors via the executor's export
+        seam, provenance-stamped meta via the entry).  Degrade, don't
+        die: a failed write is counted and traced, never raised — the
+        batch just loses restore coverage until the next boundary."""
+        now = self.clock.now()
+        entry = fl.mb.entry
+        try:
+            kind, arrays, static = self.executor.export_run(fl.rs)
+            meta = dict(entry.provenance(), kind=kind, serial=fl.serial,
+                        static=static, rids=list(fl.mb.rids),
+                        seeds=[int(s) for s in fl.mb.seeds],
+                        priorities=[int(r.priority)
+                                    for r in fl.mb.requests],
+                        formed_at=float(fl.mb.formed_at),
+                        row_keyed=bool(fl.row_keyed),
+                        lineage=list(fl.lineage), t=float(now))
+            name, nbytes = self._snapshots.save(fl.serial, arrays, meta)
+        except Exception as e:
+            self.metrics.observe_checkpoint_error()
+            self.tracer.instant("checkpoint_error", serial=fl.serial,
+                                error=type(e).__name__)
+            return
+        self.metrics.observe_checkpoint(nbytes)
+        step = static.get("step", static.get("run_index", 0))
+        self._journal("checkpoint", sync=False, serial=fl.serial,
+                      snapshot=name, step=int(step),
+                      rids=list(fl.mb.rids), t=float(now))
+        if self.tracer.enabled:
+            self.tracer.instant("checkpoint", tid=fl.track, snapshot=name,
+                                bytes=int(nbytes))
+
+    def _rebuild_request(self, rec: Dict) -> Request:
+        """Journal submit record → Request, verbatim (original arrival,
+        label, priority, SLO)."""
+        slo = None
+        if rec.get("slo") is not None:
+            s = rec["slo"]
+            slo = SLO(deadline=s.get("deadline"), max_tau=s.get("max_tau"),
+                      cls=s.get("cls", "default"))
+        return Request(rid=rec["rid"], seed=rec["seed"],
+                       policy=rec["policy"], label=rec.get("label"),
+                       priority=int(rec.get("priority", 0)), slo=slo,
+                       arrival=rec.get("arrival"))
+
+    def _refuse_snapshot(self, path: str, reason: str,
+                         summary: Dict) -> None:
+        """A snapshot that cannot be trusted (torn file, checksum
+        mismatch, provenance drift, import failure): quarantined on disk
+        and in the store's health ledger — its requests take the
+        replay-from-start path, which the determinism contract makes
+        bitwise the same anyway."""
+        qname = self._snapshots.quarantine(path)
+        self.store.health.quarantine(f"snapshot:{qname}", reason)
+        summary["refused"].append((qname, reason))
+        self.metrics.observe_snapshot_refused()
+        self.tracer.instant("snapshot_refused", snapshot=qname,
+                            reason=reason)
+
+    def _restore_snapshot(self, path: str, pending: Dict, restored: set,
+                          started: Dict, now: float,
+                          summary: Dict) -> None:
+        try:
+            arrays, meta = self._snapshots.load(path)
+        except (CheckpointError, SnapshotError, OSError, ValueError) as e:
+            self._refuse_snapshot(path, f"{type(e).__name__}: {e}",
+                                  summary)
+            return
+        rids = list(meta.get("rids", ()))
+        if not rids or any(r in restored for r in rids) \
+                or not all(r in pending for r in rids):
+            # superseded, not suspect: its requests already finished /
+            # shed / were restored from a newer snapshot — silent delete
+            self._snapshots.discard(path)
+            summary["stale"] += 1
+            return
+        try:
+            entry = self.store.get(meta.get("entry"))
+        except KeyError:
+            self._refuse_snapshot(
+                path, f"entry {meta.get('entry')!r} no longer in store",
+                summary)
+            return
+        prov = entry.provenance()
+        for k in ("version", "schedule_fp", "plan_hash",
+                  "artifact_checksum", "tau", "k_max"):
+            if meta.get(k) != prov.get(k):
+                self._refuse_snapshot(
+                    path, f"provenance drift on {k}: snapshot "
+                    f"{meta.get(k)!r} vs entry {prov.get(k)!r}", summary)
+                return
+        kind = meta.get("kind")
+        if kind == "plan":
+            kw = {"plan": entry.plan}
+        else:
+            kw = dict(schedule=entry.schedule, tau=entry.tau,
+                      proxy_map=entry.proxy_map, pool=entry.pool(),
+                      k_max=entry.k_max)
+        try:
+            rs = self.executor.import_run(self.params, kind, arrays,
+                                          meta["static"], **kw)
+        except (KeyError, TypeError, ValueError) as e:
+            self._refuse_snapshot(
+                path, f"import failed: {type(e).__name__}: {e}", summary)
+            return
+        reqs = []
+        for r in rids:
+            req = self._rebuild_request(pending[r])
+            req.started = started.get(r, now)
+            reqs.append(req)
+        mb = MicroBatch(requests=tuple(reqs), entry=entry,
+                        formed_at=float(meta.get("formed_at", now)))
+        serial, track = self._begin_track(mb, kind, via="restore")
+        static = meta.get("static", {})
+        at = int(static.get("step", static.get("run_index", 0)))
+        fl = _Inflight(mb=mb, kind=kind, rs=rs, label=self._labels(mb),
+                       row_keyed=bool(meta.get("row_keyed", False)),
+                       lineage=tuple(meta.get("lineage", ()))
+                       + (f"restore@{at}",),
+                       track=track, serial=serial)
+        self._inflight.append(fl)
+        self._snapshots.adopt(serial, path)
+        for r in rids:
+            restored.add(r)
+            pending.pop(r, None)
+        summary["restored_runs"] += 1
+        summary["restored_requests"] += len(rids)
+
+    def recover(self, journal=None, snapshot_dir=None) -> Dict:
+        """Restart recovery: replay the write-ahead journal, restore
+        in-flight batches from their newest valid snapshots, and re-admit
+        everything else at its original arrival.
+
+        * journal verdicts seed ``outcome()`` — finished/shed requests
+          stay finished/shed across the restart (``("done", None)`` for a
+          pre-crash finish: the verdict survives, the delivered payload
+          was the old process's to lose);
+        * snapshots are scanned newest-sequence-first with rid dedup:
+          a valid snapshot whose requests are all still pending restores
+          as a live in-flight batch and continues through the normal
+          ``advance_*`` path; an invalid one (torn, tampered, provenance
+          drift) is quarantined with a reason; a superseded one is
+          deleted;
+        * every pending request not covered by a restored run replays
+          from the start — bitwise the same as never having crashed, by
+          the determinism contract (per-row generators under
+          ``continuous=True``, the batch generator of the same seeds
+          otherwise).
+
+        Pass ``journal``/``snapshot_dir`` to attach durability to an
+        engine constructed without it (the factory pattern of the kill
+        harness); both default to whatever the constructor wired.
+        Returns a JSON-safe summary (the JAX engine's keys) and journals
+        a ``recover`` event."""
+        if journal is not None:
+            self.journal = (journal if isinstance(journal, RequestJournal)
+                            else RequestJournal(str(journal)))
+        if snapshot_dir is not None:
+            self._snapshots = SnapshotStore(str(snapshot_dir))
+        summary: Dict = {"done": 0, "shed": 0, "restored_runs": 0,
+                         "restored_requests": 0, "replayed": 0,
+                         "refused": [], "stale": 0, "journal_skipped": 0}
+        if self.journal is None:
+            return summary
+        st = JournalState.replay(self.journal.path)
+        summary["journal_skipped"] = st.skipped
+        now = self.clock.now()
+        self._rids.update(st.submitted)
+        self._done.update(st.done)
+        self.shed.update(st.shed)
+        self._attempts.update(st.attempts)
+        self._level.update(st.levels)
+        summary["done"] = len(st.done)
+        summary["shed"] = len(st.shed)
+        pending = st.pending()
+        restored: set = set()
+        if self._snapshots is not None:
+            for path in self._snapshots.scan():
+                self._restore_snapshot(path, pending, restored,
+                                       st.started, now, summary)
+        replay = [self._rebuild_request(rec)
+                  for _, rec in sorted(
+                      pending.items(),
+                      key=lambda kv: (kv[1].get("arrival", 0.0),
+                                      str(kv[0])))]
+        if any(r.max_tau is not None for r in replay):
+            self._sweep_needed = True
+        self.queue.submit_many(replay)
+        summary["replayed"] = len(replay)
+        self.metrics.observe_recovery(summary["restored_runs"],
+                                      summary["restored_requests"],
+                                      summary["replayed"],
+                                      summary["stale"])
+        self._journal("recover", sync=True,
+                      restored_runs=summary["restored_runs"],
+                      restored_requests=summary["restored_requests"],
+                      replayed=summary["replayed"],
+                      refused=len(summary["refused"]), t=float(now))
+        self.tracer.instant("recover", **{
+            k: v for k, v in summary.items() if k != "refused"})
+        return summary
+
     def step(self) -> bool:
         """One scheduling tick: sweep SLOs (quality-floor sheds, admission
         shed/defer), admit what fits, then advance the in-flight run the
@@ -1031,6 +1346,12 @@ class ServeEngine:
                 else:
                     self._maybe_regroup(fl)
                 self._coalesce()
+            if fl in self._inflight:
+                # boundary checkpoint: the host just finished an advance
+                # (plan segment / adaptive chunk) — the only place a
+                # snapshot is taken, so the fused path's host_sync_count
+                # stays where it was
+                self._maybe_checkpoint(fl)
             if fl in self._inflight and self.policy.rotate():
                 self._inflight.remove(fl)
                 self._inflight.append(fl)

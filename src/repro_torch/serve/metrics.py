@@ -21,9 +21,8 @@ named registry instruments (counters with labels, histograms with raw
 samples), and the attribute surface — ``metrics.rejects``,
 ``metrics.fault_kinds``, ``metrics.queue_waits`` — is reconstructed from
 the registry on read.  ``report()`` keeps the JAX package's key names for
-every section this package serves, faults and continuous batching
-included; only the durability section is left (``ROADMAP.md`` queue 1,
-item 8).
+every section, faults, continuous batching and durability (checkpoints,
+refused and stale snapshots, recoveries) included.
 """
 from __future__ import annotations
 
@@ -170,6 +169,32 @@ class ServerMetrics:
         retry (rung → τ=0 → no_cache)."""
         self.registry.inc("resilience.degraded")
 
+    # -- durability ----------------------------------------------------------
+
+    def observe_checkpoint(self, nbytes: int) -> None:
+        """One boundary run-state snapshot written."""
+        self.registry.inc("durable.checkpoints")
+        self.registry.inc("durable.checkpoint_bytes", int(nbytes))
+
+    def observe_checkpoint_error(self) -> None:
+        """A checkpoint attempt failed and was swallowed (degrade, don't
+        die: serving continues, the batch just loses restore coverage)."""
+        self.registry.inc("durable.checkpoint_errors")
+
+    def observe_snapshot_refused(self) -> None:
+        """Recovery refused a snapshot (torn / tampered / provenance
+        drift) and quarantined it — its requests replay from the start."""
+        self.registry.inc("durable.snapshots_refused")
+
+    def observe_recovery(self, restored_runs: int, restored_requests: int,
+                         replayed: int, stale: int) -> None:
+        reg = self.registry
+        reg.inc("durable.recoveries")
+        reg.inc("durable.restored_runs", int(restored_runs))
+        reg.inc("durable.restored_requests", int(restored_requests))
+        reg.inc("durable.replayed_requests", int(replayed))
+        reg.inc("durable.snapshots_stale", int(stale))
+
     # -- continuous batching -------------------------------------------------
 
     def observe_join(self, n: int = 1) -> None:
@@ -296,6 +321,38 @@ class ServerMetrics:
         return int(self.registry.counter("resilience.degraded"))
 
     @property
+    def checkpoints(self) -> int:
+        return int(self.registry.counter("durable.checkpoints"))
+
+    @property
+    def checkpoint_bytes(self) -> int:
+        return int(self.registry.counter("durable.checkpoint_bytes"))
+
+    @property
+    def checkpoint_errors(self) -> int:
+        return int(self.registry.counter("durable.checkpoint_errors"))
+
+    @property
+    def snapshots_refused(self) -> int:
+        return int(self.registry.counter("durable.snapshots_refused"))
+
+    @property
+    def recoveries(self) -> int:
+        return int(self.registry.counter("durable.recoveries"))
+
+    @property
+    def restored_runs(self) -> int:
+        return int(self.registry.counter("durable.restored_runs"))
+
+    @property
+    def restored_requests(self) -> int:
+        return int(self.registry.counter("durable.restored_requests"))
+
+    @property
+    def replayed_requests(self) -> int:
+        return int(self.registry.counter("durable.replayed_requests"))
+
+    @property
     def joins(self) -> int:
         return int(self.registry.counter("continuous.joins"))
 
@@ -383,6 +440,18 @@ class ServerMetrics:
             "row_retries": self.row_retries,
             "lineage_events": dict(sorted(self.lineage_events.items())),
             "joined_queue_wait_s": _dist(self.joined_queue_waits),
+        }
+        out["durable"] = {
+            "checkpoints": self.checkpoints,
+            "checkpoint_bytes": self.checkpoint_bytes,
+            "checkpoint_errors": self.checkpoint_errors,
+            "snapshots_refused": self.snapshots_refused,
+            "recoveries": self.recoveries,
+            "restored_runs": self.restored_runs,
+            "restored_requests": self.restored_requests,
+            "replayed_requests": self.replayed_requests,
+            "snapshots_stale": int(
+                self.registry.counter("durable.snapshots_stale")),
         }
         out["realized_tau"] = {f"{t:g}": c for t, c in
                                sorted(self.tau_counts.items())}

@@ -20,6 +20,7 @@ serving side of that contract:
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -31,7 +32,9 @@ from repro_torch.core import calibration as calibration_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.schedule import Schedule
 from repro_torch.obs import NULL_TRACER
-from repro_torch.resilience.integrity import HealthRegistry
+from repro_torch.durable.snapshot import plan_hash
+from repro_torch.resilience.integrity import (CHECKSUM_KEY, HealthRegistry,
+                                              payload_checksum)
 
 #: reserved entry-name prefix for store-materialized degradation targets
 #: (fault-retry rungs) — not client-addressable policies
@@ -60,6 +63,9 @@ class ServableEntry:
     #: memoized candidate pool (adaptive entries) — derived once per
     #: entry, not per launched batch
     _pool: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    #: memoized provenance stamp (durable snapshots) — see provenance()
+    _provenance: Optional[dict] = dataclasses.field(default=None,
+                                                    repr=False)
 
     @property
     def adaptive(self) -> bool:
@@ -108,6 +114,34 @@ class ServableEntry:
         batcher snapshots the current entry atomically when it forms a
         batch, so one micro-batch always serves exactly one version.)"""
         return f"{self.schedule.fingerprint()}/v{self.version}"
+
+    def provenance(self) -> dict:
+        """JSON-safe identity stamp of everything a restored run's bits
+        depend on: entry name + version, schedule fingerprint, execution
+        plan hash, adaptive decision parameters, and the artifact's
+        content checksum — the JAX package's stamp, field for field.
+        Durable snapshots embed it at checkpoint time; recovery refuses
+        any snapshot whose stamp disagrees with the entry now in the
+        store — an entry that hot-reloaded across the restart must replay
+        from the start, not continue on drifted parameters.  Memoized:
+        entries are immutable once registered (reload builds a new
+        entry)."""
+        if self._provenance is None:
+            art_ck = None
+            if self.artifact is not None:
+                payload = json.loads(self.artifact.to_json())
+                art_ck = payload.get(CHECKSUM_KEY) \
+                    or payload_checksum(payload)
+            self._provenance = {
+                "entry": self.name,
+                "version": int(self.version),
+                "schedule_fp": self.schedule.fingerprint(),
+                "plan_hash": plan_hash(self.plan),
+                "tau": float(self.tau),
+                "k_max": int(self.k_max) if self.adaptive else None,
+                "artifact_checksum": art_ck,
+            }
+        return dict(self._provenance)
 
     def compute_fraction(self) -> float:
         """Static compute fraction of the entry's schedule (adaptive runs

@@ -3,7 +3,9 @@ fault path) against the JAX package's ``repro.resilience``.
 
 * Pure policy and harness parity: ``RetryPolicy.delay`` float for float,
   every validation error, ``FaultPlan.for_batch`` over serials 0–200,
-  ``ChaosClock``'s taxed advances, the store's degradation ladder.
+  ``ChaosClock``'s taxed advances, the store's degradation ladder, the
+  ``ChaosExecutor`` snapshot seams (on ``tests/test_durable.py``'s
+  export-capable fake: imported, keep it importable).
 * Engine parity: the chaos ramp of ``tests/test_resilience.py`` (24
   requests, three seeds) through the JAX engine and the port's over the
   JAX package's fakes — the plain fakes of ``tests/test_serve.py``, and
@@ -30,6 +32,7 @@ import pytest
 import torch
 
 import test_continuous as jc                 # the JAX engine's split fakes
+import test_durable as jd                    # the JAX snapshot-seam fake
 import test_serve as jt                      # the JAX engine's fakes
 from _torch_helpers import smoke_cfgs, smoke_params
 from repro import resilience as jres, serve as jserve
@@ -412,12 +415,32 @@ def test_rung_for_cap_boundaries():
         [1, 1, 2, None]
 
 
-def test_export_and_import_run_wait_for_the_durable_slice():
-    ex = ChaosExecutor(FakeExecutor(serve.VirtualClock()), FaultPlan())
-    for call in (lambda: ex.export_run(None),
-                 lambda: ex.import_run(None, "plan", {}, {"batch": 1})):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+def test_chaos_seams_round_trip_a_run():
+    """``export_run`` unwraps the proxy; ``import_run`` re-wraps the
+    restored run with no pending fault — as the JAX package's seams do,
+    on ``tests/test_durable.py``'s export-capable fake."""
+    from repro.resilience import chaos as jchaos
+    from repro_torch.resilience.chaos import ChaosRun
+    store = make_store(8, static2="static:n=2")
+    entry = store.get("static2")
+    out = []
+    for mod, run_cls in ((tres, ChaosRun), (jres, jchaos.ChaosRun)):
+        ex = mod.ChaosExecutor(
+            jd.DurableFakeExecutor(serve.VirtualClock()),
+            mod.FaultPlan(faults={0: mod.FaultSpec(faults.INJECTED,
+                                                   chunk=3)}))
+        rs = ex.start_run(None, None, 2, plan=entry.plan)
+        assert isinstance(rs, run_cls) and rs._spec is not None
+        rs = ex.advance_run(None, rs)
+        kind, arrays, static = ex.export_run(rs)
+        assert (kind, arrays, static) == ex.export_run(rs._inner)
+        back = ex.import_run(None, kind, arrays, static, plan=entry.plan)
+        assert isinstance(back, run_cls) and back._spec is None
+        assert back._batch == 2 and back.run_index == rs.run_index
+        while not back.done:                   # no fault left to strike
+            back = ex.advance_run(None, back)
+        out.append((kind, static, ex.injected))
+    assert out[0] == out[1] == ("plan", {"batch": 2, "run_index": 1}, {})
 
 
 def test_chaos_proxy_unwraps_the_fused_step():

@@ -13,23 +13,27 @@ package's ``repro.serve``.
   drains within the program budget (adaptive entries through the fused
   path, with no decision sync), and every served latent equals a
   ``DiffusionPipeline.generate`` replay of its batch, bitwise.
-* Arguments of features not ported yet (durability) raise
-  ``NotImplementedError``; an admission controller, a resilience policy
-  and telemetry are accepted; a traced drain exports a valid Chrome
-  trace.
+* An admission controller, a resilience policy, telemetry and the
+  durability arguments (``journal=``, ``snapshot_dir=``) are accepted and
+  serve the plain engine's records; ``recover()`` without a journal
+  returns the JAX engine's empty summary; a traced drain exports a valid
+  Chrome trace.
 """
 import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import test_durable as jd                    # the JAX snapshot seam
 import test_serve as jt                      # the JAX engine's fakes
 from _torch_helpers import _numpy_params, smoke_cfgs, smoke_params
 from repro import serve as jserve, slo as jslo
 from repro_torch import serve, slo
 from repro_torch.cache import registry
 from repro_torch.cache.artifact import CacheArtifact
+from repro_torch.durable import JournalState
 from repro_torch.obs import Tracer, validate_chrome_trace
 from repro_torch.resilience import ResiliencePolicy, faults
 from repro_torch.serve.batcher import bucket_for, bucket_sizes
@@ -586,14 +590,41 @@ def test_engine_matches_reference_on_one_trace(scheduler, kw):
 
 
 # ---------------------------------------------------------------------------
-# Features not ported yet; tracing
+# Durability, resilience and telemetry arguments; tracing
 # ---------------------------------------------------------------------------
 
+class ExportFakeExecutor(jd.DurableFakeExecutor):
+    """``tests/test_durable.py``'s fake with the snapshot seam, on the
+    CPU device."""
+    device = torch.device("cpu")
+
+
 @pytest.mark.parametrize("kw", [
-    dict(journal="journal.jsonl"), dict(snapshot_dir="snaps")])
-def test_unported_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        make_engine(**kw)
+    dict(journal="journal.jsonl"),
+    dict(journal="journal.jsonl", snapshot_dir="snaps")])
+def test_durable_arguments_serve_like_a_plain_engine(kw, tmp_path):
+    """An engine with a journal (and snapshots) serves a drain with the
+    same records as a plain engine, journals every submission and finish,
+    and leaves no snapshot behind."""
+    kw = {k: str(tmp_path / v) for k, v in kw.items()}
+    clock = serve.VirtualClock()
+    eng = serve.ServeEngine(
+        ExportFakeExecutor(clock), None,
+        make_store(8, no_cache="none", static2="static:n=2"), clock=clock,
+        max_batch=4, **kw)
+    eng.submit(*[req(i, "static2") for i in range(3)])
+    assert sorted(eng.run_until_drained()) == [0, 1, 2]
+    plain, _ = make_engine()
+    plain.submit(*[req(i, "static2") for i in range(3)])
+    plain.run_until_drained()
+    assert [(r.group, r.rids, r.finished_at) for r in eng.records] \
+        == [(r.group, r.rids, r.finished_at) for r in plain.records]
+    st = JournalState.replay(kw["journal"])
+    assert sorted(st.submitted) == sorted(st.done) == [0, 1, 2]
+    if "snapshot_dir" in kw:
+        assert eng.metrics.checkpoints > 0
+        assert eng.metrics.checkpoint_errors == 0
+        assert os.listdir(kw["snapshot_dir"]) == []
 
 
 @pytest.mark.parametrize("kw", [
@@ -631,10 +662,13 @@ def test_admission_controller_accepted():
     assert eng.report()["deferrals"] == eng.metrics.deferrals
 
 
-def test_recover_raises():
+def test_recover_without_a_journal_returns_the_empty_summary():
     eng, _ = make_engine()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.recover()
+    jeng = jt.make_engine()[0]
+    assert eng.recover() == jeng.recover() == {
+        "done": 0, "shed": 0, "restored_runs": 0, "restored_requests": 0,
+        "replayed": 0, "refused": [], "stale": 0, "journal_skipped": 0}
+    assert eng.report()["durable"] == jeng.report()["durable"]
 
 
 def test_traced_drain_exports_a_valid_chrome_trace(tmp_path):
