@@ -131,11 +131,27 @@ exits non-zero:
    executor bitwise the uninterrupted rows; a torn and a drifted snapshot
    quarantined with reasons and replayed bitwise; a seeded kill ramp
    (``KillPlan(seed=0, kill_rate=0.3, max_kills=4)``) losing nothing,
-   every row bitwise, device memory at each restart not growing.
+   every row bitwise, device memory at each restart not growing;
+17. the video slice (``video``, ~90 s, last, on weights of its own after
+   the DiT and LM weights are freed): OpenSora-v1.2 at full width (56
+   blocks, 16 × 256 tokens, a 300-token text memory stub, rectified flow
+   30, CFG 7.0).  The attention kernel at the spatial, temporal and cross
+   shapes (and temporal at 8 requests, 65536 blocks) against its plain
+   version, bitwise twice, with its time beside its bound and SDPA's;
+   every product shape against cuBLAS with times; a card forward against
+   a CPU forward at 2 block pairs (≤ 1e-4); calibration on 2 samples
+   (k_max 3), the artifact saved and loaded strictly, 1 request under
+   ``no_cache``, ``smoothcache:alpha=0.1`` and ``static:n=2`` — finite,
+   attention launches = 28 per computed ``s_attn`` / ``t_attn`` /
+   ``s_xattn`` / ``t_xattn`` per step, linear launches = 5 + Σ over the
+   56 blocks of (1 + 4 per computed attention or cross branch + 2 per
+   computed MLP) per step, segmented ≡ eager bitwise; one fused adaptive
+   batch ≡ the host loop bitwise with no decision sync; a traced B = 2
+   forward (``video_profile``).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
-The weights are random (seeded); depth and widths are DiT-XL/2's and
-Mamba-2-1.3B's.
+The weights are random (seeded); depth and widths are DiT-XL/2's,
+Mamba-2-1.3B's and OpenSora-v1.2's.
 """
 import gc
 import json
@@ -347,31 +363,74 @@ def sass_phase(libs):
     return out
 
 
-def dit_gemms(cfg, batch):
-    """Every product of one DiT forward over ``batch`` rows (CFG-doubled
+def gemms(cfg, batch, mem_len=0):
+    """Every product of one forward over ``batch`` rows (CFG-doubled
     requests) as ``(M, K, N, bias, calls, rows)``: the patch embedding,
-    the time MLP, per block the adaLN modulation, q/k/v/o and the MLP, the
-    final modulation and the output projection; ``rows`` is the linear
-    kernel's variant (``"requests"``: one row per request)."""
+    the time MLP, per block the adaLN modulation, self-attention q/k/v/o,
+    cross-attention q/o over the tokens and k/v over a ``mem_len``-token
+    memory where the block has ``cross``, the MLP, the final modulation
+    and the output projection; ``rows`` is the linear kernel's variant
+    (``"requests"``: one row per request)."""
     from repro_torch.core.diffusion import TIME_EMB_DIM, token_shape
     d, ff = cfg.d_model, cfg.stages[0].unit[0].ffn.d_ff
-    n_tok, tok_dim = token_shape(cfg)
+    n_tok, tok_dim, _ = token_shape(cfg)
     rows, toks, blocks = batch, batch * n_tok, cfg.num_layers
+    cross = sum(b.cross is not None for _, _, _, b in cfg.blocks())
     t, r = "tokens", "requests"
+    memory = ([(batch * mem_len, cfg.cond_dim, d, False, 2 * cross, t)]
+              if cross else [])
     return [(toks, tok_dim, d, True, 1, t),
             (rows, TIME_EMB_DIM, d, True, 1, r), (rows, d, d, True, 1, r),
             (rows, d, 6 * d, True, blocks, r),
-            (toks, d, d, False, 4 * blocks, t),
+            (toks, d, d, False, 4 * blocks + 2 * cross, t), *memory,
             (toks, d, ff, False, blocks, t), (toks, ff, d, False, blocks, t),
             (rows, d, 2 * d, True, 1, r), (toks, d, tok_dim, True, 1, t)]
 
 
 def linear_calls(cfg, computed):
     """``ops.linear`` calls of one forward whose branches of the types in
-    ``computed`` run: 5 outside the blocks, per block the modulation, 4
-    attention projections, 2 MLP products."""
-    per_block = 1 + sum(4 if "attn" in t else 2 for t in computed)
-    return 5 + cfg.num_layers * per_block
+    ``computed`` run: 5 outside the blocks, per block its modulation, 4
+    per computed self- or cross-attention branch, 2 per computed MLP."""
+    return 5 + sum(1 + sum(4 if t.endswith("attn") else 2
+                           for t in b.branch_types() if t in computed)
+                   for _, _, _, b in cfg.blocks())
+
+
+def attn_calls(cfg, computed):
+    """Attention kernel calls of one forward: one per block and computed
+    self- or cross-attention branch."""
+    return sum(t.endswith("attn") for _, _, _, b in cfg.blocks()
+               for t in b.branch_types() if t in computed)
+
+
+def product_times(gemm, ref, peaks, x, w, b, rows):
+    """One product x (M, K) @ w (K, N) (+ b) through its linear kernel
+    variant: device ms (batched and one call alone), the plain version's
+    and cuBLAS's (``addmm`` / ``mm``) ms, and its bound — 3xTF32 on the
+    tensor cores for token rows, f32 FMAs outside them for request rows,
+    against its bytes."""
+    from repro_torch.kernels.timing import device_ms, per_call_ms
+    (m, k), n = x.shape, w.shape[1]
+    bias = b is not None
+    lib = ((lambda: torch.addmm(b, x, w)) if bias
+           else (lambda: torch.mm(x, w)))
+    flops = 2 * m * k * n
+    nbytes = 4 * (m * k + k * n + m * n + (n if bias else 0))
+    t_ops = (3 * flops / peaks["tf32"] if rows == "tokens"
+             else flops / peaks["fp32"]) * 1e3
+    t_bytes = nbytes / peaks["hbm"] * 1e3
+    row = {"m": m, "k": k, "n": n, "bias": bias, "rows": rows,
+           "plan": gemm.launch_plan(m, k, n, rows),
+           "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows)),
+           "per_call_ms": per_call_ms(
+               lambda: gemm.linear_cuda(x, w, b, rows=rows)),
+           "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b)),
+           "library_ms": device_ms(lib),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    row["tflops"] = flops / row["ms"] / 1e9
+    return row
 
 
 def gemm_kernel_phase(gemm, ref, peaks, cfg):
@@ -383,7 +442,6 @@ def gemm_kernel_phase(gemm, ref, peaks, cfg):
     against an eager one in both, and a capture that finds no prepared
     weight raising; device times of one B = 8 forward's products beside
     their bound and cuBLAS's ``addmm`` / ``mm``, summed per variant."""
-    from repro_torch.kernels.timing import device_ms, per_call_ms
     gen = torch.Generator().manual_seed(SEED + 11)
 
     def inputs(m, k, n):
@@ -392,7 +450,7 @@ def gemm_kernel_phase(gemm, ref, peaks, cfg):
         return x, w, torch.randn(n, generator=gen).cuda()
 
     shapes = sorted({(k, n, rows)
-                     for _, k, n, _, _, rows in dit_gemms(cfg, 2)})
+                     for _, k, n, _, _, rows in gemms(cfg, 2)})
     sweep, worst, worst_abs = [], 0.0, 0.0
     for k, n, rows in shapes:
         for bucket in (1, 2, 4, 8):
@@ -469,35 +527,17 @@ def gemm_kernel_phase(gemm, ref, peaks, cfg):
                         "bytes": 0}
     variants = {rows: {**{key: 0.0 for key in keys}, "calls": 0}
                 for rows in gemm.ROWS}
-    for m, k, n, bias, calls, rows in dit_gemms(cfg, 8):
+    for m, k, n, bias, calls, rows in gemms(cfg, 8):
         x, w, b = inputs(m, k, n)
-        b = b if bias else None
-        lib = ((lambda: torch.addmm(b, x, w)) if bias
-               else (lambda: torch.mm(x, w)))
-        flops = 2 * m * k * n
-        nbytes = 4 * (m * k + k * n + m * n + (n if bias else 0))
-        # 3xTF32 on the tensor cores for the token rows, f32 FMAs outside
-        # them for the request rows
-        t_ops = (3 * flops / peaks["tf32"] if rows == "tokens"
-                 else flops / peaks["fp32"]) * 1e3
-        t_bytes = nbytes / peaks["hbm"] * 1e3
-        row = {"m": m, "k": k, "n": n, "bias": bias, "calls": calls,
-               "plan": gemm.launch_plan(m, k, n, rows),
-               "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows)),
-               "per_call_ms": per_call_ms(
-                   lambda: gemm.linear_cuda(x, w, b, rows=rows)),
-               "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b)),
-               "library_ms": device_ms(lib),
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        row["tflops"] = flops / row["ms"] / 1e9
+        row = {**product_times(gemm, ref, peaks, x, w, b if bias else None,
+                               rows), "calls": calls}
         timed.append(row)
         for key in keys:
             total[key] += calls * row[key]
             variants[rows][key] += calls * row[key]
         variants[rows]["calls"] += calls
-        total["flops"] += calls * flops
-        total["bytes"] += calls * nbytes
+        total["flops"] += calls * row["flops"]
+        total["bytes"] += calls * row["bytes"]
         gemm.release()
     emit({"phase": "gemm_times", "batch": 8, "shapes": timed,
           "forward": total, "variants": variants})
@@ -568,7 +608,7 @@ def attention_path(cfg, diffusion, fa, params):
 def slice_phase(cfg, params, ops):
     from repro_torch.cache import DiffusionPipeline
     from repro_torch.core import solvers
-    n_attn = cfg.num_layers
+    n_attn = attn_calls(cfg, ("attn",))
     calib_labels = torch.tensor([(97 * i) % cfg.num_classes
                                  for i in range(10)], device="cuda")
     pipe = DiffusionPipeline(cfg, solvers.ddim(50), "smoothcache:alpha=0.18",
@@ -967,9 +1007,9 @@ def dit_profile_phase(cfg, diffusion, params, ops):
                    for k, (us, n) in top]}
     emit(row)
     check(busy > 0, "the profiler saw no device time")
-    check(row["attn_calls"] == cfg.num_layers,
+    check(row["attn_calls"] == attn_calls(cfg, cfg.layer_types()),
           f"{row['attn_calls']} attention kernels in one forward, expected "
-          f"{cfg.num_layers}")
+          f"{attn_calls(cfg, cfg.layer_types())}")
     want = linear_calls(cfg, cfg.layer_types())
     check(row["gemm_calls"] == want and all(linear.values())
           and not library,
@@ -1127,6 +1167,7 @@ def serve_phase(cfg, params, ops, smooth_art):
     from repro_torch.core.executor import SmoothCacheExecutor
     from repro_torch.serve.metrics import percentile
     t_phase = time.perf_counter()
+    per_step = attn_calls(cfg, ("attn",))       # launches per attention step
     store, replay = serve_store(cfg, params, smooth_art)
     executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
     _reset_counts(ops)
@@ -1166,9 +1207,8 @@ def serve_phase(cfg, params, ops, smooth_art):
             # the calls counted are each new graph's eager warm-up of every
             # branch and its capture, one per attention-computing branch
             mine_graphs = [g for g in graphs if g["runtime"]]
-            expect = cfg.num_layers * sum(attn_branches(g)
-                                          for g in mine_graphs)
-            row.update(replayed_launches=cfg.num_layers * steps,
+            expect = per_step * sum(attn_branches(g) for g in mine_graphs)
+            row.update(replayed_launches=per_step * steps,
                        graphs=len(mine_graphs),
                        capture_s=[g["capture_s"] for g in mine_graphs])
             emit(row)
@@ -1180,10 +1220,10 @@ def serve_phase(cfg, params, ops, smooth_art):
                   "fused path")
         else:
             emit(row)
-            check(row["launches"] == cfg.num_layers * steps
+            check(row["launches"] == per_step * steps
                   and row["captured"] == 0,
                   f"{name}: {row['launches']} attention launches, expected "
-                  f"{cfg.num_layers} x {steps}")
+                  f"{per_step} x {steps}")
         if entry.adaptive:
             age = {t: 0 for t in cfg.layer_types()}
             for rec in recs:
@@ -1287,9 +1327,9 @@ def serve_phase(cfg, params, ops, smooth_art):
           f"{rep['compiles']['model_variants']} model variants over the "
           f"budget {rep['program_budget']}")
     check(busy > 0, "the profiler saw no device time in the serve drain")
-    check(attn_kernels == cfg.num_layers * traced_steps,
+    check(attn_kernels == per_step * traced_steps,
           f"{attn_kernels} attention kernels in the traced drain, expected "
-          f"{cfg.num_layers} x {traced_steps} attention steps")
+          f"{per_step} x {traced_steps} attention steps")
     return attn_kernels, launches["flash_attention"], store
 
 
@@ -1320,6 +1360,7 @@ def fused_phase(cfg, params, ops, store):
     from repro_torch.core import solvers
     from repro_torch.core.executor import SmoothCacheExecutor
     t_phase = time.perf_counter()
+    per_step = attn_calls(cfg, ("attn",))       # launches per attention step
     entry = store.get(SERVE_ADAPTIVE)
     executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
     labels = torch.tensor(REQUEST_LABELS, device="cuda")
@@ -1342,10 +1383,10 @@ def fused_phase(cfg, params, ops, store):
     warm = ops.LAUNCHES["flash_attention"]
     mem1 = torch.cuda.memory_allocated()
     peak1 = torch.cuda.max_memory_allocated()
-    expect = cfg.num_layers * attn_branches(step.stats)
+    expect = per_step * attn_branches(step.stats)
     check(captured == expect and warm == expect,
           f"{warm} warm-up and {captured} captured attention calls, "
-          f"expected {cfg.num_layers} x {attn_branches(step.stats)} "
+          f"expected {per_step} x {attn_branches(step.stats)} "
           "branches each")
     # one model call per branch, its products through the linear kernel
     expect_linear = sum(
@@ -1515,9 +1556,9 @@ def fused_phase(cfg, params, ops, store):
         "captured_launches_per_graph": captured,
         "phase_s": time.perf_counter() - t_phase})
     emit(row)
-    check(attn_kernels == cfg.num_layers * attn_steps,
+    check(attn_kernels == per_step * attn_steps,
           f"{attn_kernels} attention kernels replayed in the traced fused "
-          f"batch, expected {cfg.num_layers} x {attn_steps} attention steps")
+          f"batch, expected {per_step} x {attn_steps} attention steps")
     return row
 
 
@@ -2480,6 +2521,381 @@ def durable_phase(cfg, params, ops, store):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The video slice: OpenSora-v1.2 at full width
+# ---------------------------------------------------------------------------
+
+VIDEO_STEPS, VIDEO_CFG, VIDEO_MEM = 30, 7.0, 300     # Open-Sora v1.2's own
+VIDEO_SMOOTH = "smoothcache:alpha=0.1"
+VIDEO_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.1),tau=0.3"
+
+
+def _attn_bound(peaks, b, lq, lk, h, d):
+    """(bound ms, bound by, flops, bytes) of f32 attention over these
+    shapes: 3xTF32 operations against q/k/v/o bytes."""
+    flops = 4 * b * h * lq * lk * d
+    nbytes = 4 * b * h * d * (2 * lq + 2 * lk)
+    t_ops = 3 * flops / peaks["tf32"] * 1e3
+    t_bytes = nbytes / peaks["hbm"] * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def video_kernel_phase(fa, ref, gemm, peaks, cfg):
+    """The attention kernel at the video path's shapes for one request
+    under CFG (B = 2) — spatial (32, 256), temporal (512, 16), cross
+    (2, 4096) over a 300-token memory (ragged against the 32-key tile) —
+    and temporal at 8 requests (B·S·H = 65536 blocks, past the old grid
+    limit): against the plain version (≤ 5e-5), two launches bitwise,
+    device ms beside the bound and SDPA's; a ragged-key sweep; then every
+    product shape of one B = 2 forward against cuBLAS f32 (≤ 5e-5 of the
+    output's scale) with its device ms, bound and cuBLAS's ms."""
+    import torch.nn.functional as F
+    from repro_torch.core.diffusion import token_shape
+    from repro_torch.kernels.timing import device_ms
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 40)
+    h, d = 16, 72
+    n_tok, _, (frames, space) = token_shape(cfg)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    sweep = []
+    for lq, lk in ((64, 1), (64, 33), (100, 300), (16, 300), (256, 77)):
+        q, k, v = rand(2, lq, 4, 72), rand(2, lk, 4, 72), rand(2, lk, 4, 72)
+        out = fa.flash_attention_cuda(q, k, v, causal=False)
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        sweep.append({"lq": lq, "lk": lk, "max_abs_err": err})
+        check(bool(torch.allclose(out, want, atol=5e-5, rtol=5e-5)),
+              f"ragged-key attention vs plain {sweep[-1]}")
+    emit({"phase": "video_attention_sweep", "cases": sweep})
+
+    shapes = {"spatial": (2 * frames, space, space),
+              "temporal": (2 * space, frames, frames),
+              "cross": (2, n_tok, VIDEO_MEM),
+              "temporal_8req": (16 * space, frames, frames)}
+    attn = {}
+    for name, (b, lq, lk) in shapes.items():
+        q, k, v = rand(b, lq, h, d), rand(b, lk, h, d), rand(b, lk, h, d)
+        out = fa.flash_attention_cuda(q, k, v, causal=False)
+        again = fa.flash_attention_cuda(q, k, v, causal=False)
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        check(bool(torch.allclose(out, want, atol=5e-5, rtol=5e-5)),
+              f"{name} attention vs plain: max abs err {err}")
+        check(bool(torch.equal(out, again)),
+              f"two launches at the {name} shape differ")
+        bound, by, flops, nbytes = _attn_bound(peaks, b, lq, lk, h, d)
+        row = {"shape": [b, lq, lk, h, d], "blocks": b * h * -(-lq // 64),
+               "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+               "flops": flops, "bytes": nbytes}
+        if name != "temporal_8req":
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            row.update(
+                ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                             causal=False)),
+                plain_ms=device_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=False), iters=10),
+                library_ms=device_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+            row["bound_share"] = bound / row["ms"]
+        attn[name] = row
+        del q, k, v, out, again, want
+    emit({"phase": "video_attention", "shapes": attn})
+
+    products, worst = [], 0.0
+    for m, k, n, bias, calls, rows in gemms(cfg, 2, VIDEO_MEM):
+        x = rand(m, k)
+        w = rand(k, n) / k ** 0.5
+        b = rand(n) if bias else None
+        out = gemm.linear_cuda(x, w, b, rows=rows)
+        want = ref.linear_ref(x, w, b)
+        torch.cuda.synchronize()
+        rel = float((out - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        check(rel <= 5e-5, f"video product ({m}, {k}, {n}) {rows}: "
+              f"relative error {rel}")
+        products.append({**product_times(gemm, ref, peaks, x, w, b, rows),
+                         "calls": calls, "rel_max_err": rel})
+        gemm.release()
+    summary = {"products": products, "max_rel_err": worst,
+               **{f"forward_{key}": sum(p[key] * p["calls"]
+                                        for p in products)
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    emit({"phase": "video_products", "batch": 2, **summary,
+          "seconds": time.perf_counter() - t_phase})
+    return attn, summary
+
+
+def video_cross_check_phase(cfg, diffusion, gemm, random_params):
+    """Card forward against CPU forward at full width and the full 16 × 256
+    tokens plus a 300-token memory, depth cut to 2 block pairs, one request
+    under CFG (B = 2, the second half with a zero memory)."""
+    from repro_torch.config import Stage
+    from repro_torch.data import synthetic
+    from repro_torch.models.transformer import tree_map
+    cut = cfg.replace(stages=(Stage(unit=cfg.stages[0].unit, repeat=2),))
+    p_cpu = random_params(torch.Generator().manual_seed(SEED + 41), cut,
+                          device="cpu")
+    p_gpu = tree_map(lambda a: a.cuda(), p_cpu)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    x = torch.randn((1,) + cut.latent_shape, generator=gen).repeat(2, 1, 1,
+                                                                   1, 1)
+    mem = synthetic.text_memory(gen, 1, VIDEO_MEM, cut.cond_dim,
+                                device="cpu")
+    mem = torch.cat([mem, torch.zeros_like(mem)])
+    t = torch.tensor([700.0, 700.0])
+    (pred_gpu, _), gpu_s = _timed(lambda: diffusion.apply(
+        cut, p_gpu, x.cuda(), t.cuda(), memory=mem.cuda()))
+    t0 = time.perf_counter()
+    pred_cpu, _ = diffusion.apply(cut, p_cpu, x, t, memory=mem)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(pred_cpu).all()), "CPU prediction not finite")
+    scale = float(pred_cpu.abs().max())
+    rel = float((pred_gpu.cpu() - pred_cpu).abs().max()) / scale
+    emit({"phase": "video_cross_check", "blocks": cut.num_layers,
+          "tokens": diffusion.token_shape(cut)[0], "memory": VIDEO_MEM,
+          "batch": 2, "max_abs_pred": scale, "rel_max_err": rel,
+          "limit": 1e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
+    check(rel <= 1e-4, f"video card vs CPU forward: relative error {rel}")
+    gemm.release()          # the cut model's prepared halves
+
+
+def video_slice_phase(cfg, params, ops, memory):
+    """The full-width OpenSora slice: rectified flow 30, CFG 7.0, a
+    300-token memory.  Calibrate on 2 samples at k_max 3 under the adaptive
+    policy (its base is ``smoothcache:alpha=0.1``), save the artifact, load
+    it strictly into fresh pipelines, answer 1 request with ``no_cache``,
+    the artifact's SmoothCache schedule and ``static:n=2``: every latent
+    finite, attention launches = Σ over steps of 28 per computed
+    ``s_attn`` / ``t_attn`` / ``s_xattn`` / ``t_xattn``, linear launches =
+    Σ over steps of 5 + Σ over the 56 blocks of (1 + 4 per computed
+    attention or cross branch + 2 per computed MLP), segmented ≡ eager
+    bitwise; walls, compute fraction, rel-L1 to ``no_cache``, peak
+    memory."""
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import solvers
+    from repro_torch.core.diffusion import token_shape
+    t_phase = time.perf_counter()
+    calib_mem = torch.cat([memory, memory.flip(1)])   # 2 samples
+    types = cfg.layer_types()
+    # the calibration's window: k_max + 1 steps of every branch output of
+    # the conditioned half (2 samples), each layer type over its 28 blocks
+    window = ((3 + 1) * len(types) * (cfg.num_layers // 2) * 2
+              * token_shape(cfg)[0] * cfg.d_model * 4)
+    pipe = DiffusionPipeline(cfg, solvers.rectified_flow(VIDEO_STEPS),
+                             VIDEO_ADAPTIVE, cfg_scale=VIDEO_CFG)
+    torch.cuda.reset_peak_memory_stats()
+    art, calib_s = _timed(lambda: pipe.calibrate(
+        params, torch.Generator().manual_seed(SEED + 43), 2,
+        cond_args={"memory": calib_mem}, k_max=3))
+    emit({"phase": "video_calibrate", "samples": 2, "steps": VIDEO_STEPS,
+          "k_max": 3, "seconds": calib_s,
+          "window_bytes_reckoned": window,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "compute_fraction": pipe.compute_fraction(),
+          "lag1_err_mid": {t: float(c[15, 1])
+                           for t, c in art.curves.items()}})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pipe.save_artifact(str(Path(tmp) / "opensora_rf30.cache.json"))
+        serve = DiffusionPipeline(cfg, solvers.rectified_flow(VIDEO_STEPS),
+                                  VIDEO_SMOOTH, cfg_scale=VIDEO_CFG)
+        serve.load_artifact(path, strict=True)
+        adaptive = DiffusionPipeline(cfg,
+                                     solvers.rectified_flow(VIDEO_STEPS),
+                                     VIDEO_ADAPTIVE, cfg_scale=VIDEO_CFG)
+        adaptive.load_artifact(path, strict=True)
+    check(serve.schedule.to_json() == art.schedule.to_json()
+          == serve.schedule_for(VIDEO_SMOOTH).to_json(),
+          "the artifact's schedule is not smoothcache:alpha=0.1's")
+
+    runs, latents = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, sch in (("no_cache", None), (VIDEO_SMOOTH, serve.schedule),
+                      ("static:n=2", serve.schedule_for("static:n=2"))):
+        kw = {} if name == VIDEO_SMOOTH else {"schedule": sch}
+        steps = [[t for t in types if sch is None or not sch.skip[t][s]]
+                 for s in range(VIDEO_STEPS)]
+        want_attn = sum(attn_calls(cfg, c) for c in steps)
+        want_linear = sum(linear_calls(cfg, c) for c in steps)
+        before = dict(ops.LAUNCHES)
+        x, wall = _timed(lambda: serve.generate(
+            params, torch.Generator().manual_seed(SEED + 44), 1,
+            memory=memory, **kw))
+        attn = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+        linear = ops.LAUNCHES["linear"] - before["linear"]
+        latents[name] = x
+        frac = (1.0 if sch is None else float(sum(
+            sch.compute_fraction(t) for t in types) / len(types)))
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite latents")
+        check(attn == want_attn, f"{name}: {attn} attention launches, "
+              f"expected {want_attn}")
+        check(linear == want_linear, f"{name}: {linear} linear launches, "
+              f"expected {want_linear}")
+        base = latents["no_cache"]
+        runs.append({"run": name, "requests": 1, "wall_s": wall,
+                     "compute_fraction": frac, "attn_launches": attn,
+                     "linear_launches": linear,
+                     "skipped_steps": {t: int(sch.skip[t].sum())
+                                       for t in types} if sch is not None
+                     else None,
+                     "rel_l1_to_no_cache": float((x - base).abs().sum()
+                                                 / base.abs().sum())})
+        emit({"phase": "video_generate", **runs[-1]})
+    eager, eager_s = _timed(lambda: serve.generate(
+        params, torch.Generator().manual_seed(SEED + 44), 1, memory=memory,
+        compiled=False))
+    same = bool(torch.equal(eager, latents[VIDEO_SMOOTH]))
+    emit({"phase": "video_segmented_vs_eager", "run": VIDEO_SMOOTH,
+          "bitwise_equal": same, "eager_wall_s": eager_s,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    check(same, "video: segmented and eager latents differ")
+    return adaptive, time.perf_counter() - t_phase
+
+
+def video_fused_phase(cfg, params, ops, adaptive, memory):
+    """One fused adaptive batch (1 request, B = 2 in the kernels) against
+    the host loop, latents and decisions bitwise, the replays under
+    ``set_sync_debug_mode("error")`` with no decision sync: capture
+    seconds, branches, walls."""
+    ex = adaptive.executor
+    kw = dict(schedule=adaptive.schedule, tau=adaptive.policy.tau,
+              proxy_map=adaptive.proxy_map, k_max=adaptive.policy.k_max,
+              memory=memory)
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 45)
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    rs = ex.start_adaptive_fused_run(params, gen(), 1, **kw)
+    step, capture_s = _timed(lambda: ex.fused_step_for(params, rs))
+    mem1 = torch.cuda.memory_allocated()
+    syncs = ex.host_sync_count
+    (xh, dh), host_s = _timed(lambda: ex.sample_adaptive(
+        params, gen(), 1, return_decisions=True, **kw))
+    host_syncs = ex.host_sync_count - syncs
+    syncs = ex.host_sync_count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rs = ex.advance_adaptive_fused(params, rs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    same = bool(torch.equal(rs.x, xh)) and rs.decisions == dh
+    row = {"phase": "video_fused", "requests": 1, "steps": VIDEO_STEPS,
+           "branches": step.stats["branches"], "types": step.stats["types"],
+           "warmup_s": step.stats["warmup_s"],
+           "capture_s": step.stats["capture_s"],
+           "capture_wall_s": capture_s, "graph_bytes": mem1 - mem0,
+           "host_loop_s": host_s, "fused_s": fused_s,
+           "host_syncs": host_syncs,
+           "fused_syncs": ex.host_sync_count - syncs,
+           "skipped_per_step": [len(d) for d in dh],
+           "bitwise_equal": same}
+    emit(row)
+    check(same, "video: fused and host-loop latents or decisions differ")
+    check(row["fused_syncs"] == 0, "the fused video run synced the host")
+    check(any(dh), "the adaptive video run skipped nothing")
+
+
+def video_profile_phase(cfg, diffusion, params, ops, memory):
+    """Where a video step's time goes: one full-width B = 2 forward (one
+    request under CFG) after an untraced warm-up — device time by kernel,
+    the attention and linear kernels' shares, the device's idle share."""
+    gen = torch.Generator().manual_seed(SEED + 46)
+    x = torch.randn((2,) + cfg.latent_shape, generator=gen).cuda()
+    t = torch.full((2,), 500.0, device="cuda")
+    mem = torch.cat([memory, torch.zeros_like(memory)])
+    diffusion.apply(cfg, params, x, t, memory=mem)
+    before = ops.LAUNCHES["linear"]
+    wall_us, kern = _traced(lambda: diffusion.apply(cfg, params, x, t,
+                                                    memory=mem))
+    calls = ops.LAUNCHES["linear"] - before
+    busy = sum(us for us, _ in kern.values())
+    attn = sum(us for k, (us, _) in kern.items() if "attn_fwd" in k)
+    attn_n = sum(n for k, (_, n) in kern.items() if "attn_fwd" in k)
+    linear = sum(us for k, (us, _) in kern.items()
+                 if any(n in k for n in LINEAR_KERNELS.values()))
+    library = [k for k in kern
+               if not any(n in k for n in LINEAR_KERNELS.values()) and any(
+                   f in k.lower() for f in ("gemm", "cutlass", "xmma",
+                                            "cublas"))]
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    row = {"phase": "video_profile", "batch": 2, "wall_ms": wall_us / 1e3,
+           "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+           "attn_ms": attn / 1e3, "attn_calls": attn_n,
+           "attn_share": attn / busy, "linear_ms": linear / 1e3,
+           "linear_share": linear / busy, "linear_calls": calls,
+           "library_gemm_kernels": library,
+           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
+                   for k, (us, n) in top]}
+    emit(row)
+    check(busy > 0, "the profiler saw no device time")
+    types = cfg.layer_types()
+    check(attn_n == attn_calls(cfg, types),
+          f"{attn_n} attention kernels in one video forward")
+    check(calls == linear_calls(cfg, types) and not library,
+          f"{calls} linear calls in one video forward, other product "
+          f"kernels {library}")
+    return row
+
+
+def video_phase(peaks, kernels):
+    """The OpenSora-v1.2 text-to-video path at full width (56 blocks, 16 ×
+    256 tokens, a 300-token T5 memory stub, rectified flow 30, CFG 7.0),
+    after every other phase, on weights of its own.  Budget ~90 s."""
+    from repro_torch import configs
+    from repro_torch.core import diffusion
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.launch.serve_diffusion import random_params
+    from repro_torch.models.transformer import tree_map
+    t_phase = time.perf_counter()
+    cfg = configs.get("opensora-v12")
+    attn_shapes, products = video_kernel_phase(fa, ref, gemm, peaks, cfg)
+    video_cross_check_phase(cfg, diffusion, gemm, random_params)
+    t0 = time.perf_counter()
+    params = tree_map(lambda a: a.cuda(), random_params(
+        torch.Generator().manual_seed(SEED + 47), cfg, device="cpu"))
+    prepared = diffusion.prepare_linear(params)
+    torch.cuda.synchronize()
+    emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
+          "d_model": cfg.d_model, "seconds": time.perf_counter() - t0,
+          "count": sum(a.numel() for a in tree_leaves(params)),
+          "linear_prepared_bytes": prepared,
+          "device_bytes": torch.cuda.memory_allocated()})
+    check(prepared == 2 * 4 * sum(
+        w.numel() for w in diffusion.token_weights(params)),
+        f"{prepared} prepared bytes")
+    memory = synthetic.text_memory(torch.Generator().manual_seed(SEED + 48),
+                                   1, VIDEO_MEM, cfg.cond_dim)
+    _reset_counts(ops)
+    adaptive, slice_s = video_slice_phase(cfg, params, ops, memory)
+    launches = dict(ops.LAUNCHES)
+    check(launches["ssd"] == 0, "SSD launched in the video slice")
+    video_fused_phase(cfg, params, ops, adaptive, memory)
+    profile = video_profile_phase(cfg, diffusion, params, ops, memory)
+    for name, key in (("flash_attention", "flash_attention"),
+                      ("linear", "linear")):
+        kernels[name]["video_launches"] = launches[key]
+    kernels["flash_attention"]["video"] = attn_shapes
+    kernels["linear"]["video"] = {**products,
+                                  "profile_linear_ms": profile["linear_ms"]}
+    del params, adaptive
+    gemm.release()
+    gc.collect()
+    emit({"phase": "video", "seconds": time.perf_counter() - t_phase,
+          "slice_s": slice_s, "launches": launches})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2588,6 +3004,11 @@ def main():
     kernels["ssd"]["launches"] = lm_launches["ssd"]
     lm_decode_consistency_phase(cfg, T, params_gpu, prompts, toks)
     lm_profile_phase(cfg, T, params_gpu, prompts, toks)
+    del params_gpu, prompts, toks
+    gemm.release()
+    gc.collect()              # the LM weights go before the video phase
+    torch.cuda.empty_cache()
+    video_phase(peaks, kernels)
 
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",

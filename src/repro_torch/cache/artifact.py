@@ -279,3 +279,8 @@ class CacheArtifact:
         pol["tau"] = tau
         return replace(
             self, policy=pol, adaptive={**self.adaptive, "tau": tau})
+
+    def with_schedule(self, schedule: Schedule) -> "CacheArtifact":
+        """Copy carrying ``schedule`` and its freshly analyzed plan."""
+        return replace(self, schedule=schedule,
+                       plan=plan_lib.analyze(schedule).to_jsonable())

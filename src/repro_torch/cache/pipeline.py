@@ -4,6 +4,7 @@ execute::
     pipe = DiffusionPipeline(cfg, solvers.ddim(50), "smoothcache:alpha=0.18",
                              cfg_scale=1.5)
     art = pipe.calibrate(params, gen, batch=10, cond_args={"label": labels})
+    # a text-to-video model: cond_args={"memory": m}, generate(memory=m)
     pipe.save_artifact("dit_xl_ddim50.cache.json")
     ...
     serve = DiffusionPipeline(cfg, solvers.ddim(50), "smoothcache:alpha=0.18",
@@ -80,6 +81,13 @@ class DiffusionPipeline:
     def proxy_map(self) -> Optional[calibration_lib.ProxyMap]:
         return self._proxy_map
 
+    def summary(self) -> str:
+        head = (f"DiffusionPipeline({self.cfg.name}, {self.solver.name}"
+                f"x{self.solver.num_steps}, policy={self.policy.spec()})")
+        if self._schedule is not None:
+            return head + "\n" + self._schedule.summary()
+        return head
+
     # -- calibration ---------------------------------------------------------
 
     def calibrate(self, params, generator, batch: int = 8, *,
@@ -129,6 +137,26 @@ class DiffusionPipeline:
         self._schedule = sch
         return self.artifact
 
+    def prepare(self, params=None, generator=None, *, calib_batch: int = 8,
+                cond_args: Optional[Dict] = None) -> Schedule:
+        """Resolve the schedule without building an artifact — calibrates
+        only if the policy needs curves and no artifact is loaded."""
+        if self._schedule is not None:
+            return self._schedule
+        if self.policy.requires_calibration and self.artifact is None:
+            if params is None or generator is None:
+                raise ValueError(
+                    f"policy {self.policy.spec()!r} needs calibration; pass "
+                    "(params, generator) to prepare() or load_artifact() "
+                    "first")
+            self.calibrate(params, generator, calib_batch,
+                           cond_args=cond_args)
+            return self._schedule
+        curves = self.artifact.curves if self.artifact is not None else None
+        self._schedule = self.policy.prepare(self.executor, curves=curves)
+        self._plan = None                     # re-derived lazily via .plan
+        return self._schedule
+
     def schedule_for(self, policy: Union[str, dict, CachePolicy]) -> Schedule:
         """Resolve *another* policy against this pipeline's calibration
         curves (many α / budgets, one calibration)."""
@@ -171,13 +199,14 @@ class DiffusionPipeline:
     # -- generation ----------------------------------------------------------
 
     def generate(self, params, generator, batch: int, *, label=None,
-                 schedule=_UNSET, compiled: bool = True,
+                 memory=None, schedule=_UNSET, compiled: bool = True,
                  return_decisions: bool = False):
         """Sample a batch under the pipeline's schedule.  ``schedule=`` (a
         Schedule, a policy spec, or None for the uncached baseline)
         overrides per call; ``compiled=True`` takes the segmented-plan
         path (reusing the pipeline's pre-analyzed plan), ``False`` the
-        eager reference path.
+        eager reference path.  ``memory`` (B, Lm, cond_dim) is a
+        text-conditioned model's cross-attention memory.
 
         Adaptive policies run the executor's fused path
         (``sample_adaptive_fused``: decision and dispatch on the device, no
@@ -208,7 +237,7 @@ class DiffusionPipeline:
                 return sampler(
                     params, generator, batch, schedule=sch,
                     tau=self.policy.tau, proxy_map=self._proxy_map,
-                    k_max=self.policy.k_max, label=label,
+                    k_max=self.policy.k_max, label=label, memory=memory,
                     return_decisions=return_decisions)
         elif schedule is None or isinstance(schedule, Schedule):
             sch = schedule
@@ -223,9 +252,9 @@ class DiffusionPipeline:
                                  and sch is self._schedule) else None
             return self.executor.sample_compiled(
                 params, generator, batch, schedule=sch, label=label,
-                plan=plan)
+                memory=memory, plan=plan)
         return self.executor.sample(params, generator, batch, schedule=sch,
-                                    label=label)
+                                    label=label, memory=memory)
 
     def compute_fraction(self) -> float:
         """Mean fraction of layer evaluations actually computed."""

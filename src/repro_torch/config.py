@@ -27,6 +27,9 @@ class AttentionSpec:
     qkv_bias: bool = False
     logit_softcap: Optional[float] = None
     pos_emb: str = "rope"                # "rope" | "none"
+    rope_theta: float = 10000.0
+    #: factorized video attention (OpenSora STDiT): None | "spatial" |
+    #: "temporal"
     pattern: Optional[str] = None
 
 
@@ -54,10 +57,12 @@ class MLPSpec:
 
 @dataclass(frozen=True)
 class BlockSpec:
-    """One residual block: (norm → mixer → +res) [→ (norm → ffn → +res)].
-    ``ffn=None`` is used for Mamba-2 blocks, which fold the FFN into the
-    mixer."""
+    """One residual block: (norm → mixer → +res) [→ (norm → cross → +res)]
+    [→ (norm → ffn → +res)].  ``ffn=None`` is used for Mamba-2 blocks,
+    which fold the FFN into the mixer; ``cross`` is cross-attention to a
+    conditioning memory (OpenSora's text)."""
     mixer: Optional[MixerSpec] = None
+    cross: Optional[AttentionSpec] = None
     ffn: Optional[MLPSpec] = None
     norm: str = "rmsnorm"                # "rmsnorm" | "layernorm"
     adaln: bool = False                  # DiT-style adaLN-zero conditioning
@@ -67,6 +72,8 @@ class BlockSpec:
         out = []
         if self.mixer is not None:
             out.append("mixer")
+        if self.cross is not None:
+            out.append("cross")
         if self.ffn is not None:
             out.append("ffn")
         return tuple(out)
@@ -78,6 +85,8 @@ class BlockSpec:
             out.append(self.type_tag + "attn")
         elif isinstance(self.mixer, SSMSpec):
             out.append(self.type_tag + "ssm")
+        if self.cross is not None:
+            out.append(self.type_tag + "xattn")
         if self.ffn is not None:
             out.append(self.type_tag + "ffn")
         return tuple(out)
@@ -109,6 +118,7 @@ class ModelConfig:
     task: str = "lm"                     # "lm" | "diffusion"
     latent_shape: Tuple[int, ...] = ()   # diffusion: per-sample latent shape
     patch: int = 1                       # diffusion image patch size
+    cond_dim: int = 0                    # cross-attention memory width
     num_classes: int = 0                 # label conditioning (DiT-XL)
     dtype: str = "bfloat16"
     citation: str = ""
@@ -116,6 +126,14 @@ class ModelConfig:
     @property
     def num_layers(self) -> int:
         return sum(s.num_layers for s in self.stages)
+
+    def blocks(self):
+        """(stage index, repeat index, index in the unit, BlockSpec) of
+        every block, in order."""
+        for si, st in enumerate(self.stages):
+            for r in range(st.repeat):
+                for bi, b in enumerate(st.unit):
+                    yield si, r, bi, b
 
     def layer_types(self) -> Tuple[str, ...]:
         """All SmoothCache-eligible layer types present in the model."""

@@ -8,6 +8,7 @@ import importlib
 REGISTRY = {
     "dit-xl-256": "repro_torch.configs.dit_xl",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
+    "opensora-v12": "repro_torch.configs.opensora_v12",
 }
 
 

@@ -40,13 +40,15 @@ def _shrink_latent(shape):
 def smoke_variant(cfg: ModelConfig, d_model: int = 128,
                   unit_repeats: int = 1) -> ModelConfig:
     """Reduced same-family variant: one unit per stage repeated at most
-    ``unit_repeats`` times, d_model ≤ 512, 8×8 image latents."""
+    ``unit_repeats`` times, d_model ≤ 512, 8×8 image latents, a memory of
+    at most 64 wide."""
     if d_model > 512:
         raise ValueError(f"smoke d_model must be <= 512, got {d_model}")
     stages = []
     for st in cfg.stages:
         unit = tuple(
             dataclasses.replace(b, mixer=_shrink_mixer(b.mixer, d_model),
+                                cross=_shrink_mixer(b.cross, d_model),
                                 ffn=_shrink_ffn(b.ffn, d_model))
             for b in st.unit)
         stages.append(Stage(unit=unit, repeat=min(unit_repeats, st.repeat)))
@@ -54,4 +56,5 @@ def smoke_variant(cfg: ModelConfig, d_model: int = 128,
         name=cfg.name + "-smoke", d_model=d_model,
         vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else cfg.vocab_size,
         stages=tuple(stages), max_seq_len=min(cfg.max_seq_len, 256),
+        cond_dim=min(cfg.cond_dim, 64) if cfg.cond_dim else 0,
         latent_shape=_shrink_latent(cfg.latent_shape), dtype="float32")

@@ -319,3 +319,12 @@ def calibrate_record(executor, params, generator: torch.Generator,
         curves=curves, per_sample=per_sample, proxies=proxies,
         proxy_map=fit_proxy_map(curves, proxies), x0=x0.cpu().numpy(),
         cfg_halved=cfg_halved)
+
+
+def calibrate(executor, params, generator: torch.Generator, batch: int, *,
+              cond_args=None, k_max: int = 3):
+    """The reference's back-compat wrapper over :func:`calibrate_record`:
+    returns (mean_curves, per_sample, final latents x₀)."""
+    rec = calibrate_record(executor, params, generator, batch,
+                           cond_args=cond_args, k_max=k_max)
+    return rec.curves, rec.per_sample, rec.x0

@@ -1,8 +1,11 @@
 """Diffusion wrapper: turns the backbone into a DiT denoiser.
 
-Adds image patchify/unpatchify, a sinusoidal timestep embedding → MLP, a
-class-label embedding with a CFG null class, and adaLN-zero conditioning
-(the backbone's blocks carry ``adaln=True``).  Prediction type: ε (DDIM).
+Adds patchify/unpatchify of image latents (H, W, C) and video latents
+(T, H, W, C — spatial patchify, factorized attention), a sinusoidal
+timestep embedding → MLP, a class-label embedding with a CFG null class,
+the cross-attention memory of a text-conditioned model, and adaLN-zero
+conditioning (the backbone's blocks carry ``adaln=True``).  Prediction
+types: ε (DDIM) and velocity (rectified flow).
 """
 from __future__ import annotations
 
@@ -18,36 +21,51 @@ TIME_EMB_DIM = 256
 
 
 # ---------------------------------------------------------------------------
-# Patchify (image latents)
+# Patchify (image and video latents)
 # ---------------------------------------------------------------------------
 
 def token_shape(cfg: ModelConfig):
-    """Returns (num_tokens, token_dim) of an (H, W, C) image latent."""
-    if len(cfg.latent_shape) != 3:
-        raise NotImplementedError(
-            f"latent shape {cfg.latent_shape}: only (H, W, C) image "
-            "latents are ported")
-    h, w, c = cfg.latent_shape
-    p = cfg.patch
-    return (h // p) * (w // p), p * p * c
+    """Returns ``(num_tokens, token_dim, video_shape)`` of an (H, W, C)
+    image latent (``video_shape`` None) or a (T, H, W, C) video latent,
+    patchified in space only (``video_shape`` = (T, S))."""
+    ls, p = cfg.latent_shape, cfg.patch
+    if len(ls) == 3:
+        h, w, c = ls
+        return (h // p) * (w // p), p * p * c, None
+    if len(ls) == 4:
+        t, h, w, c = ls
+        s = (h // p) * (w // p)
+        return t * s, p * p * c, (t, s)
+    raise NotImplementedError(
+        f"latent shape {ls}: only (H, W, C) image and (T, H, W, C) video "
+        "latents are ported")
 
 
 def patchify(cfg: ModelConfig, x):
-    """x: (B, H, W, C) → (B, N, p·p·C)."""
-    p = cfg.patch
-    h, w, c = cfg.latent_shape
+    """x: (B, *latent_shape) → (B, N, p·p·C)."""
+    p, ls = cfg.patch, cfg.latent_shape
     b = x.shape[0]
-    x = x.reshape(b, h // p, p, w // p, p, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // p) * (w // p),
-                                               p * p * c)
+    if len(ls) == 3:
+        h, w, c = ls
+        x = x.reshape(b, h // p, p, w // p, p, c)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // p) * (w // p),
+                                                   p * p * c)
+    t, h, w, c = ls
+    x = x.reshape(b, t, h // p, p, w // p, p, c)
+    return x.permute(0, 1, 2, 4, 3, 5, 6).reshape(
+        b, t * (h // p) * (w // p), p * p * c)
 
 
 def unpatchify(cfg: ModelConfig, tok):
-    p = cfg.patch
-    h, w, c = cfg.latent_shape
+    p, ls = cfg.patch, cfg.latent_shape
     b = tok.shape[0]
-    x = tok.reshape(b, h // p, w // p, p, p, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    if len(ls) == 3:
+        h, w, c = ls
+        x = tok.reshape(b, h // p, w // p, p, p, c)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    t, h, w, c = ls
+    x = tok.reshape(b, t, h // p, w // p, p, p, c)
+    return x.permute(0, 1, 2, 4, 3, 5, 6).reshape(b, t, h, w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +80,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     if cfg.task != "diffusion":
         raise ValueError(f"{cfg.name} is not a diffusion config")
     dev = resolve_device(device)
-    _, tok_dim = token_shape(cfg)
+    _, tok_dim, _ = token_shape(cfg)
     d = cfg.d_model
     z = lambda *shape: torch.zeros(*shape, dtype=dtype)  # noqa: E731
     p = {
@@ -94,13 +112,16 @@ def _cond_vector(cfg: ModelConfig, params, t, label=None):
     return te
 
 
-def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
-          branch_caches=None, collect_branches=False):
-    """Denoiser: x (B, H, W, C), t (B,) → prediction (B, H, W, C).
+def apply(cfg: ModelConfig, params, x, t, *, label=None, memory=None,
+          skip=None, branch_caches=None, collect_branches=False):
+    """Denoiser: x (B, *latent_shape), t (B,) → prediction (B,
+    *latent_shape); ``memory`` (B, Lm, cond_dim) is the cross-attention
+    memory of a text-conditioned model.
 
     Returns ``(pred, aux)``; ``aux["branch"]`` holds the per-layer
     pre-residual branch outputs (the SmoothCache payload) of the types
     ``collect_branches`` names (a bool or a collection of layer types)."""
+    _, _, video_shape = token_shape(cfg)
     tok = patchify(cfg, x)
     h = ops.linear(tok, params["patch_in"]["w"], params["patch_in"]["b"])
     # fixed sin-cos positional embedding over flattened tokens (DiT-style)
@@ -109,7 +130,8 @@ def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
     cond = _cond_vector(cfg, params, t, label)
     out, aux = T.forward(cfg, params["backbone"], embeds=h, cond=cond,
                          skip=skip, branch_caches=branch_caches,
-                         collect_branches=collect_branches)
+                         collect_branches=collect_branches, memory=memory,
+                         video_shape=video_shape)
     mod = ops.linear(F.silu(cond), params["final_mod"]["w"],
                      params["final_mod"]["b"], rows="requests")
     shift, scale = torch.chunk(mod[:, None, :], 2, dim=-1)
@@ -120,10 +142,12 @@ def apply(cfg: ModelConfig, params, x, t, *, label=None, skip=None,
 
 def token_weights(params):
     """The weights of the denoiser's token products (patch embedding,
-    q/k/v/o, the MLP, output projection), one per product as the forward
-    takes it: a block's weight as the view ``a[r]`` of its stacked leaf."""
+    q/k/v/o of self- and cross-attention, the MLP, output projection), one
+    per product as the forward takes it: a block's weight as the view
+    ``a[r]`` of its stacked leaf."""
     out = [params["patch_in"]["w"], params["out"]["w"]]
     names = {"mixer": ("wq", "wk", "wv", "wo"),
+             "cross": ("wq", "wk", "wv", "wo"),
              "ffn": ("w_up", "w_gate", "w_down")}
     for stage in params["backbone"]["stages"]:
         for unit in stage:

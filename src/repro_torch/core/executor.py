@@ -47,7 +47,10 @@ dispatches, as ``(kind, signature, batch)`` with kinds ``"seg"``,
 would specialize on, which the serving program budget bounds.
 
 Classifier-free guidance doubles the batch ([cond; uncond]) exactly as in
-the paper's DiT-XL protocol; the cache covers both halves.
+the paper's DiT-XL protocol; the cache covers both halves.  A
+text-conditioned model's ``memory`` rides in every run state; the
+unconditioned half reads zeros in its place.  Every run state also carries
+the solver state (``Solver.init_state``), threaded through each step.
 """
 from __future__ import annotations
 
@@ -215,6 +218,8 @@ class RunState:
     #: (B,) bool tensor on the run's device — per-sample numerical health,
     #: updated every step without a host sync; read it at boundaries
     healthy: Any = None
+    state: Any = None                        # solver state (a dict)
+    memory: Any = None                       # (B, Lm, cond_dim) or None
 
     @property
     def done(self) -> bool:
@@ -260,6 +265,8 @@ class AdaptiveRunState:
     #: (B,) bool tensor — per-sample numerical health, folding in the
     #: decision accumulator's per-row finiteness; never read per step
     healthy: Any = None
+    state: Any = None                        # solver state (a dict)
+    memory: Any = None                       # (B, Lm, cond_dim) or None
 
     @property
     def done(self) -> bool:
@@ -305,6 +312,8 @@ class FusedAdaptiveRunState:
     #: value is meaningless (``x_prev`` is zeros before the first step);
     #: report layers mask it
     proxy_trace: Any = None
+    state: Any = None                        # solver state (a dict)
+    memory: Any = None                       # (B, Lm, cond_dim) or None
 
     @property
     def done(self) -> bool:
@@ -409,9 +418,10 @@ class SmoothCacheExecutor:
 
     # -- model step ---------------------------------------------------------
 
-    def _model_call(self, params, x, t, label, branch_caches, *, skip,
-                    collect):
-        """One denoiser evaluation (CFG-doubled when configured).
+    def _model_call(self, params, x, t, label, memory, branch_caches, *,
+                    skip, collect):
+        """One denoiser evaluation (CFG-doubled when configured: the
+        unconditioned half gets the null label and a zero memory).
 
         ``collect`` is ``True`` (eager/calibration: keep every branch), a
         collection of layer types (segmented: keep only live branches) or
@@ -419,18 +429,20 @@ class SmoothCacheExecutor:
         if self.cfg_scale is not None:
             x2 = torch.cat([x, x], dim=0)
             t2 = torch.cat([t, t], dim=0)
-            lab2 = None
+            lab2 = mem2 = None
             if label is not None:
                 null = torch.full_like(label, self.cfg.num_classes)
                 lab2 = torch.cat([label, null], dim=0)
+            if memory is not None:
+                mem2 = torch.cat([memory, torch.zeros_like(memory)], dim=0)
             pred, aux = diffusion.apply(
-                self.cfg, params, x2, t2, label=lab2, skip=skip,
+                self.cfg, params, x2, t2, label=lab2, memory=mem2, skip=skip,
                 branch_caches=branch_caches, collect_branches=collect)
             c, u = torch.chunk(pred, 2, dim=0)
             out = u + self.cfg_scale * (c - u)
         else:
             out, aux = diffusion.apply(
-                self.cfg, params, x, t, label=label, skip=skip,
+                self.cfg, params, x, t, label=label, memory=memory, skip=skip,
                 branch_caches=branch_caches, collect_branches=collect)
         return out, aux["branch"]
 
@@ -478,7 +490,8 @@ class SmoothCacheExecutor:
         return self.initial_latent(generator, batch)
 
     def sample(self, params, generator, batch: int, *, schedule=None,
-               label=None, collect_hook: Optional[Callable] = None,
+               label=None, memory=None,
+               collect_hook: Optional[Callable] = None,
                return_trajectory: bool = False):
         """Eager reference sampler.  ``schedule=None`` → no caching.
         ``collect_hook(s, branch_tree)`` sees every branch output of step
@@ -493,6 +506,7 @@ class SmoothCacheExecutor:
         caching = (collect_hook is not None
                    or any(v.any() for v in schedule.skip.values()))
         cache = None
+        state = self.solver.init_state()
         traj = []
         for s in range(s_total):
             t = self._times(s, batch)
@@ -500,23 +514,28 @@ class SmoothCacheExecutor:
             self._dispatch("eager", (mask_key, cache is not None), batch)
             if caching:
                 skip = dict(mask_key)
+                if not any(skip.values()):
+                    # nothing reads the old cache: free it before the
+                    # forward makes the new one (calibration's peak)
+                    cache = None
                 pred, computed = self._model_call(
-                    params, x, t, label, cache, skip=skip, collect=True)
+                    params, x, t, label, memory, cache, skip=skip,
+                    collect=True)
                 cache = (computed if cache is None
                          else merge_branch_caches(self.cfg, computed, cache))
                 if collect_hook is not None:
                     collect_hook(s, cache)
             else:
-                pred, _ = self._model_call(params, x, t, label, None,
+                pred, _ = self._model_call(params, x, t, label, memory, None,
                                            skip=None, collect=False)
-            x = self.solver.step(x, pred, s)
+            x, state = self.solver.step(x, pred, s, state)
             if return_trajectory:
                 traj.append(x)
         return (x, traj) if return_trajectory else x
 
     def start_run(self, params, generator, batch: int, *,
                   plan: plan_lib.ExecutionPlan, schedule=None,
-                  label=None, row_keys=None) -> RunState:
+                  label=None, memory=None, row_keys=None) -> RunState:
         """Begin a resumable segmented run: validate the plan, draw the
         initial latent, and return a :class:`RunState` positioned before
         the first segment.  Drive it with :meth:`advance_run`.
@@ -534,7 +553,7 @@ class SmoothCacheExecutor:
         x = self._initial(generator, batch, row_keys)
         return RunState(
             x=x, cache=empty_branch_cache(self.cfg), plan=plan, run_index=0,
-            label=label,
+            label=label, memory=memory, state=self.solver.init_state(),
             healthy=torch.ones(batch, dtype=torch.bool, device=self.device))
 
     def advance_run(self, params, rs: RunState, *,
@@ -549,15 +568,15 @@ class SmoothCacheExecutor:
         sig = run.sig
         skip, collect = sig.skip, frozenset(sig.collect)
         reads = any(skip.values())
-        x, cache, healthy = rs.x, rs.cache, rs.healthy
+        x, cache, healthy, state = rs.x, rs.cache, rs.healthy, rs.state
         self._dispatch("seg", sig, x.shape[0])
         for s in range(run.start, run.start + run.length):
             pred, computed = self._model_call(
-                params, x, self._times(s, x.shape[0]), rs.label,
+                params, x, self._times(s, x.shape[0]), rs.label, rs.memory,
                 cache if reads else None, skip=skip, collect=collect)
             cache = pruned_branch_caches(self.cfg, computed, cache, collect,
                                          sig.structure)
-            x = self.solver.step(x, pred, s)
+            x, state = self.solver.step(x, pred, s, state)
             healthy = healthy & rows_finite(x)
         cache = prune_cache(self.cfg, cache, run.live_out)
         if check:
@@ -571,25 +590,25 @@ class SmoothCacheExecutor:
                     f"liveness violation after steps "
                     f"[{run.start}, {run.start + run.length}): resident "
                     f"{sorted(got)} != live {sorted(expect)}")
-        return dataclasses.replace(rs, x=x, cache=cache,
+        return dataclasses.replace(rs, x=x, cache=cache, state=state,
                                    run_index=rs.run_index + 1,
                                    healthy=healthy)
 
     def sample_with_plan(self, params, generator, batch: int, *,
                          plan: plan_lib.ExecutionPlan, schedule=None,
-                         label=None, check: bool = False):
+                         label=None, memory=None, check: bool = False):
         """Segmented sampler: Python dispatch per *segment*.  ``check=True``
         verifies after every segment that the resident cache holds exactly
         the plan's live entries."""
         rs = self.start_run(params, generator, batch, plan=plan,
-                            schedule=schedule, label=label)
+                            schedule=schedule, label=label, memory=memory)
         while not rs.done:
             rs = self.advance_run(params, rs, check=check)
         return rs.x
 
     def sample_compiled(self, params, generator, batch: int, *,
-                        schedule=None, label=None, plan=None,
-                        check: bool = False):
+                        schedule=None, label=None, memory=None,
+                        plan=None, check: bool = False):
         """Segmented-plan sampler (the serving path): analyzes the schedule
         (memoized, or pass a pre-analyzed ``plan`` from a
         :class:`~repro_torch.cache.artifact.CacheArtifact`)."""
@@ -600,13 +619,14 @@ class SmoothCacheExecutor:
             plan = self.plan_for(schedule)
         return self.sample_with_plan(params, generator, batch, plan=plan,
                                      schedule=schedule, label=label,
-                                     check=check)
+                                     memory=memory, check=check)
 
     # -- input-adaptive runtime dispatch ------------------------------------
 
     def sample_adaptive(self, params, generator, batch: int, *, schedule,
                         tau: float, proxy_map=None, pool=None, k_max: int = 3,
-                        label=None, return_decisions: bool = False):
+                        label=None, memory=None,
+                        return_decisions: bool = False):
         """Input-adaptive sampler: per-step reuse decisions dispatched over
         the schedule's candidate pool (the mask lattice over its
         ever-skipped types).
@@ -622,7 +642,8 @@ class SmoothCacheExecutor:
         sets (tuple of sorted type tuples)."""
         rs = self.start_adaptive_run(
             params, generator, batch, schedule=schedule, tau=tau,
-            proxy_map=proxy_map, pool=pool, k_max=k_max, label=label)
+            proxy_map=proxy_map, pool=pool, k_max=k_max, label=label,
+            memory=memory)
         while not rs.done:
             rs = self.advance_adaptive_run(params, rs)
         if return_decisions:
@@ -671,7 +692,7 @@ class SmoothCacheExecutor:
 
     def start_adaptive_run(self, params, generator, batch: int, *, schedule,
                            tau: float, proxy_map=None, pool=None,
-                           k_max: int = 3, label=None,
+                           k_max: int = 3, label=None, memory=None,
                            row_keys=None) -> AdaptiveRunState:
         """Begin a resumable host-dispatched adaptive run: validate the
         decision parameters, index the candidate pool, draw the initial
@@ -688,7 +709,8 @@ class SmoothCacheExecutor:
             lag=torch.zeros(shape, dtype=torch.int32, device=self.device),
             decisions=(), schedule=schedule, tau=tau, by_skipset=by_skipset,
             pool_types=pool_types, coeff_a=coeff_a, coeff_b=coeff_b,
-            k_max=int(k_max), label=label,
+            k_max=int(k_max), label=label, memory=memory,
+            state=self.solver.init_state(),
             healthy=torch.ones(batch, dtype=torch.bool, device=self.device))
 
     def advance_adaptive_run(self, params,
@@ -727,16 +749,16 @@ class SmoothCacheExecutor:
         self._dispatch("sigstep", sig, x.shape[0])
         collect = frozenset(sig.collect)
         pred, computed = self._model_call(
-            params, x, self._times(s, x.shape[0]), rs.label,
+            params, x, self._times(s, x.shape[0]), rs.label, rs.memory,
             rs.cache if skipset else None, skip=sig.skip, collect=collect)
         cache = pruned_branch_caches(self.cfg, computed, rs.cache, collect,
                                      sig.structure)
-        x_next = self.solver.step(x, pred, s)
+        x_next, state = self.solver.step(x, pred, s, rs.state)
         healthy = (rs.healthy & rows_finite(x_next)
                    & torch.isfinite(acc).all(dim=-1))
         return dataclasses.replace(
             rs, x=x_next, cache=cache, step=s + 1, x_prev=x, acc=acc,
-            lag=lag, healthy=healthy,
+            lag=lag, healthy=healthy, state=state,
             decisions=rs.decisions + (tuple(sorted(skipset)),))
 
     # -- fused adaptive sampling (decision + dispatch on the device) ---------
@@ -746,7 +768,7 @@ class SmoothCacheExecutor:
         per unit block, ``{branch: (repeat, batch·{1,2}, tokens,
         d_model)}`` — the model's pre-residual branch outputs, CFG-doubled
         when guidance is on."""
-        n_tok, _ = diffusion.token_shape(self.cfg)
+        n_tok, _, _ = diffusion.token_shape(self.cfg)
         rows = batch * (2 if self.cfg_scale is not None else 1)
         return [tuple({name: (st.repeat, rows, n_tok, self.cfg.d_model)
                        for name in b.branch_names()} for b in st.unit)
@@ -790,7 +812,7 @@ class SmoothCacheExecutor:
     def sample_adaptive_fused(self, params, generator, batch: int, *,
                               schedule, tau: float, proxy_map=None,
                               pool=None, k_max: int = 3, label=None,
-                              return_decisions: bool = False):
+                              memory=None, return_decisions: bool = False):
         """Input-adaptive sampler with the decision and the dispatch on
         the device: on a CUDA device each step is one replay of a captured
         graph (proxy, ``batch_rule``, the pool's signatures in conditional
@@ -804,7 +826,8 @@ class SmoothCacheExecutor:
         realized per-step skip sets, read from the trace after the run."""
         rs = self.start_adaptive_fused_run(
             params, generator, batch, schedule=schedule, tau=tau,
-            proxy_map=proxy_map, pool=pool, k_max=k_max, label=label)
+            proxy_map=proxy_map, pool=pool, k_max=k_max, label=label,
+            memory=memory)
         rs = self.advance_adaptive_fused(params, rs)
         if return_decisions:
             return rs.x, rs.decisions
@@ -848,7 +871,8 @@ class SmoothCacheExecutor:
     def start_adaptive_fused_run(self, params, generator, batch: int, *,
                                  schedule, tau: float, proxy_map=None,
                                  pool=None, k_max: int = 3, label=None,
-                                 row_keys=None, telemetry: bool = False
+                                 memory=None, row_keys=None,
+                                 telemetry: bool = False
                                  ) -> FusedAdaptiveRunState:
         """Begin a resumable fused adaptive run.  Drive it with
         :meth:`advance_adaptive_fused` — a serving engine timeslices with
@@ -874,7 +898,8 @@ class SmoothCacheExecutor:
                               dtype=torch.bool, device=self.device),
             step=0, schedule=schedule, tau=tau, k_max=int(k_max),
             table=table, runtime=runtime, skip_table=skip_table,
-            coeff_a=coeff_a, coeff_b=coeff_b, label=label,
+            coeff_a=coeff_a, coeff_b=coeff_b, label=label, memory=memory,
+            state=self.solver.init_state(),
             healthy=torch.ones(batch, dtype=torch.bool, device=self.device),
             proxy_trace=(torch.zeros((schedule.num_steps, batch),
                                      dtype=torch.float32, device=self.device)
@@ -887,7 +912,7 @@ class SmoothCacheExecutor:
         key = fused.graph_key(rs, params)
         g = self._fused.get(key)
         if g is None:
-            self._dispatch("fused", key[1:5], key[0])
+            self._dispatch("fused", key.signature, key.batch)
             g = fused.FusedGraph(self, params, rs, [
                 cache_entry_names(self.cfg, sig.collect)
                 for sig in rs.table.branches])
@@ -918,11 +943,13 @@ class SmoothCacheExecutor:
     #: batch·{1,2}, ...)`` so their batch axis is 1; everything else in a
     #: run state is shared by its rows
     _ROW_FIELDS = {
-        RunState: (("x", 0), ("cache", 1), ("label", 0), ("healthy", 0)),
-        AdaptiveRunState: (("x", 0), ("cache", 1), ("label", 0),
-                           ("healthy", 0), ("x_prev", 0), ("acc", 0),
-                           ("lag", 0)),
-        FusedAdaptiveRunState: (("x", 0), ("cache", 1), ("label", 0),
+        RunState: (("x", 0), ("state", 0), ("cache", 1), ("label", 0),
+                   ("memory", 0), ("healthy", 0)),
+        AdaptiveRunState: (("x", 0), ("state", 0), ("cache", 1),
+                           ("label", 0), ("memory", 0), ("healthy", 0),
+                           ("x_prev", 0), ("acc", 0), ("lag", 0)),
+        FusedAdaptiveRunState: (("x", 0), ("state", 0), ("cache", 1),
+                                ("label", 0), ("memory", 0),
                                 ("healthy", 0), ("x_prev", 0), ("acc", 0),
                                 ("lag", 0)),
     }
@@ -1062,7 +1089,8 @@ class SmoothCacheExecutor:
                                FusedAdaptiveRunState)):
             raise ValueError(
                 f"not an exportable run state: {type(rs).__name__}")
-        arrays = {"x": rs.x, "cache": rs.cache, "label": rs.label,
+        arrays = {"x": rs.x, "state": rs.state, "cache": rs.cache,
+                  "label": rs.label, "memory": rs.memory,
                   "healthy": rs.healthy}
         if isinstance(rs, RunState):
             return "plan", arrays, {"batch": int(rs.x.shape[0]),
@@ -1097,8 +1125,11 @@ class SmoothCacheExecutor:
         on_dev = functools.partial(_map_leaves, lambda a: (
             a.to(self.device) if isinstance(a, torch.Tensor) else a))
         arrays = {k: on_dev(v) for k, v in arrays.items()}
+        state = arrays.get("state")
         common = dict(x=arrays["x"], cache=arrays["cache"],
-                      label=arrays.get("label"),
+                      label=arrays.get("label"), memory=arrays.get("memory"),
+                      state=self.solver.init_state() if state is None
+                      else state,
                       healthy=arrays.get("healthy"))
         if kind == "plan":
             if plan is None:

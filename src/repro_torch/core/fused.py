@@ -1,4 +1,4 @@
-"""The fused adaptive step: decision, branch dispatch, model, DDIM step,
+"""The fused adaptive step: decision, branch dispatch, model, solver step,
 decision trace and health fold with no host read in between.
 
 The JAX package runs the adaptive loop as one donated program that picks
@@ -10,15 +10,18 @@ predicate ``code == i`` (IF nodes need CUDA 12.4; IF/ELSE and SWITCH nodes
 need 12.8), built by :mod:`repro_torch.core.cuda_graphs`.  Every branch body writes the same output buffers (the
 prediction and the collected cache entries), so the rest of the step reads
 one set of addresses whichever branch ran.  A device step counter indexes
-the model times, the DDIM coefficients, the static skip table and the
+the model times, the solver's coefficients, the static skip table and the
 trace, and the graph advances it; a chunk of ``n`` steps is ``n`` replays
-enqueued back to back.
+enqueued back to back.  The solver state and a text-conditioned run's
+``memory`` are buffers too, copied in per chunk as the latents are, so a
+captured graph reads the run's memory at a fixed address.
 
 One :class:`FusedGraph` exists per ``(batch, SwitchTable, runtime,
-labelled, telemetry, params)`` key — the counterpart of JAX's one fused
-program per (batch shape, pool, runtime, telemetry).  A telemetry step
-also writes each row's proxy signal into an (S, B) ``proxy_trace``: a
-graph of its own, so the steps without it stay as they were.  τ and
+labelled, telemetry, memory shape, params)`` key — the counterpart of
+JAX's one fused program per (batch shape, pool, runtime, telemetry).  A
+telemetry step also writes each row's proxy signal into an (S, B)
+``proxy_trace``: a graph of its own, so the steps without it stay as they
+were.  τ and
 k_max are (1,) device tensors in the graph's fixed buffers, as JAX
 passes them as traced arguments: every τ > 0 rung of a ladder replays
 one graph, so a rung change captures nothing.  The buffers are fixed: a
@@ -38,7 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,6 +82,8 @@ class FusedGraph:
         types = self.table.types
         self.buf = {name: None if v is None else torch.zeros_like(v)
                     for name, v in self._state(rs)}
+        self.solver_state = {k: torch.zeros_like(v)
+                             for k, v in rs.state.items()}
         self.buf["pred"] = torch.zeros_like(rs.x)
         self.buf["step"] = torch.zeros(1, dtype=torch.int64, device=dev)
         self.buf["tau"], self.buf["k_max"] = calibration.rule_limits(
@@ -108,7 +113,8 @@ class FusedGraph:
                 ("lag", rs.lag), ("trace", rs.trace),
                 ("healthy", rs.healthy), ("a", rs.coeff_a),
                 ("b", rs.coeff_b), ("skip_table", rs.skip_table),
-                ("label", rs.label), ("proxy_trace", rs.proxy_trace))
+                ("label", rs.label), ("proxy_trace", rs.proxy_trace),
+                ("memory", rs.memory))
 
     def _load(self, rs):
         """Copy a run state into the buffers (device to device)."""
@@ -120,6 +126,8 @@ class FusedGraph:
         self.buf["k_max"].fill_(rs.k_max)
         for si, bi, name in self.leaves:
             self.cache[si][bi][name].copy_(rs.cache[si][bi][name])
+        for k, v in rs.state.items():
+            self.solver_state[k].copy_(v)
 
     # -- the step ------------------------------------------------------------
 
@@ -148,13 +156,13 @@ class FusedGraph:
                     continue
                 skip = sig.skip
                 pred, computed = ex._model_call(
-                    self.params, x, t, b["label"],
+                    self.params, x, t, b["label"], b["memory"],
                     self.cache if any(skip.values()) else None,
                     skip=skip, collect=frozenset(sig.collect))
                 b["pred"].copy_(pred)
                 for si, bi, name in self.writes[i]:
                     self.cache[si][bi][name].copy_(computed[si][bi][name])
-        x_next = ex.solver.step(x, b["pred"], s)
+        x_next, state = ex.solver.step(x, b["pred"], s, self.solver_state)
         b["trace"].index_copy_(0, s, want.unsqueeze(0))
         if self.telemetry:
             b["proxy_trace"].index_copy_(0, s, proxy.unsqueeze(0))
@@ -162,6 +170,8 @@ class FusedGraph:
                    & torch.isfinite(acc).all(dim=-1))
         b["x_prev"].copy_(x)
         x.copy_(x_next)
+        for k, v in state.items():
+            self.solver_state[k].copy_(v)
         if self.runtime:
             b["acc"].copy_(acc)
             b["lag"].copy_(lag)
@@ -254,15 +264,36 @@ class FusedGraph:
                "healthy": b["healthy"].clone(),
                "cache": [tuple({k: v.clone() for k, v in d.items()}
                                for d in stage) for stage in self.cache]}
+        out["state"] = {k: v.clone() for k, v in self.solver_state.items()}
         if self.telemetry:
             out["proxy_trace"] = b["proxy_trace"].clone()
         return out
 
 
-def graph_key(rs, params) -> tuple:
+class GraphKey(NamedTuple):
     """What a captured step is specialized on: the batch, the pool's
-    branch table, τ > 0 or not, labels or not, step telemetry or not, and
-    the parameters (read by address).  τ and k_max are not in it: they
-    are buffers."""
-    return (int(rs.x.shape[0]), rs.table, rs.runtime, rs.label is not None,
-            rs.proxy_trace is not None, id(params))
+    branch table, τ > 0 or not, labels or not, step telemetry or not, the
+    memory's shape (None without one), and the parameters (read by
+    address).  τ and k_max are not in it: they are buffers."""
+    batch: int
+    table: object
+    runtime: bool
+    labelled: bool
+    telemetry: bool
+    memory_shape: Optional[tuple]
+    params: int
+
+    @property
+    def signature(self) -> tuple:
+        """The model-call variant's signature: the key less its batch and
+        parameters."""
+        return (self.table, self.runtime, self.labelled, self.telemetry,
+                self.memory_shape)
+
+
+def graph_key(rs, params) -> GraphKey:
+    """The :class:`GraphKey` of a fused run state."""
+    return GraphKey(int(rs.x.shape[0]), rs.table, rs.runtime,
+                    rs.label is not None, rs.proxy_trace is not None,
+                    None if rs.memory is None else tuple(rs.memory.shape),
+                    id(params))

@@ -202,10 +202,10 @@ __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y % a.H;
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x % a.H;
   const int hk = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.y * BQ;
   const bool vec = a.vec != 0;
   const T* qp = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
   const T* kp = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
@@ -455,7 +455,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
+  // batch*heads on x (up to 2^31 - 1 blocks: OpenSora's temporal
+  // attention has B*S*H = 65536 at 8 requests under CFG), query tiles on y
+  const dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -494,7 +496,8 @@ extern "C" int flash_attention_fwd(
     long long svl, long long svh, long long sob, long long sol, long long soh,
     float scale, int causal, int window, float softcap, int vec,
     void* stream) {
-  if (D < 1 || D > 128 || KV < 1 || H % KV != 0 || B * H > 65535)
+  if (D < 1 || D > 128 || KV < 1 || H % KV != 0 ||
+      (long long)B * H > 2147483647LL || (Lq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q,   k,   v,   o,   B,   Lq,  Lk,    H,      KV,     D,
                sqb, sql, sqh, skb, skl, skh, svb,   svl,    svh,    sob,

@@ -26,6 +26,9 @@ from repro_torch.kernels import build as _build
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARITH = {torch.float32: "3xtf32-mma.sync", torch.bfloat16: "bf16-mma.sync"}
+#: query rows per block (``BQ`` in ``flash_attention.cu``); the grid is
+#: (batch·heads, query tiles)
+QUERY_TILE = 64
 _LIB = None
 
 
@@ -82,8 +85,12 @@ def _check(q, k, v, window, softcap, scale):
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads are not a multiple of {kv} KV "
                          "heads")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads = {b * h} exceeds the grid's 65535")
+    if b * h > 2 ** 31 - 1:
+        raise ValueError(f"batch*heads = {b * h} exceeds the grid's "
+                         "2^31 - 1 blocks along x")
+    if -(-q.shape[1] // QUERY_TILE) > 65535:
+        raise ValueError(f"Lq = {q.shape[1]} exceeds the grid's 65535 query "
+                         f"tiles of {QUERY_TILE} along y")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:

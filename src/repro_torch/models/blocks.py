@@ -1,13 +1,16 @@
-"""Residual blocks: norm → mixer → +res [→ norm → ffn → +res], with adaLN-zero
-(DiT) conditioning and the SmoothCache branch-caching contract.  The mixer
-is self-attention (DiT) or a Mamba-2 SSD mixer, which carries a state cache
-from a full-sequence pass into the one-token decode.
+"""Residual blocks: norm → mixer → +res [→ norm → cross → +res]
+[→ norm → ffn → +res], with adaLN-zero (DiT) conditioning and the
+SmoothCache branch-caching contract.  The mixer is self-attention (DiT,
+OpenSora's spatial / temporal attention) or a Mamba-2 SSD mixer, which
+carries a state cache from a full-sequence pass into the one-token decode.
+The cross branch (OpenSora) attends to a conditioning memory, with no
+adaLN modulation and no gate.
 
-The contract: every cacheable *branch* (mixer / ffn) produces its output
-**before** the residual add and before the adaLN gate, which is recomputed
-cheaply on cache hits.  ``apply`` takes ``skip: dict[type → bool]``: when a
-branch's type is skipped, its output comes from ``branch_cache`` and the
-branch is not computed.
+The contract: every cacheable *branch* (mixer / cross / ffn) produces its
+output **before** the residual add and before the adaLN gate, which is
+recomputed cheaply on cache hits.  ``apply`` takes ``skip: dict[type →
+bool]``: when a branch's type is skipped, its output comes from
+``branch_cache`` and the branch is not computed.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from repro_torch.models import attention, layers as L, mlp, ssm
 
 
 def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
-         dtype=torch.float32, adaln_dim: int = 0):
+         dtype=torch.float32, adaln_dim: int = 0, cond_dim: int = 0):
     p = {}
     if spec.mixer is not None:
         p["norm1"] = L.norm_init(spec.norm, d_model, dtype)
@@ -28,6 +31,10 @@ def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
             p["mixer"] = ssm.init(gen, spec.mixer, d_model, dtype)
         else:
             p["mixer"] = attention.init(gen, spec.mixer, d_model, dtype)
+    if spec.cross is not None:
+        p["norm_x"] = L.norm_init(spec.norm, d_model, dtype)
+        p["cross"] = attention.init(gen, spec.cross, d_model, dtype,
+                                    cond_dim=cond_dim)
     if spec.ffn is not None:
         p["norm2"] = L.norm_init(spec.norm, d_model, dtype)
         p["ffn"] = mlp.init(gen, spec.ffn, d_model, dtype)
@@ -62,14 +69,16 @@ def _mod_norm(x_norm, shift, scale):
 
 
 def apply(spec: BlockSpec, params, x, *, mode: str = "full", cache=None,
-          cond=None, skip=None, branch_cache=None):
+          cond=None, skip=None, branch_cache=None, memory=None,
+          video_shape=None):
     """Returns ``(x, branch_out, new_cache)``.
 
     branch_out holds the pre-residual, pre-gate outputs of the computed
     branches (the SmoothCache cache content).  new_cache is the mixer's
     state cache: built by a full-sequence pass (``mode="full"``), advanced
     by one token in ``mode="decode"`` from ``cache``; None for attention,
-    whose caches are not ported."""
+    whose caches are not ported.  ``memory`` (B, Lm, cond_dim) feeds the
+    cross branch; ``video_shape`` (T, S) the factorized attention."""
     skip = skip or {}
     branch_cache = branch_cache or {}
     mod = _modulation(spec, params, cond)
@@ -92,12 +101,23 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", cache=None,
                 out, new_cache = ssm.apply_decode(m, params["mixer"], h,
                                                   cache, d_model)
             elif mode == "full":
-                out = attention.apply(m, params["mixer"], h)
+                out = attention.apply(m, params["mixer"], h,
+                                      video_shape=video_shape)
             else:
                 raise NotImplementedError("attention decode is not ported yet")
             branch_out["mixer"] = out
         if mod is not None:
             out = out * mod[2]
+        x = x + out.to(x.dtype)
+
+    if spec.cross is not None:
+        if skip.get(types["cross"], False):
+            out = branch_cache["cross"]
+        else:
+            h = L.apply_norm(spec.norm, params["norm_x"], x)
+            out = attention.apply(spec.cross, params["cross"], h,
+                                  memory=memory)
+            branch_out["cross"] = out
         x = x + out.to(x.dtype)
 
     if spec.ffn is not None:

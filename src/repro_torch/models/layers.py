@@ -1,4 +1,4 @@
-"""Primitive layers: norms, activations, embeddings, linear init.
+"""Primitive layers: norms, activations, RoPE, embeddings, linear init.
 
 Parameters are plain tensors in the JAX package's layout: a dense weight is
 ``(in, out)`` and applied as ``x @ w``."""
@@ -87,6 +87,34 @@ def activation(name: str):
 def softcap(x, cap: float):
     """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    """Inverse frequencies ``θ^(−2i/head_dim)``, (head_dim/2,) float32."""
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / head_dim))
+
+
+def rope_angles(positions, head_dim: int, theta: float = 10000.0):
+    """(cos, sin) of the rotation angles, each (..., L, 1, head_dim/2)
+    float32; positions: (..., L).  Built once and shared by q and k."""
+    inv = rope_freqs(head_dim, theta, positions.device)  # (dh/2,)
+    ang = positions[..., :, None].float() * inv         # (..., L, dh/2)
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x, positions, theta: float = 10000.0, angles=None):
+    """x: (..., L, H, Dh) rotated half-split style in float32; positions:
+    (..., L).  ``angles`` is :func:`rope_angles`' result for these
+    positions, if the caller has it already."""
+    cos, sin = angles or rope_angles(positions, x.shape[-1], theta)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

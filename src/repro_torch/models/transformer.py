@@ -58,7 +58,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     stages = []
     for st in cfg.stages:
         reps = [tuple(blocks.init(gen, b, cfg.d_model, dtype,
-                                  adaln_dim=adaln_dim) for b in st.unit)
+                                  adaln_dim=adaln_dim, cond_dim=cfg.cond_dim)
+                      for b in st.unit)
                 for _ in range(st.repeat)]
         stages.append(tuple(_stack([r[i] for r in reps])
                             for i in range(len(st.unit))))
@@ -120,7 +121,8 @@ def _normalize_collect(collect_branches):
 
 def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
                  cond=None, skip=None, branch_caches=None,
-                 collect_branches=False, collect_caches=False):
+                 collect_branches=False, collect_caches=False, memory=None,
+                 video_shape=None):
     """Run all stages.  Returns ``(x, branch, new_caches)``.
 
     branch: per stage, a tuple per unit block of ``{branch_name: (repeat,
@@ -146,7 +148,8 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
                          if scache is not None else None)
                 x, bo, nc = blocks.apply(
                     b, tree_map(lambda a: a[r], sp[i]), x, mode=mode,
-                    cache=cache, cond=cond, skip=skip, branch_cache=bc)
+                    cache=cache, cond=cond, skip=skip, branch_cache=bc,
+                    memory=memory, video_shape=video_shape)
                 if collect is not None:
                     types = dict(zip(b.branch_names(), b.branch_types()))
                     bo = {n: v for n, v in bo.items() if types[n] in collect}
@@ -173,17 +176,19 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
 
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None, cond=None,
             skip=None, branch_caches=None, collect_branches=False,
-            collect_caches=False):
+            collect_caches=False, memory=None, video_shape=None):
     """Full-sequence forward.  For an LM: tokens (B, L) → logits.  For a
     diffusion backbone: embeddings ``embeds`` (B, L, d) → hidden states
     after ``final_norm`` (the diffusion wrapper owns patchify and head).
+    ``memory`` (B, Lm, cond_dim) and ``video_shape`` (T, S) reach every
+    block.
     Returns ``(out, {"branch", "caches", "hidden"})`` (see
     :func:`apply_stages`)."""
     x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
     x, branch, caches = apply_stages(
         cfg, params, x, mode="full", cond=cond, skip=skip,
         branch_caches=branch_caches, collect_branches=collect_branches,
-        collect_caches=collect_caches)
+        collect_caches=collect_caches, memory=memory, video_shape=video_shape)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     out = logits_from_hidden(cfg, params, x) if cfg.task == "lm" else x
     return out, {"branch": branch, "caches": caches, "hidden": x}

@@ -1,8 +1,8 @@
 """Shared inputs for the parity tests of the PyTorch port (``repro_torch``)
-against the JAX package: the dit-xl-256 and mamba2-1.3b smoke configs of
-both packages and one seeded parameter set of each, handed to each side
-from numpy; and a numpy emulation of the kernels' TF32 tensor-core
-products."""
+against the JAX package: the dit-xl-256, mamba2-1.3b and opensora-v12
+smoke configs of both packages and one seeded parameter set of each,
+handed to each side from numpy; and a numpy emulation of the kernels'
+TF32 tensor-core products."""
 import functools
 
 import jax
@@ -66,6 +66,32 @@ def lm_smoke_params():
     """(jax params, torch params on the CPU) of the mamba2-1.3b smoke config
     with identical values."""
     pn = _lm_numpy_params()
+    return (jax.tree.map(jnp.asarray, pn),
+            params_from_numpy(pn, device="cpu"))
+
+
+def video_cfgs():
+    return (jconfigs.get("opensora-v12", "smoke"),
+            tconfigs.get("opensora-v12", "smoke"))
+
+
+@functools.lru_cache(maxsize=1)
+def _video_numpy_params():
+    """Reference init plus a seeded +0.05·N(0,1) on every leaf, so that the
+    adaLN-zero leaves are not zero and every branch matters."""
+    cfg, _ = video_cfgs()
+    p = jdiffusion.init_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(13)
+    return jax.tree.map(
+        lambda a: (np.asarray(a)
+                   + 0.05 * rng.standard_normal(a.shape)).astype(np.float32),
+        p)
+
+
+def video_params():
+    """(jax params, torch params on the CPU) of the opensora-v12 smoke
+    config with identical values."""
+    pn = _video_numpy_params()
     return (jax.tree.map(jnp.asarray, pn),
             params_from_numpy(pn, device="cpu"))
 

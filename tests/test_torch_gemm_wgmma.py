@@ -197,7 +197,7 @@ def test_call_sites_ask_for_their_variant(monkeypatch):
     assert len(requests) == tcfg.num_layers + 3
     assert len(tokens) == 2 + 6 * tcfg.num_layers
     assert set(requests) == {2}  # one row per request
-    n_tok, _ = diffusion.token_shape(tcfg)
+    n_tok, _, _ = diffusion.token_shape(tcfg)
     assert set(tokens) == {2 * n_tok}
 
 

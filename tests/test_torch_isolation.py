@@ -15,6 +15,7 @@ from repro_torch import configs
 from repro_torch.cache import DiffusionPipeline
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import diffusion, executor, solvers
+from repro_torch.data import synthetic
 from repro_torch.launch import serve, serve_diffusion
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,7 +33,9 @@ need = {"repro_torch.launch.serve", "repro_torch.kernels.ssd",
         "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b",
         "repro_torch.serve.engine", "repro_torch.slo.policy",
         "repro_torch.obs.tracer", "repro_torch.launch.serve_diffusion",
-        "repro_torch.core.fused", "repro_torch.core.cuda_graphs"}
+        "repro_torch.core.fused", "repro_torch.core.cuda_graphs",
+        "repro_torch.configs.opensora_v12", "repro_torch.data.synthetic",
+        "repro_torch.core.solvers"}
 print("MISSING", sorted(need - set(sys.modules)))
 """
 
@@ -70,6 +73,34 @@ def test_entry_points_raise_without_cuda(no_cuda, device):
         serve_diffusion.random_params(torch.Generator(), cfg, **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_diffusion.main([*(["--device", device] if device else [])])
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_video_entry_points_raise_without_cuda(no_cuda, device):
+    """The OpenSora path's entry points: the pipeline and executor with
+    rectified flow, the parameters, and the synthetic text memory."""
+    cfg = configs.get("opensora-v12", "smoke")
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiffusionPipeline(cfg, solvers.rectified_flow(4), cfg_scale=7.0,
+                          **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        executor.SmoothCacheExecutor(cfg, solvers.rectified_flow(4), **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diffusion.init_params(torch.Generator(), cfg, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.text_memory(torch.Generator(), 1, 8, cfg.cond_dim, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic.CondLatents(cfg.latent_shape, cfg.cond_dim, 8, 1).batch_at(
+            0, **kw)
+    pipe = DiffusionPipeline(cfg, solvers.rectified_flow(2), device="cpu")
+    params = diffusion.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu")
+    mem = synthetic.text_memory(torch.Generator().manual_seed(1), 1, 8,
+                                cfg.cond_dim, device="cpu")
+    x = pipe.generate(params, torch.Generator().manual_seed(2), 1,
+                      memory=mem)
+    assert x.shape == (1,) + cfg.latent_shape and x.device.type == "cpu"
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -102,8 +102,10 @@ def _bad_inputs():
         "batch": ((q, torch.cat([k, k]), torch.cat([v, v])), {}, "differ"),
         "head dim": ((wide, wide, wide), {}, "head dim 129"),
         "gqa": ((q[:, :, :3], k, v), {}, "not a multiple"),
-        "grid": ((torch.zeros(4097, 1, 16, 8), torch.zeros(4097, 1, 16, 8),
-                  torch.zeros(4097, 1, 16, 8)), {}, "65535"),
+        # 65535 query tiles of 64 rows at most along the grid's y
+        "grid": ((torch.zeros(1, 64 * 65535 + 1, 1, 1),
+                  torch.zeros(1, 1, 1, 1), torch.zeros(1, 1, 1, 1)), {},
+                 "65535"),
         "window": ((q, k, v), {"window": 0}, "window"),
         "softcap": ((q, k, v), {"softcap": 0.0}, "softcap"),
         "scale": ((q, k, v), {"scale": float("inf")}, "scale"),
@@ -158,6 +160,19 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     out = ops.flash_attention(q, k, v, causal=False)
     assert torch.equal(out, ref.flash_attention_ref(q, k, v, causal=False))
     assert ops.LAUNCHES["flash_attention"] == before
+
+
+def test_kernel_wrapper_takes_batch_heads_past_65535():
+    """Batch x heads sits on the grid's x, which takes 2^31 - 1 blocks:
+    OpenSora's temporal attention at 8 requests under CFG, (16·256, 16)
+    rows of 16 heads = 65536 blocks, passes every check but the device's
+    (so this CPU tensor is refused for its device alone)."""
+    q = torch.zeros(16 * 256, 16, 16, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.flash_attention_cuda(q, q, q, causal=False)
+    big = torch.zeros(1, 64 * 65535, 1, 1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.flash_attention_cuda(big, big[:, :1], big[:, :1], causal=False)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

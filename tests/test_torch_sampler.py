@@ -32,8 +32,10 @@ def test_ddim_step_close():
     js, ts = jsolvers.ddim(10), tsolvers.ddim(10)
     for s in (0, 4, 9):
         xj, _ = js.step(jnp.asarray(x), jnp.asarray(eps), s, {})
-        close(xj, ts.step(torch.from_numpy(x), torch.from_numpy(eps), s),
-              atol=1e-5, rtol=1e-5)
+        xt, state = ts.step(torch.from_numpy(x), torch.from_numpy(eps), s,
+                            ts.init_state())
+        assert state == {}
+        close(xj, xt, atol=1e-5, rtol=1e-5)
 
 
 def _executors():
