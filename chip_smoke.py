@@ -147,11 +147,34 @@ exits non-zero:
    56 blocks of (1 + 4 per computed attention or cross branch + 2 per
    computed MLP) per step, segmented ≡ eager bitwise; one fused adaptive
    batch ≡ the host loop bitwise with no decision sync; a traced B = 2
-   forward (``video_profile``).
+   forward (``video_profile``);
+18. the audio slice (``audio``, ~85 s on an H100 80GB HBM3 at 700 W,
+   last, on weights of its own after the video weights are freed):
+   Stable-Audio-Open at full width (24 blocks, d 1536, 216 latent rows,
+   a 128-token text memory stub 768 wide), the paper's Table 3 protocol
+   — DPM-Solver++(3M) SDE 100, CFG 7.0.  The attention kernel, self over 216 keys and cross over 128, at
+   1 and 4 requests against its plain version, bitwise twice, timed
+   beside its bound and SDPA's; every product for 1–4 requests against
+   cuBLAS, each row bitwise against fewer and permuted rows, one
+   forward's products timed; a card forward against a CPU forward and an
+   8-step DPM++ sample on the card against the CPU from one seed, at 2
+   blocks (≤ 1e-4); calibration on 8 samples (B = 16), the artifact
+   saved and loaded strictly, 1 request under ``no_cache``,
+   ``smoothcache:alpha=0.15`` / ``0.30`` and ``static:n=2`` — finite,
+   attention launches = 24 per computed ``attn`` and ``xattn`` per step,
+   linear launches = 5 + Σ over the 24 blocks of (1 + 4 per computed
+   attn + 4 per computed xattn + 3 per computed ffn) per step (293 when
+   all compute), segmented ≡ eager bitwise; one adaptive ``generate`` on
+   the host loop (99 decision syncs); the fused path and ``split_run``
+   refusing; 4 requests with prompts drained over two entries, each
+   served batch ≡ its ``generate``, no join; a static and a host-loop
+   run exported after 3 steps, restored on a fresh executor ≡
+   uninterrupted; a traced B = 2 forward (``audio_profile``); peak
+   memory of calibration and of the slice.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's,
-Mamba-2-1.3B's and OpenSora-v1.2's.
+Mamba-2-1.3B's, OpenSora-v1.2's and Stable-Audio-Open's.
 """
 import gc
 import json
@@ -368,11 +391,13 @@ def gemms(cfg, batch, mem_len=0):
     requests) as ``(M, K, N, bias, calls, rows)``: the patch embedding,
     the time MLP, per block the adaLN modulation, self-attention q/k/v/o,
     cross-attention q/o over the tokens and k/v over a ``mem_len``-token
-    memory where the block has ``cross``, the MLP, the final modulation
-    and the output projection; ``rows`` is the linear kernel's variant
-    (``"requests"``: one row per request)."""
+    memory where the block has ``cross``, the MLP (up, and gate where it
+    is gated, then down), the final modulation and the output projection;
+    ``rows`` is the linear kernel's variant (``"requests"``: one row per
+    request)."""
     from repro_torch.core.diffusion import TIME_EMB_DIM, token_shape
-    d, ff = cfg.d_model, cfg.stages[0].unit[0].ffn.d_ff
+    ffn = cfg.stages[0].unit[0].ffn
+    d, ff, up = cfg.d_model, ffn.d_ff, 2 if ffn.gated else 1
     n_tok, tok_dim, _ = token_shape(cfg)
     rows, toks, blocks = batch, batch * n_tok, cfg.num_layers
     cross = sum(b.cross is not None for _, _, _, b in cfg.blocks())
@@ -383,15 +408,18 @@ def gemms(cfg, batch, mem_len=0):
             (rows, TIME_EMB_DIM, d, True, 1, r), (rows, d, d, True, 1, r),
             (rows, d, 6 * d, True, blocks, r),
             (toks, d, d, False, 4 * blocks + 2 * cross, t), *memory,
-            (toks, d, ff, False, blocks, t), (toks, ff, d, False, blocks, t),
+            (toks, d, ff, False, up * blocks, t),
+            (toks, ff, d, False, blocks, t),
             (rows, d, 2 * d, True, 1, r), (toks, d, tok_dim, True, 1, t)]
 
 
 def linear_calls(cfg, computed):
     """``ops.linear`` calls of one forward whose branches of the types in
     ``computed`` run: 5 outside the blocks, per block its modulation, 4
-    per computed self- or cross-attention branch, 2 per computed MLP."""
-    return 5 + sum(1 + sum(4 if t.endswith("attn") else 2
+    per computed self- or cross-attention branch, 2 per computed MLP (3
+    when it is gated)."""
+    return 5 + sum(1 + sum(4 if t.endswith("attn") else
+                           3 if b.ffn.gated else 2
                            for t in b.branch_types() if t in computed)
                    for _, _, _, b in cfg.blocks())
 
@@ -2896,6 +2924,564 @@ def video_phase(peaks, kernels):
           "slice_s": slice_s, "launches": launches})
 
 
+# ---------------------------------------------------------------------------
+# The audio slice: Stable-Audio-Open at full width
+# ---------------------------------------------------------------------------
+
+# the paper's Table 3 protocol (benchmarks/table3_audio.py): DPM-Solver++(3M)
+# SDE at 100 steps, CFG 7.0, calibration on 8 samples, α ∈ {0.15, 0.30};
+# a 128-token memory, the max_length of Stable Audio Open 1.0's T5 prompt
+# conditioner
+AUDIO_STEPS, AUDIO_CFG, AUDIO_MEM, AUDIO_CALIB = 100, 7.0, 128, 8
+AUDIO_SMOOTH = "smoothcache:alpha=0.15"
+AUDIO_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.15),tau=0.3"
+
+
+def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
+    """The attention kernel at the audio path's shapes — self (B, 216, 24,
+    64) over 216 keys (ragged against the 32-key tile) and cross over the
+    128-token memory — at B = 2 and 8 (1 and 4 requests under CFG):
+    against the plain version (≤ 5e-5), two launches bitwise, device ms
+    beside the bound and SDPA's.  Every product shape of a forward for 1–4
+    requests, each through its call site's variant, against cuBLAS f32 (≤
+    5e-5 of the output's scale); each row bitwise against the product of
+    fewer requests' rows and of permuted rows; device ms of one B = 2
+    forward's products beside their bound and cuBLAS's."""
+    import torch.nn.functional as F
+    from repro_torch.core.diffusion import token_shape
+    from repro_torch.kernels.timing import device_ms
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 60)
+    spec = cfg.stages[0].unit[0].mixer
+    h, d = spec.num_heads, spec.head_dim
+    n_tok = token_shape(cfg)[0]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    attn = {}
+    for name, lk in (("self", n_tok), ("cross", AUDIO_MEM)):
+        for b in (2, 8):
+            q, k, v = rand(b, n_tok, h, d), rand(b, lk, h, d), rand(b, lk, h, d)
+            out = fa.flash_attention_cuda(q, k, v, causal=False)
+            again = fa.flash_attention_cuda(q, k, v, causal=False)
+            want = ref.flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            check(bool(torch.allclose(out, want, atol=5e-5, rtol=5e-5)),
+                  f"audio {name} attention at B = {b} vs plain: max abs "
+                  f"err {err}")
+            check(bool(torch.equal(out, again)),
+                  f"two launches of audio {name} attention at B = {b} "
+                  "differ")
+            bound, by, flops, nbytes = _attn_bound(peaks, b, n_tok, lk, h, d)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            row = {"shape": [b, n_tok, lk, h, d], **fa.plan(q, k, v),
+                   "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                   "flops": flops, "bytes": nbytes,
+                   "ms": device_ms(lambda: fa.flash_attention_cuda(
+                       q, k, v, causal=False)),
+                   "plain_ms": device_ms(lambda: ref.flash_attention_ref(
+                       q, k, v, causal=False), iters=10),
+                   "library_ms": device_ms(
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt))}
+            row["bound_share"] = bound / row["ms"]
+            attn[f"{name}_b{b}"] = row
+    emit({"phase": "audio_attention", "limit": 5e-5, "shapes": attn})
+
+    def inputs(m, k, n, bias):
+        x = rand(m, k)
+        return x, rand(k, n) / k ** 0.5, rand(n) if bias else None
+
+    sweep, worst = [], 0.0
+    for requests in (1, 2, 3, 4):
+        for m, k, n, bias, _, rows in gemms(cfg, 2 * requests, AUDIO_MEM):
+            x, w, b = inputs(m, k, n, bias)
+            out = gemm.linear_cuda(x, w, b, rows=rows)
+            want = ref.linear_ref(x, w, b)
+            # the exact product, to tell the kernel's error from cuBLAS's
+            exact = ref.linear_ref(x.double(), w.double(),
+                                   None if b is None else b.double())
+            torch.cuda.synchronize()
+            rel = float((out - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+            scale = float(exact.abs().max())
+            sweep.append({"requests": requests, "m": m, "k": k, "n": n,
+                          "rows": rows, "rel_max_err": rel,
+                          "kernel_vs_f64": float((out - exact).abs().max())
+                          / scale,
+                          "plain_vs_f64": float((want - exact).abs().max())
+                          / scale})
+            check(rel <= 5e-5, f"audio product {sweep[-1]}")
+            gemm.release()
+    stable = {}
+    for m, k, n, _, _, rows in gemms(cfg, 8, AUDIO_MEM):
+        per_request = m // 8
+        x, w, _ = inputs(m, k, n, False)
+        full = gemm.linear_cuda(x, w, rows=rows)
+        diffs = {str(r): float((gemm.linear_cuda(
+            x[:2 * r * per_request].contiguous(), w, rows=rows)
+            - full[:2 * r * per_request]).abs().max()) for r in (1, 2, 3)}
+        perm = torch.randperm(m, generator=gen).cuda()
+        diffs["permuted"] = float((gemm.linear_cuda(x[perm].contiguous(), w,
+                                                    rows=rows)
+                                   - full[perm]).abs().max())
+        stable[f"{k}x{n}:{rows}"] = {"plan": gemm.plan(k, n, rows)["tile"],
+                                     **diffs}
+        gemm.release()
+    emit({"phase": "audio_products", "limit": 5e-5, "max_rel_err": worst,
+          "cases": sweep, "rows_max_abs_vs_full": stable})
+    check(all(v == 0.0 for row in stable.values()
+              for key, v in row.items() if key != "plan"),
+          f"an audio product's row changes with the batch: {stable}")
+
+    products = []
+    for m, k, n, bias, calls, rows in gemms(cfg, 2, AUDIO_MEM):
+        x, w, b = inputs(m, k, n, bias)
+        products.append({**product_times(gemm, ref, peaks, x, w, b, rows),
+                         "calls": calls})
+        gemm.release()
+    summary = {"products": products, "max_rel_err": worst,
+               **{f"forward_{key}": sum(p[key] * p["calls"]
+                                        for p in products)
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    emit({"phase": "audio_product_times", "batch": 2, **summary,
+          "seconds": time.perf_counter() - t_phase})
+    return attn, summary
+
+
+def audio_cut(cfg, random_params, blocks=2):
+    """The full-width config cut to ``blocks`` blocks, and seeded weights
+    for it on the CPU and on the card."""
+    from repro_torch.config import Stage
+    from repro_torch.models.transformer import tree_map
+    cut = cfg.replace(stages=(Stage(unit=cfg.stages[0].unit,
+                                    repeat=blocks),))
+    p_cpu = random_params(torch.Generator().manual_seed(SEED + 61), cut,
+                          device="cpu")
+    return cut, p_cpu, tree_map(lambda a: a.cuda(), p_cpu)
+
+
+def audio_cross_check_phase(cfg, diffusion, gemm, random_params):
+    """At full width (216 tokens, d 1536, a 128-token memory 768 wide) and
+    a depth cut to 2 blocks: a card forward against a CPU forward (one
+    request under CFG, the second half with a zero memory), then one
+    8-step DPM++(3M) SDE sample from one seed on the card and on the CPU —
+    the latent and every step's noise are drawn on the CPU from the seed,
+    so the two runs see the same noise.  Both ≤ 1e-4 of the CPU's scale."""
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.data import synthetic
+    cut, p_cpu, p_gpu = audio_cut(cfg, random_params)
+    gen = torch.Generator().manual_seed(SEED + 62)
+    x = torch.randn((1,) + cut.latent_shape, generator=gen).repeat(2, 1, 1)
+    mem = synthetic.text_memory(gen, 1, AUDIO_MEM, cut.cond_dim,
+                                device="cpu")
+    mem2 = torch.cat([mem, torch.zeros_like(mem)])
+    t = torch.tensor([700.0, 700.0])
+    (pred_gpu, _), gpu_s = _timed(lambda: diffusion.apply(
+        cut, p_gpu, x.cuda(), t.cuda(), memory=mem2.cuda()))
+    t0 = time.perf_counter()
+    pred_cpu, _ = diffusion.apply(cut, p_cpu, x, t, memory=mem2)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(pred_cpu).all()), "CPU prediction not finite")
+    scale = float(pred_cpu.abs().max())
+    rel = float((pred_gpu.cpu() - pred_cpu).abs().max()) / scale
+    emit({"phase": "audio_cross_check", "blocks": cut.num_layers,
+          "tokens": diffusion.token_shape(cut)[0], "memory": AUDIO_MEM,
+          "batch": 2, "max_abs_pred": scale, "rel_max_err": rel,
+          "limit": 1e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
+    check(rel <= 1e-4, f"audio card vs CPU forward: relative error {rel}")
+
+    steps = 8
+    out = {}
+    for side, dev, params, m in (("gpu", "cuda", p_gpu, mem.cuda()),
+                                 ("cpu", "cpu", p_cpu, mem)):
+        ex = SmoothCacheExecutor(cut, solvers.dpmpp_3m_sde(steps),
+                                 cfg_scale=AUDIO_CFG, device=dev)
+        out[side], out[side + "_s"] = _timed(lambda: ex.sample(
+            params, torch.Generator().manual_seed(SEED + 63), 1, memory=m))
+    scale = float(out["cpu"].abs().max())
+    rel = float((out["gpu"].cpu() - out["cpu"]).abs().max()) / scale
+    emit({"phase": "audio_sample_cross_check", "blocks": cut.num_layers,
+          "solver": "dpmpp_3m_sde", "steps": steps, "cfg": AUDIO_CFG,
+          "max_abs_x": scale, "rel_max_err": rel, "limit": 1e-4,
+          "gpu_s": out["gpu_s"], "cpu_s": out["cpu_s"]})
+    check(bool(torch.isfinite(out["cpu"]).all()), "CPU sample not finite")
+    check(rel <= 1e-4, f"audio card vs CPU sample: relative error {rel}")
+    gemm.release()          # the cut model's prepared halves
+
+
+def audio_slice_phase(cfg, params, ops, memory):
+    """The full-width Stable-Audio-Open slice, Table 3's protocol:
+    DPM-Solver++(3M) SDE 100, CFG 7.0, a 128-token memory.  Calibrate on 8
+    samples (B = 16) under the adaptive policy (its base is
+    ``smoothcache:alpha=0.15``), save the artifact, load it strictly into
+    fresh pipelines, answer 1 request (B = 2) under ``no_cache``,
+    ``smoothcache:alpha=0.15`` / ``0.30`` and ``static:n=2``: every latent
+    finite, attention launches = Σ over steps of 24 per computed ``attn``
+    and ``xattn``, linear launches = Σ over steps of 5 + Σ over the 24
+    blocks of (1 + 4 per computed attn + 4 per computed xattn + 3 per
+    computed ffn); segmented ≡ eager bitwise; one adaptive ``generate`` on
+    the host loop (one decision sync per step past the first); the fused
+    path and ``split_run`` raise.  Walls, compute fractions, rel-L1 to
+    ``no_cache``, peak device memory.  Returns the artifact and, for the
+    snapshot check, the ``static:n=2`` run's plan and latent and the
+    adaptive pipeline with its run's latent."""
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import solvers
+    from repro_torch.data import synthetic
+    types = cfg.layer_types()
+    calib_mem = synthetic.text_memory(
+        torch.Generator().manual_seed(SEED + 64), AUDIO_CALIB, AUDIO_MEM,
+        cfg.cond_dim)
+
+    def pipe(policy):
+        return DiffusionPipeline(cfg, solvers.dpmpp_3m_sde(AUDIO_STEPS),
+                                 policy, cfg_scale=AUDIO_CFG)
+
+    calib = pipe(AUDIO_ADAPTIVE)
+    torch.cuda.reset_peak_memory_stats()
+    art, calib_s = _timed(lambda: calib.calibrate(
+        params, torch.Generator().manual_seed(SEED + 65), AUDIO_CALIB,
+        cond_args={"memory": calib_mem}))
+    check(sorted(art.curves) == sorted(types), f"curves {sorted(art.curves)}")
+    emit({"phase": "audio_calibrate", "samples": AUDIO_CALIB,
+          "batch": 2 * AUDIO_CALIB, "steps": AUDIO_STEPS,
+          "seconds": calib_s,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "compute_fraction": calib.compute_fraction(),
+          "lag1_err_mid": {t: float(c[AUDIO_STEPS // 2, 1])
+                           for t, c in art.curves.items()}})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = calib.save_artifact(str(Path(tmp) / "sao_dpm100.cache.json"))
+        serve = pipe(AUDIO_SMOOTH)
+        serve.load_artifact(path, strict=True)
+        adaptive = pipe(AUDIO_ADAPTIVE)
+        adaptive.load_artifact(path, strict=True)
+    check(serve.schedule.to_json() == art.schedule.to_json()
+          == serve.schedule_for(AUDIO_SMOOTH).to_json(),
+          "the artifact's schedule is not smoothcache:alpha=0.15's")
+
+    runs, latents = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, sch in (("no_cache", None), (AUDIO_SMOOTH, serve.schedule),
+                      ("smoothcache:alpha=0.30",
+                       serve.schedule_for("smoothcache:alpha=0.30")),
+                      ("static:n=2", serve.schedule_for("static:n=2"))):
+        kw = {} if name == AUDIO_SMOOTH else {"schedule": sch}
+        steps = [[t for t in types if sch is None or not sch.skip[t][s]]
+                 for s in range(AUDIO_STEPS)]
+        want_attn = sum(attn_calls(cfg, c) for c in steps)
+        want_linear = sum(linear_calls(cfg, c) for c in steps)
+        before = dict(ops.LAUNCHES)
+        x, wall = _timed(lambda: serve.generate(
+            params, torch.Generator().manual_seed(SEED + 66), 1,
+            memory=memory, **kw))
+        attn = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+        linear = ops.LAUNCHES["linear"] - before["linear"]
+        latents[name] = x
+        frac = (1.0 if sch is None else float(sum(
+            sch.compute_fraction(t) for t in types) / len(types)))
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite latents")
+        check(attn == want_attn, f"{name}: {attn} attention launches, "
+              f"expected {want_attn}")
+        check(linear == want_linear, f"{name}: {linear} linear launches, "
+              f"expected {want_linear}")
+        base = latents["no_cache"]
+        runs.append({"run": name, "requests": 1, "wall_s": wall,
+                     "compute_fraction": frac, "attn_launches": attn,
+                     "linear_launches": linear,
+                     "linear_per_full_step": linear_calls(cfg, types),
+                     "skipped_steps": {t: int(sch.skip[t].sum())
+                                       for t in types} if sch is not None
+                     else None,
+                     "rel_l1_to_no_cache": float((x - base).abs().sum()
+                                                 / base.abs().sum())})
+        emit({"phase": "audio_generate", **runs[-1]})
+    eager, eager_s = _timed(lambda: serve.generate(
+        params, torch.Generator().manual_seed(SEED + 66), 1, memory=memory,
+        compiled=False))
+    same = bool(torch.equal(eager, latents[AUDIO_SMOOTH]))
+    emit({"phase": "audio_segmented_vs_eager", "run": AUDIO_SMOOTH,
+          "bitwise_equal": same, "eager_wall_s": eager_s,
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    check(same, "audio: segmented and eager latents differ")
+
+    ex = adaptive.executor
+    syncs = ex.host_sync_count
+    before = dict(ops.LAUNCHES)
+    (xa, decisions), wall = _timed(lambda: adaptive.generate(
+        params, torch.Generator().manual_seed(SEED + 66), 1, memory=memory,
+        return_decisions=True))
+    row = {"phase": "audio_adaptive", "route": "host loop",
+           "wall_s": wall, "decision_syncs": ex.host_sync_count - syncs,
+           "attn_launches": ops.LAUNCHES["flash_attention"]
+           - before["flash_attention"],
+           "skipped": {t: sum(t in d for d in decisions) for t in types},
+           "rel_l1_to_no_cache": float(
+               (xa - latents["no_cache"]).abs().sum()
+               / latents["no_cache"].abs().sum())}
+    emit(row)
+    check(bool(torch.isfinite(xa).all()), "adaptive: non-finite latents")
+    check(row["decision_syncs"] == AUDIO_STEPS - 1,
+          f"{row['decision_syncs']} decision syncs in a host-loop run")
+    refused = {}
+    try:
+        ex.sample_adaptive_fused(
+            params, torch.Generator().manual_seed(SEED), 1,
+            schedule=adaptive.schedule, tau=adaptive.policy.tau,
+            proxy_map=adaptive.proxy_map, memory=memory)
+    except ValueError as e:
+        refused["fused"] = "not scannable" in str(e)
+    rs = ex.start_run(params, torch.Generator().manual_seed(SEED), 1,
+                      plan=serve.plan, memory=memory)
+    try:
+        ex.split_run(rs, [[0]])
+    except ValueError as e:
+        refused["split_run"] = "stochastic" in str(e)
+    emit({"phase": "audio_refusals", **refused})
+    check(refused == {"fused": True, "split_run": True},
+          f"the fused path or split_run did not refuse: {refused}")
+    static = serve.schedule_for("static:n=2")
+    return art, {"plan": (serve.executor.plan_for(static),
+                          latents["static:n=2"]),
+                 "adaptive": (adaptive, xa)}
+
+
+def audio_serve_phase(cfg, params, ops, art, memory, runs):
+    """A drain of 4 requests with prompts (the engine's ``text_encoder``
+    the 128-token memory stub) over two entries — ``static:n=2`` and the
+    adaptive artifact on the host loop — ``max_batch`` 2, with
+    ``continuous=True`` joining nothing (the solver is stochastic); both
+    served batches replayed through ``generate`` bitwise.  Then a
+    stochastic run's snapshot: the slice's ``static:n=2`` run and its
+    host-loop run (``runs``: plan or pipeline, and the uninterrupted
+    latent), each started again, exported after 3 steps, saved,
+    restored, imported on a fresh executor and finished — bitwise the
+    uninterrupted run."""
+    import functools
+    from repro_torch import serve
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.data import synthetic
+    t_phase = time.perf_counter()
+    encoder = functools.partial(synthetic.prompt_memory, length=AUDIO_MEM,
+                                dim=cfg.cond_dim)
+
+    def solver():
+        return solvers.dpmpp_3m_sde(AUDIO_STEPS)
+
+    def executor():
+        return SmoothCacheExecutor(cfg, solver(), cfg_scale=AUDIO_CFG)
+
+    store = serve.ArtifactStore(cfg, solver(), cfg_scale=AUDIO_CFG)
+    store.add_policy("static:n=2", "static:n=2")
+    store.add_artifact(AUDIO_ADAPTIVE, art)
+    ex = executor()
+    eng = serve.ServeEngine(ex, params, store, max_batch=2, max_inflight=2,
+                            adaptive_chunk=4, continuous=True,
+                            text_encoder=encoder)
+    prompts = ["rain on a tin roof", "a violin tuning", "waves at night",
+               "a crowd applauding"]
+    before = dict(ops.LAUNCHES)
+    eng.submit(*[serve.Request(rid=i, seed=500 + i, prompt=prompts[i],
+                               policy=(AUDIO_ADAPTIVE if i % 2
+                                       else "static:n=2"))
+                 for i in range(4)])
+    results, wall = _timed(eng.run_until_drained)
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in ("flash_attention",
+                                                          "linear")}
+    check(sorted(results) == [0, 1, 2, 3], f"served {sorted(results)}")
+    check(eng.metrics.joins == 0, "a stochastic run took a join")
+    replays = {}
+    for rec in eng.records:
+        pipe = DiffusionPipeline(cfg, solver(), rec.group,
+                                 cfg_scale=AUDIO_CFG)
+        if rec.group == AUDIO_ADAPTIVE:
+            pipe.load_artifact(art, strict=True)
+        x = pipe.generate(params, serve.batch_generator(rec.seeds),
+                          rec.bucket, memory=encoder(list(rec.prompts)))
+        replays[rec.group] = all(
+            bool(torch.equal(torch.from_numpy(results[rid]), x[j].cpu()))
+            for j, rid in enumerate(rec.rids))
+    emit({"phase": "audio_serve", "requests": 4, "entries": 2,
+          "wall_s": wall, "batches": len(eng.records),
+          "decision_syncs": ex.host_sync_count, "joins": eng.metrics.joins,
+          "launches": launches, "replay_bitwise": replays})
+    check(set(replays) == {"static:n=2", AUDIO_ADAPTIVE}
+          and all(replays.values()),
+          f"a served audio batch differs from its generate: {replays}")
+
+    plan, want_plan = runs["plan"]
+    ad, want_adaptive = runs["adaptive"]
+    ad_kw = dict(schedule=ad.schedule, tau=ad.policy.tau,
+                 proxy_map=ad.proxy_map, k_max=ad.policy.k_max)
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 66)
+
+    kinds = {"plan": (lambda e: e.start_run(params, gen(), 1, plan=plan,
+                                            memory=memory),
+                      lambda e, rs: e.advance_run(params, rs),
+                      dict(plan=plan), want_plan),
+             "adaptive": (lambda e: e.start_adaptive_run(
+                              params, gen(), 1, memory=memory, **ad_kw),
+                          lambda e, rs: e.advance_adaptive_run(params, rs),
+                          ad_kw, want_adaptive)}
+    snapshots = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, (start, advance, import_kw, whole) in kinds.items():
+            e1 = executor()
+            rs = start(e1)
+            for _ in range(3):
+                rs = advance(e1, rs)
+            k, arrays, static = e1.export_run(rs)
+            f = str(Path(tmp) / f"{kind}.ckpt")
+            ckpt_io.save(f, arrays, {"static": static})
+            restored, meta = ckpt_io.restore(f)
+            e2 = executor()
+            rs2 = e2.import_run(params, k, restored, meta["static"],
+                                **import_kw)
+            while not rs2.done:
+                rs2 = advance(e2, rs2)
+            snapshots[kind] = {"step": int(static.get("step",
+                                                      static.get("run_index",
+                                                                 0))),
+                               "state_none": [key for key, v in
+                                              arrays["state"].items()
+                                              if v is None],
+                               "bitwise_equal": bool(torch.equal(rs2.x,
+                                                                 whole))}
+    emit({"phase": "audio_snapshot", "runs": snapshots,
+          "seconds": time.perf_counter() - t_phase})
+    check(all(r["bitwise_equal"] for r in snapshots.values()),
+          f"a restored stochastic run differs: {snapshots}")
+    return launches
+
+
+def audio_profile_phase(cfg, diffusion, params, ops, memory):
+    """Where an audio step's time goes: one full-width B = 2 forward (one
+    request under CFG) after an untraced warm-up — device time by kernel,
+    the attention and linear kernels' shares, the device's idle share."""
+    gen = torch.Generator().manual_seed(SEED + 68)
+    x = torch.randn((2,) + cfg.latent_shape, generator=gen).cuda()
+    t = torch.full((2,), 500.0, device="cuda")
+    mem = torch.cat([memory, torch.zeros_like(memory)])
+    diffusion.apply(cfg, params, x, t, memory=mem)
+    before = ops.LAUNCHES["linear"]
+    wall_us, kern = _traced(lambda: diffusion.apply(cfg, params, x, t,
+                                                    memory=mem))
+    calls = ops.LAUNCHES["linear"] - before
+    busy = sum(us for us, _ in kern.values())
+    attn = sum(us for k, (us, _) in kern.items() if "attn_fwd" in k)
+    attn_n = sum(n for k, (_, n) in kern.items() if "attn_fwd" in k)
+    linear = sum(us for k, (us, _) in kern.items()
+                 if any(n in k for n in LINEAR_KERNELS.values()))
+    library = [k for k in kern
+               if not any(n in k for n in LINEAR_KERNELS.values()) and any(
+                   f in k.lower() for f in ("gemm", "cutlass", "xmma",
+                                            "cublas"))]
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    row = {"phase": "audio_profile", "batch": 2, "wall_ms": wall_us / 1e3,
+           "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+           "attn_ms": attn / 1e3, "attn_calls": attn_n,
+           "attn_share": attn / busy, "linear_ms": linear / 1e3,
+           "linear_share": linear / busy, "linear_calls": calls,
+           "library_gemm_kernels": library,
+           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
+                   for k, (us, n) in top]}
+    emit(row)
+    check(busy > 0, "the profiler saw no device time")
+    types = cfg.layer_types()
+    check(attn_n == attn_calls(cfg, types),
+          f"{attn_n} attention kernels in one audio forward")
+    check(calls == linear_calls(cfg, types) and not library,
+          f"{calls} linear calls in one audio forward, other product "
+          f"kernels {library}")
+    return row
+
+
+def audio_attention_path(cfg, fa, params, memory):
+    """How the kernel computes the q/k/v that the first audio block's self-
+    and cross-attention make at B = 2 (after RoPE for self-attention)."""
+    from repro_torch.models import attention, layers as L
+    from repro_torch.models.transformer import tree_map
+    block = tree_map(lambda a: a[0], params["backbone"]["stages"][0][0])
+    unit = cfg.stages[0].unit[0]
+    x = torch.randn(2, cfg.latent_shape[0], cfg.d_model, device="cuda")
+    q, k, v = attention._gqa_qkv(unit.mixer, block["mixer"], x)
+    pos = torch.arange(x.shape[1], device="cuda")[None, :]
+    angles = L.rope_angles(pos, unit.mixer.head_dim, unit.mixer.rope_theta)
+    q, k = (L.apply_rope(a, pos, angles=angles) for a in (q, k))
+    mem = torch.cat([memory, torch.zeros_like(memory)])
+    return {"self": fa.plan(q, k, v),
+            "cross": fa.plan(*attention._gqa_qkv(unit.cross, block["cross"],
+                                                 x, mem))}
+
+
+def audio_phase(peaks, kernels):
+    """The Stable-Audio-Open text-to-audio path at full width (24 blocks,
+    d 1536, 216 latent rows, a 128-token T5 memory stub 768 wide,
+    DPM-Solver++(3M) SDE 100, CFG 7.0), after every other phase, on
+    weights of its own.  Budget ~90 s (83 s on an H100 80GB HBM3 at
+    700 W): the host bounds its runs (~43 ms a step there) and the
+    weights take ~18 s to draw on the CPU."""
+    from repro_torch import configs
+    from repro_torch.core import diffusion
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.launch.serve_diffusion import random_params
+    from repro_torch.models.transformer import tree_map
+    t_phase = time.perf_counter()
+    cfg = configs.get("stable-audio-open")
+    attn_shapes, products = audio_kernel_phase(fa, ref, gemm, peaks, cfg)
+    audio_cross_check_phase(cfg, diffusion, gemm, random_params)
+    t0 = time.perf_counter()
+    params = tree_map(lambda a: a.cuda(), random_params(
+        torch.Generator().manual_seed(SEED + 69), cfg, device="cpu"))
+    prepared = diffusion.prepare_linear(params)
+    torch.cuda.synchronize()
+    emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
+          "d_model": cfg.d_model, "seconds": time.perf_counter() - t0,
+          "count": sum(a.numel() for a in tree_leaves(params)),
+          "linear_prepared_bytes": prepared,
+          "device_bytes": torch.cuda.memory_allocated()})
+    check(prepared == 2 * 4 * sum(
+        w.numel() for w in diffusion.token_weights(params)),
+        f"{prepared} prepared bytes")
+    memory = synthetic.text_memory(torch.Generator().manual_seed(SEED + 70),
+                                   1, AUDIO_MEM, cfg.cond_dim)
+    path = audio_attention_path(cfg, fa, params, memory)
+    emit({"phase": "audio_attention_path", **path})
+    check(all(p == {"arith": "3xtf32-mma.sync", "load": "cp.async"}
+              for p in path.values()),
+          f"the audio path's attention takes {path}")
+    _reset_counts(ops)
+    t0 = time.perf_counter()
+    art, runs = audio_slice_phase(cfg, params, ops, memory)
+    slice_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["ssd"] == 0, "SSD launched in the audio slice")
+    check(all(launches["linear_" + rows] > 0 for rows in gemm.ROWS),
+          f"a linear variant never launched in the audio slice: {launches}")
+    serve_launches = audio_serve_phase(cfg, params, ops, art, memory, runs)
+    profile = audio_profile_phase(cfg, diffusion, params, ops, memory)
+    for name in ("flash_attention", "linear"):
+        kernels[name]["audio_launches"] = launches[name]
+        kernels[name]["audio_serve_launches"] = serve_launches[name]
+    kernels["flash_attention"]["audio"] = attn_shapes
+    kernels["linear"]["audio"] = {**products,
+                                  "profile_linear_ms": profile["linear_ms"]}
+    del params
+    gemm.release()
+    gc.collect()
+    emit({"phase": "audio", "seconds": time.perf_counter() - t_phase,
+          "slice_s": slice_s, "launches": launches})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3009,6 +3595,8 @@ def main():
     gc.collect()              # the LM weights go before the video phase
     torch.cuda.empty_cache()
     video_phase(peaks, kernels)
+    torch.cuda.empty_cache()  # the video weights go before the audio phase
+    audio_phase(peaks, kernels)
 
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,7 @@ REGISTRY = {
     "dit-xl-256": "repro_torch.configs.dit_xl",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "opensora-v12": "repro_torch.configs.opensora_v12",
+    "stable-audio-open": "repro_torch.configs.stable_audio_open",
 }
 
 

@@ -1,11 +1,12 @@
 """Diffusion wrapper: turns the backbone into a DiT denoiser.
 
-Adds patchify/unpatchify of image latents (H, W, C) and video latents
-(T, H, W, C — spatial patchify, factorized attention), a sinusoidal
+Adds patchify/unpatchify of image latents (H, W, C), video latents
+(T, H, W, C — spatial patchify, factorized attention) and audio latents
+(L, C — patch 1, the latent rows are the tokens), a sinusoidal
 timestep embedding → MLP, a class-label embedding with a CFG null class,
 the cross-attention memory of a text-conditioned model, and adaLN-zero
 conditioning (the backbone's blocks carry ``adaln=True``).  Prediction
-types: ε (DDIM) and velocity (rectified flow).
+types: ε (DDIM, DPM-Solver++) and velocity (rectified flow).
 """
 from __future__ import annotations
 
@@ -21,13 +22,14 @@ TIME_EMB_DIM = 256
 
 
 # ---------------------------------------------------------------------------
-# Patchify (image and video latents)
+# Patchify (image, video and audio latents)
 # ---------------------------------------------------------------------------
 
 def token_shape(cfg: ModelConfig):
     """Returns ``(num_tokens, token_dim, video_shape)`` of an (H, W, C)
-    image latent (``video_shape`` None) or a (T, H, W, C) video latent,
-    patchified in space only (``video_shape`` = (T, S))."""
+    image latent (``video_shape`` None), a (T, H, W, C) video latent,
+    patchified in space only (``video_shape`` = (T, S)), or an (L, C)
+    audio latent, whose L rows are the tokens (patch 1)."""
     ls, p = cfg.latent_shape, cfg.patch
     if len(ls) == 3:
         h, w, c = ls
@@ -36,15 +38,21 @@ def token_shape(cfg: ModelConfig):
         t, h, w, c = ls
         s = (h // p) * (w // p)
         return t * s, p * p * c, (t, s)
-    raise NotImplementedError(
-        f"latent shape {ls}: only (H, W, C) image and (T, H, W, C) video "
-        "latents are ported")
+    if len(ls) == 2:
+        if p != 1:
+            raise ValueError(f"an (L, C) latent takes patch 1, got {p}")
+        return ls[0], ls[1], None
+    raise ValueError(f"latent shape {ls}: expected (H, W, C), (T, H, W, C) "
+                     "or (L, C)")
 
 
 def patchify(cfg: ModelConfig, x):
-    """x: (B, *latent_shape) → (B, N, p·p·C)."""
+    """x: (B, *latent_shape) → (B, N, p·p·C); an (L, C) latent is its own
+    tokens."""
     p, ls = cfg.patch, cfg.latent_shape
     b = x.shape[0]
+    if len(ls) == 2:
+        return x
     if len(ls) == 3:
         h, w, c = ls
         x = x.reshape(b, h // p, p, w // p, p, c)
@@ -59,6 +67,8 @@ def patchify(cfg: ModelConfig, x):
 def unpatchify(cfg: ModelConfig, tok):
     p, ls = cfg.patch, cfg.latent_shape
     b = tok.shape[0]
+    if len(ls) == 2:
+        return tok
     if len(ls) == 3:
         h, w, c = ls
         x = tok.reshape(b, h // p, w // p, p, p, c)

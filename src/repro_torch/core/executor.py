@@ -51,6 +51,15 @@ the paper's DiT-XL protocol; the cache covers both halves.  A
 text-conditioned model's ``memory`` rides in every run state; the
 unconditioned half reads zeros in its place.  Every run state also carries
 the solver state (``Solver.init_state``), threaded through each step.
+
+A stochastic solver (DPM-Solver++(3M) SDE) takes fresh noise at every
+step.  A run's noise is a function of its seed and the step index alone
+(:meth:`SmoothCacheExecutor.step_noise`, the counterpart of the JAX
+package's ``fold_in(kloop, s)``): the seed is drawn from the run's
+generator right after the initial latent and rides in the run state
+(``noise_seed``), so every path — eager, segmented, host loop, a restored
+snapshot — draws the same noise at the same step.  A deterministic solver
+draws no seed, so its generators move exactly as before.
 """
 from __future__ import annotations
 
@@ -67,6 +76,17 @@ from repro_torch.core import calibration, cuda_graphs, fused
 from repro_torch.core import diffusion, plan as plan_lib, schedule as schedule_lib
 from repro_torch.core.fused import rows_finite
 from repro_torch.core.solvers import Solver, StepTable
+
+_MASK63 = (1 << 63) - 1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's finalizer: a 64-bit integer → a well-mixed 64-bit
+    integer."""
+    z = (z + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return z ^ (z >> 31)
 
 
 def _map_leaves(fn, tree):
@@ -220,6 +240,8 @@ class RunState:
     healthy: Any = None
     state: Any = None                        # solver state (a dict)
     memory: Any = None                       # (B, Lm, cond_dim) or None
+    #: the step-noise seed of a stochastic solver's run, else None
+    noise_seed: Optional[int] = None
 
     @property
     def done(self) -> bool:
@@ -267,6 +289,8 @@ class AdaptiveRunState:
     healthy: Any = None
     state: Any = None                        # solver state (a dict)
     memory: Any = None                       # (B, Lm, cond_dim) or None
+    #: the step-noise seed of a stochastic solver's run, else None
+    noise_seed: Optional[int] = None
 
     @property
     def done(self) -> bool:
@@ -484,10 +508,42 @@ class SmoothCacheExecutor:
                 "make rows batch-invariant — use a single batch generator")
         return torch.cat([self.initial_latent(g, 1) for g in generators])
 
+    def noise_seed(self, generator: torch.Generator) -> Optional[int]:
+        """A run's step-noise seed: 63 bits drawn from ``generator`` (right
+        after the initial latent) for a stochastic solver; None, drawing
+        nothing, for a deterministic one."""
+        if not self.solver.stochastic:
+            return None
+        return int(torch.randint(0, _MASK63, (1,), generator=generator,
+                                 dtype=torch.int64))
+
+    def step_noise(self, seed: int, s: int, shape) -> torch.Tensor:
+        """Step ``s``'s noise for a run of seed ``seed``: a standard normal
+        of ``shape`` drawn on the CPU from a generator seeded by a mix of
+        the two (so it depends on nothing else, and a seed gives the same
+        noise on every device), moved to the device — without a host wait
+        on a card (a pinned copy)."""
+        g = torch.Generator().manual_seed(
+            _mix64(_mix64(seed) ^ int(s)) & _MASK63)
+        noise = torch.randn(tuple(shape), generator=g, dtype=torch.float32)
+        if self.device.type == "cuda":
+            return noise.pin_memory().to(self.device, non_blocking=True)
+        return noise.to(self.device)
+
+    def _solver_step(self, x, pred, s: int, state, noise_seed):
+        """The solver step at step ``s``, with the step's noise when the
+        run has a noise seed."""
+        noise = (None if noise_seed is None
+                 else self.step_noise(noise_seed, s, x.shape))
+        return self.solver.step(x, pred, s, state, noise)
+
     def _initial(self, generator, batch, row_keys):
+        """A run's initial latent and its noise seed (None for a
+        deterministic solver)."""
         if row_keys is not None:
-            return self.initial_latent_rows(row_keys, batch)
-        return self.initial_latent(generator, batch)
+            return self.initial_latent_rows(row_keys, batch), None
+        x = self.initial_latent(generator, batch)
+        return x, self.noise_seed(generator)
 
     def sample(self, params, generator, batch: int, *, schedule=None,
                label=None, memory=None,
@@ -502,7 +558,7 @@ class SmoothCacheExecutor:
         if schedule.num_steps != s_total:
             raise ValueError(f"schedule has {schedule.num_steps} steps, "
                              f"solver {s_total}")
-        x = self.initial_latent(generator, batch)
+        x, noise_seed = self._initial(generator, batch, None)
         caching = (collect_hook is not None
                    or any(v.any() for v in schedule.skip.values()))
         cache = None
@@ -528,7 +584,7 @@ class SmoothCacheExecutor:
             else:
                 pred, _ = self._model_call(params, x, t, label, memory, None,
                                            skip=None, collect=False)
-            x, state = self.solver.step(x, pred, s, state)
+            x, state = self._solver_step(x, pred, s, state, noise_seed)
             if return_trajectory:
                 traj.append(x)
         return (x, traj) if return_trajectory else x
@@ -550,11 +606,12 @@ class SmoothCacheExecutor:
                 != plan_lib.schedule_fingerprint(schedule)):
             raise ValueError("plan was analyzed from a different schedule "
                              "(fingerprint mismatch) — re-run plan_for()")
-        x = self._initial(generator, batch, row_keys)
+        x, noise_seed = self._initial(generator, batch, row_keys)
         return RunState(
             x=x, cache=empty_branch_cache(self.cfg), plan=plan, run_index=0,
             label=label, memory=memory, state=self.solver.init_state(),
-            healthy=torch.ones(batch, dtype=torch.bool, device=self.device))
+            healthy=torch.ones(batch, dtype=torch.bool, device=self.device),
+            noise_seed=noise_seed)
 
     def advance_run(self, params, rs: RunState, *,
                     check: bool = False) -> RunState:
@@ -576,7 +633,7 @@ class SmoothCacheExecutor:
                 cache if reads else None, skip=skip, collect=collect)
             cache = pruned_branch_caches(self.cfg, computed, cache, collect,
                                          sig.structure)
-            x, state = self.solver.step(x, pred, s, state)
+            x, state = self._solver_step(x, pred, s, state, rs.noise_seed)
             healthy = healthy & rows_finite(x)
         cache = prune_cache(self.cfg, cache, run.live_out)
         if check:
@@ -702,8 +759,9 @@ class SmoothCacheExecutor:
         schedule, tau, by_skipset, pool_types, coeff_a, coeff_b = \
             self._adaptive_setup(schedule, tau, proxy_map, pool, k_max)
         shape = (batch, len(pool_types))
+        x, noise_seed = self._initial(generator, batch, row_keys)
         return AdaptiveRunState(
-            x=self._initial(generator, batch, row_keys),
+            x=x, noise_seed=noise_seed,
             cache=empty_branch_cache(self.cfg), step=0, x_prev=None,
             acc=torch.zeros(shape, dtype=torch.float32, device=self.device),
             lag=torch.zeros(shape, dtype=torch.int32, device=self.device),
@@ -753,7 +811,8 @@ class SmoothCacheExecutor:
             rs.cache if skipset else None, skip=sig.skip, collect=collect)
         cache = pruned_branch_caches(self.cfg, computed, rs.cache, collect,
                                      sig.structure)
-        x_next, state = self.solver.step(x, pred, s, rs.state)
+        x_next, state = self._solver_step(x, pred, s, rs.state,
+                                          rs.noise_seed)
         healthy = (rs.healthy & rows_finite(x_next)
                    & torch.isfinite(acc).all(dim=-1))
         return dataclasses.replace(
@@ -885,7 +944,7 @@ class SmoothCacheExecutor:
         own, still no host read, and the latents' bits unchanged."""
         schedule, tau, table, runtime, skip_table, coeff_a, coeff_b = \
             self._fused_setup(schedule, tau, proxy_map, pool, k_max)
-        x = self._initial(generator, batch, row_keys)
+        x, _ = self._initial(generator, batch, row_keys)
         cache = self._enter_run_cache(empty_branch_cache(self.cfg),
                                       table.branches[0],
                                       self._branch_structs(batch))
@@ -1082,7 +1141,9 @@ class SmoothCacheExecutor:
         coefficients — are deliberately NOT exported: :meth:`import_run`
         rebuilds them from the serving entry, and the caller's provenance
         stamp (entry name/version, schedule fingerprint, plan hash) is
-        what guarantees it rebuilds the *same* ones.  Reading the arrays
+        what guarantees it rebuilds the *same* ones.  A stochastic run's
+        noise seed rides in ``static`` (``noise_seed``), its solver state
+        — None entries included — in ``arrays``.  Reading the arrays
         is a boundary transfer the host was already allowed to make —
         never a per-step sync, so ``host_sync_count`` stays untouched."""
         if not isinstance(rs, (RunState, AdaptiveRunState,
@@ -1092,12 +1153,14 @@ class SmoothCacheExecutor:
         arrays = {"x": rs.x, "state": rs.state, "cache": rs.cache,
                   "label": rs.label, "memory": rs.memory,
                   "healthy": rs.healthy}
+        seed = getattr(rs, "noise_seed", None)
+        noise = {} if seed is None else {"noise_seed": int(seed)}
         if isinstance(rs, RunState):
             return "plan", arrays, {"batch": int(rs.x.shape[0]),
-                                    "run_index": int(rs.run_index)}
+                                    "run_index": int(rs.run_index), **noise}
         arrays.update(x_prev=rs.x_prev, acc=rs.acc, lag=rs.lag)
         static = {"batch": int(rs.x.shape[0]), "step": int(rs.step),
-                  "tau": float(rs.tau), "k_max": int(rs.k_max)}
+                  "tau": float(rs.tau), "k_max": int(rs.k_max), **noise}
         if isinstance(rs, AdaptiveRunState):
             static["decisions"] = [list(d) for d in rs.decisions]
             return "adaptive", arrays, static
@@ -1122,6 +1185,17 @@ class SmoothCacheExecutor:
         no parameter-derived tensors); the seam keeps the JAX package's
         signature."""
         del params
+        noise_seed = static.get("noise_seed")
+        if self.solver.stochastic and noise_seed is None:
+            raise ValueError(
+                f"snapshot has no noise_seed, and solver "
+                f"{self.solver.name!r} is stochastic — a snapshot of "
+                "another solver's run?")
+        if not self.solver.stochastic and noise_seed is not None:
+            raise ValueError(
+                f"snapshot carries a noise_seed, and solver "
+                f"{self.solver.name!r} draws no noise — a snapshot of "
+                "another solver's run?")
         on_dev = functools.partial(_map_leaves, lambda a: (
             a.to(self.device) if isinstance(a, torch.Tensor) else a))
         arrays = {k: on_dev(v) for k, v in arrays.items()}
@@ -1141,7 +1215,8 @@ class SmoothCacheExecutor:
                 raise ValueError(
                     f"snapshot run_index {run_index} out of range for a "
                     f"{len(plan.runs)}-segment plan — wrong plan?")
-            return RunState(plan=plan, run_index=run_index, **common)
+            return RunState(plan=plan, run_index=run_index,
+                            noise_seed=noise_seed, **common)
         if kind not in ("adaptive", "adaptive_fused"):
             raise ValueError(f"unknown run kind {kind!r}")
         # defense in depth: the stamp's decision parameters must equal the
@@ -1161,6 +1236,7 @@ class SmoothCacheExecutor:
                 self._adaptive_setup(schedule, tau, proxy_map, pool, k_max)
             _check_step(step, schedule)
             return AdaptiveRunState(
+                noise_seed=noise_seed,
                 decisions=tuple(tuple(d)
                                 for d in static.get("decisions", ())),
                 schedule=schedule, tau=tau, by_skipset=by_skipset,

@@ -1,18 +1,20 @@
-"""Diffusion samplers.  Ported: DDIM (η = 0) on the VP schedule — the
-paper's DiT-XL protocol — and rectified-flow Euler, its OpenSora protocol.
+"""Diffusion samplers: DDIM (η = 0) on the VP schedule — the paper's
+DiT-XL protocol —, DPM-Solver++(3M) SDE — its Stable Audio Open protocol —
+and rectified-flow Euler, its OpenSora protocol.
 
 A solver is ``model_times`` (the per-step times fed to the model),
 ``init_state()`` and ``step(x, model_out, s, state, noise=None) →
 (x_next, state)``, so the executor owns the model-call loop and can
-substitute cached layer outputs at any step.  ``state`` is a dict of
-tensors the executor threads from step to step (``{}`` for both solvers
-here).  ``noise`` is where a stochastic solver takes its per-step noise,
-a tensor the executor draws (torch cannot reproduce the JAX package's
-``fold_in`` bits); no solver here is stochastic, so the executor draws
-none and no step reads it.
+substitute cached layer outputs at any step.  ``state`` is a dict the
+executor threads from step to step: ``{}`` for DDIM and rectified flow,
+DPM++(3M)'s multistep history for it.  ``noise`` is where a stochastic
+solver takes its per-step noise, a tensor of x's shape the executor draws
+(``SmoothCacheExecutor.step_noise``; torch cannot reproduce the JAX
+package's ``fold_in`` bits) for ``stochastic`` solvers only.
 
-``s`` is a Python int or a ``(1,)`` int64 tensor on ``x``'s device (the
-step counter a captured CUDA graph advances).  Either way the per-step
+``s`` is a Python int or, for a ``scannable`` solver, a ``(1,)`` int64
+tensor on ``x``'s device (the step counter a captured CUDA graph
+advances).  Either way the per-step
 coefficients are read as ``(1,)`` tensors from a table on ``x``'s device,
 so every path runs one arithmetic form: on CUDA a division by a Python
 float is a multiplication by its reciprocal, a division by a tensor a
@@ -37,8 +39,9 @@ class Solver:
     init_state: Callable[[], dict]
     #: (x, model_out, s, state, noise=None) -> (x, state)
     step: Callable
-    #: the step draws noise (its rows then depend on the batch shape);
-    #: ``ddim`` keeps both defaults, the JAX ``dpmpp_3m_sde`` sets both
+    #: the step reads noise (its rows then depend on the batch shape);
+    #: ``ddim`` and ``rectified_flow`` keep both defaults,
+    #: ``dpmpp_3m_sde`` sets both
     stochastic: bool = False
     #: ``step`` takes a device step index and reads no host state, so it
     #: runs inside a captured CUDA graph (the fused adaptive path)
@@ -106,6 +109,82 @@ def ddim(num_steps: int, sched=None, num_train_steps: int = 1000) -> Solver:
                   dict, step)
 
 
+def dpmpp_3m_sde(num_steps: int, sched=None, num_train_steps: int = 1000,
+                 eta: float = 1.0) -> Solver:
+    """DPM-Solver++(3M) SDE, k-diffusion's formulation on σ = √((1 − ᾱ)/ᾱ)
+    (the VE view of the VP schedule).  The model stays ε-prediction: each
+    step moves x to VE coordinates, takes x̂₀ = x − σ·ε, runs the
+    third-order multistep update over the last three x̂₀ with noise scaled
+    by ``eta``, and moves back to VP coordinates at the next level.  The
+    last step (σ → 0) returns x̂₀.
+
+    The per-step coefficients are float32, computed once in the
+    reference's order (``t = −log σ``, ``h``, ``h·(η+1)``, the φ₂ / φ₃
+    ``expm1`` forms) into a :class:`StepTable`.  The state is
+    ``{"d1", "d2", "h1", "h2"}``: the last two x̂₀ and step sizes, each
+    None until the steps that make it (d2 and h2 from the third step on),
+    then a tensor — d1 / d2 of x's shape, h1 / h2 of shape (1,).
+
+    Not scannable: the step branches in Python on the step index (the
+    final step) and on the state's structure, which changes over the
+    first three steps."""
+    sched = sched or diffusion.vp_schedule(num_train_steps)
+    ts = np.round(linspace_f32(num_train_steps - 1, 1, num_steps)).astype(
+        np.int64)
+    one = np.float32(1)
+    ab = sched["alpha_bar"].numpy()[ts]
+    sig = np.concatenate([np.sqrt((one - ab) / ab),
+                          np.zeros(1, np.float32)])
+    sig_next = sig[1:]
+    eta32 = np.float32(eta)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # the last step's σ_next is 0: its h and what follows from it are
+        # never read there (the final step returns x̂₀)
+        h = -np.log(sig_next) - -np.log(sig[:-1])
+        h_eta = h * (eta32 + one)
+        phi2 = np.expm1(-h_eta) / h_eta + one
+        coeffs = np.stack([
+            np.sqrt(ab), sig[:-1], np.exp(-h_eta), -np.expm1(-h_eta),
+            phi2, phi2 / h_eta - np.float32(0.5),
+            sig_next * np.sqrt(-np.expm1(np.float32(-2.0) * h * eta32)),
+            np.sqrt(one / (one + sig_next ** 2)), h])
+    coeffs[:, -1] = np.where(np.isfinite(coeffs[:, -1]), coeffs[:, -1], 0)
+    table = StepTable(coeffs)
+    last = num_steps - 1
+    noisy = eta > 0
+
+    def init_state():
+        return {"d1": None, "d2": None, "h1": None, "h2": None}
+
+    def step(x_vp, eps, s, state, noise=None):
+        (c_in, sig_s, decay, gain, phi2_s, phi3_s, c_noise, c_out,
+         h_s) = table.at(s, x_vp.device)
+        x = x_vp / c_in
+        denoised = x - sig_s * eps
+        if s == last:
+            return denoised * c_out, state
+        x_new = decay * x + gain * denoised
+        if state["d2"] is not None:
+            r0, r1 = state["h1"] / h_s, state["h2"] / h_s
+            d1_0 = (denoised - state["d1"]) / r0
+            d1_1 = (state["d1"] - state["d2"]) / r1
+            d1 = d1_0 + (d1_0 - d1_1) * r0 / (r0 + r1)
+            d2 = (d1_0 - d1_1) / (r0 + r1)
+            x_new = x_new + phi2_s * d1 - phi3_s * d2
+        elif state["d1"] is not None:
+            r = state["h1"] / h_s
+            x_new = x_new + phi2_s * ((denoised - state["d1"]) / r)
+        if noisy and noise is not None:
+            x_new = x_new + noise * c_noise
+        state = {"d1": denoised, "d2": state["d1"], "h1": h_s,
+                 "h2": state["h1"]}
+        return x_new * c_out, state
+
+    return Solver("dpmpp_3m_sde", num_steps,
+                  torch.from_numpy(ts.astype(np.float32)), init_state, step,
+                  stochastic=True, scannable=False)
+
+
 def rectified_flow(num_steps: int, num_train_steps: int = 1000) -> Solver:
     """Rectified-flow Euler: the model predicts the velocity v = ε − x₀,
     and x is integrated from t = 1 (noise) to t = 0 as ``x + dt·v``.  The
@@ -124,9 +203,9 @@ def rectified_flow(num_steps: int, num_train_steps: int = 1000) -> Solver:
                   dict, step)
 
 
-#: the ported solvers by name (the JAX package's ``dpmpp_3m_sde`` is not
-#: ported yet)
+#: the solvers by name, as the JAX package registers them
 SOLVERS: Dict[str, Callable[..., Solver]] = {
     "ddim": ddim,
+    "dpmpp_3m_sde": dpmpp_3m_sde,
     "rectified_flow": rectified_flow,
 }

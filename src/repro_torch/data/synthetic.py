@@ -1,4 +1,5 @@
-"""Synthetic conditioning: a stub of a T5-style text memory, and
+"""Synthetic conditioning: a stub of a T5-style text memory (drawn from a
+generator, or per prompt for a serving engine's ``text_encoder``), and
 text-conditioned latents whose low-frequency content is a linear readout
 of that memory (the JAX package's ``repro.data.synthetic``).
 
@@ -10,8 +11,9 @@ numpy memory to both packages.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +27,22 @@ def text_memory(generator: torch.Generator, batch: int, length: int,
     (batch, length, dim)."""
     mem = torch.randn((batch, length, dim), generator=generator) * 0.02
     return mem.to(resolve_device(device))
+
+
+def prompt_memory(prompts: Sequence[str], length: int, dim: int, *,
+                  device=None):
+    """The memory stub of a batch of prompts, (len(prompts), length, dim):
+    row i is :func:`text_memory` of a generator seeded by the sha256 of
+    ``prompts[i]``, so a prompt's rows depend on that prompt alone,
+    whatever batch it rides in.  ``functools.partial(prompt_memory,
+    length=..., dim=...)`` is a serving engine's ``text_encoder``."""
+    rows = []
+    for prompt in prompts:
+        digest = hashlib.sha256(str(prompt).encode("utf-8")).digest()
+        seed = int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
+        rows.append(text_memory(torch.Generator().manual_seed(seed), 1,
+                                length, dim, device="cpu"))
+    return torch.cat(rows).to(resolve_device(device))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -649,7 +649,7 @@ int launch_requests(const void* x, const void* w, const void* bias, void* y,
 #ifdef GEMM_ALL_TILES
 #define TOKEN_TILES(X) X(16) X(64) X(96) X(128) X(144) X(192) X(256)
 #else
-#define TOKEN_TILES(X) X(16) X(144)
+#define TOKEN_TILES(X) X(16) X(96) X(144)
 #endif
 
 // y (M, N) = x (M, K) @ w (K, N) (+ bias (N,) when not null), f32,

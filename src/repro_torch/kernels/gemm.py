@@ -31,13 +31,17 @@ SOURCE = Path(__file__).with_name("gemm.cu")
 ROWS = ("tokens", "requests")
 #: the token kernel: rows per tile (two warpgroups of 64), the k-tile
 #: (128 B of f32), the tile widths built into ``gemm.cu`` (``TOKEN_TILES``)
-#: and the width picked per (K, N) of the DiT-XL/2 products by timing
-#: candidates (``gemm_ab --tiles``); other shapes take the widest built
-#: width that divides N
+#: and the width picked per (K, N) by timing candidates (``gemm_ab
+#: --tiles``): DiT-XL/2's and OpenSora's products (d 1152) at M = 512 to
+#: 2048, Stable-Audio-Open's (d 1536) by their sum over one forward at 1,
+#: 2 and 4 requests (``--model audio``); other shapes take the widest
+#: built width that divides N
 TOKEN_BM, TOKEN_BK = 128, 32
-TOKEN_BN = (144, 16)
+TOKEN_BN = (144, 96, 16)
 TOKEN_CHOICE = {(16, 1152): 144, (1152, 1152): 144, (4608, 1152): 144,
-                (1152, 4608): 144, (1152, 16): 16}
+                (1152, 4608): 144, (1152, 16): 16,
+                (64, 1536): 96, (1536, 1536): 96, (768, 1536): 96,
+                (1536, 6144): 96, (6144, 1536): 96, (1536, 64): 16}
 #: the request-row kernel: rows per tile, threads per block, column slices
 #: (16 bytes a thread along N), and the blocks it aims for (the H100's 132
 #: SMs)

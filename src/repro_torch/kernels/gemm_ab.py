@@ -21,6 +21,12 @@ times the token kernel's candidate tile widths instead (a build with
 ``-DGEMM_ALL_TILES``) at M = 512, 1024 and 2048 for each token shape
 (``device_ms``), checks each against the plain version and reports how far
 its bits are from the first candidate's.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.gemm_ab --tiles --model audio
+
+does the same at Stable-Audio-Open's token shapes for 1, 2 and 4 requests
+under CFG (2·216·B token rows, 2·128·B memory rows for the cross k/v), and
+sums each width over one forward per bucket.
 """
 from __future__ import annotations
 
@@ -47,6 +53,17 @@ SHAPES = [("patch", TOK_DIM, D, "tokens", True, 1),
           ("mlp_down", FF, D, "tokens", False, BLOCKS),
           ("final_mod", D, 2 * D, "requests", True, 1),
           ("out", D, TOK_DIM, "tokens", True, 1)]
+# Stable-Audio-Open's token products: (name, K, N, rows per request under
+# CFG, calls per forward) — 24 blocks of self-attention q/k/v/o,
+# cross-attention q/o over the tokens and k/v over a 128-token memory,
+# and a gated MLP
+A_D, A_FF, A_TOK, A_MEM, A_CH, A_BLOCKS = 1536, 6144, 216, 128, 64, 24
+AUDIO_SHAPES = [("patch", A_CH, A_D, 2 * A_TOK, 1),
+                ("qkvo", A_D, A_D, 2 * A_TOK, 6 * A_BLOCKS),
+                ("cross_kv", 768, A_D, 2 * A_MEM, 2 * A_BLOCKS),
+                ("mlp_up_gate", A_D, A_FF, 2 * A_TOK, 2 * A_BLOCKS),
+                ("mlp_down", A_FF, A_D, 2 * A_TOK, A_BLOCKS),
+                ("out", A_D, A_CH, 2 * A_TOK, 1)]
 BUCKETS = (1, 2, 4)
 METHODS = ("per_call_ms", "device_ms")
 LIMIT = 5e-5
@@ -137,6 +154,39 @@ def compare(kernels: dict, gen: torch.Generator) -> dict:
     return out
 
 
+def _tile_row(lib, name, m, k, n, bias, widths, gen):
+    """Each width's device ms at one product, its error against the plain
+    version and its distance from the first width's bits."""
+    x, w, b = inputs(m, k, n, bias, gen)
+    p = gemm.prepare(w)
+    want = ref.linear_ref(x, w, b)
+    first, row = None, {"shape": name, "m": m, "k": k, "n": n}
+
+    def call(bn):
+        y = torch.empty(m, n, device="cuda")
+        rc = lib.linear_tokens_f32(
+            x.data_ptr(), p.big_t.data_ptr(), p.small_t.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(), m, n,
+            k, bn, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(lib.linear_error_string(rc).decode())
+        return y
+
+    for bn in widths:
+        y = call(bn)
+        first = y if first is None else first
+        row[str(bn)] = {
+            "ms": timing.device_ms(lambda: call(bn)),
+            "rel_max_err": _rel(y, want),
+            "max_abs_vs_first": float((y - first).abs().max()),
+            "stages": gemm.token_stages(bn),
+            "tiles": -(-m // gemm.TOKEN_BM) * -(-n // bn)}
+        if row[str(bn)]["rel_max_err"] > LIMIT:
+            raise RuntimeError(f"tile {bn} vs plain at {row}")
+    gemm.release()
+    return row
+
+
 def tiles(gen: torch.Generator) -> dict:
     lib = gemm.bind(gemm.build(("-DGEMM_ALL_TILES",))["path"])
     out = []
@@ -146,35 +196,30 @@ def tiles(gen: torch.Generator) -> dict:
         widths = [bn for bn in CANDIDATES
                   if n % bn == 0 and (bn >= 64 or n < 64)]
         for m in (512, 1024, 2048):
-            x, w, b = inputs(m, k, n, bias, gen)
-            p = gemm.prepare(w)
-            want = ref.linear_ref(x, w, b)
-            first, row = None, {"shape": name, "m": m, "k": k, "n": n}
-
-            def call(bn):
-                y = torch.empty(m, n, device="cuda")
-                rc = lib.linear_tokens_f32(
-                    x.data_ptr(), p.big_t.data_ptr(), p.small_t.data_ptr(),
-                    None if b is None else b.data_ptr(), y.data_ptr(), m, n,
-                    k, bn, torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(lib.linear_error_string(rc).decode())
-                return y
-
-            for bn in widths:
-                y = call(bn)
-                first = y if first is None else first
-                row[str(bn)] = {
-                    "ms": timing.device_ms(lambda: call(bn)),
-                    "rel_max_err": _rel(y, want),
-                    "max_abs_vs_first": float((y - first).abs().max()),
-                    "stages": gemm.token_stages(bn),
-                    "tiles": -(-m // gemm.TOKEN_BM) * (n // bn)}
-                if row[str(bn)]["rel_max_err"] > LIMIT:
-                    raise RuntimeError(f"tile {bn} vs plain at {row}")
-            out.append(row)
-            gemm.release()
+            out.append(_tile_row(lib, name, m, k, n, bias, widths, gen))
     return {"tiles": out}
+
+
+def audio_tiles(gen: torch.Generator) -> dict:
+    """Every candidate width no wider than N (144 leaves a ragged last
+    tile on N = 1536 and 6144, kept for comparison) at each audio token
+    shape for buckets 1, 2 and 4, and each width's sum over one forward
+    (its calls per forward times its ms) with the width that wins it."""
+    lib = gemm.bind(gemm.build(("-DGEMM_ALL_TILES",))["path"])
+    out, forward = [], {}
+    for bucket in BUCKETS:
+        for name, k, n, per_request, calls in AUDIO_SHAPES:
+            widths = [bn for bn in CANDIDATES if bn <= n]
+            row = _tile_row(lib, name, per_request * bucket, k, n,
+                            name in ("patch", "out"), widths, gen)
+            row.update(bucket=bucket, calls=calls,
+                       best=min(widths, key=lambda bn: row[str(bn)]["ms"]))
+            out.append(row)
+            f = forward.setdefault(f"{k}x{n}", {})
+            for bn in widths:
+                f.setdefault(str(bn), {})[str(bucket)] = (
+                    calls * row[str(bn)]["ms"])
+    return {"tiles": out, "forward_ms": forward}
 
 
 def main(argv=None) -> int:
@@ -182,6 +227,8 @@ def main(argv=None) -> int:
     ap.add_argument("baseline", nargs="?", help="the earlier gemm.cu")
     ap.add_argument("--tiles", action="store_true",
                     help="time the token kernel's candidate tile widths")
+    ap.add_argument("--model", choices=("dit", "audio"), default="dit",
+                    help="whose token shapes --tiles times")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_ab needs a CUDA card")
@@ -193,7 +240,8 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(0)
     result = {"card": card}
     if args.tiles:
-        result.update(tiles(gen))
+        result.update(tiles(gen) if args.model == "dit"
+                      else audio_tiles(gen))
     else:
         with ThreadPoolExecutor(2) as pool:
             base = pool.submit(_build.build, "gemm_baseline",

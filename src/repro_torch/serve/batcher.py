@@ -79,6 +79,10 @@ class MicroBatch:
     def labels(self) -> Tuple[Optional[int], ...]:
         return tuple(r.label for r in self.requests)
 
+    @property
+    def prompts(self) -> Tuple[Optional[str], ...]:
+        return tuple(r.prompt for r in self.requests)
+
 
 class MicroBatcher:
     """Pulls ready requests from a :class:`RequestQueue` and forms

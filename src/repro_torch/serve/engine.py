@@ -37,10 +37,16 @@ own generator (``row_keys``), so every request replays alone as
 ``generate(params, batch_generator([seed]), 1)`` whatever its lineage,
 bitwise (the executor's per-row contract).
 
+Text-conditioned models: a request's ``prompt`` goes through the engine's
+``text_encoder`` (prompts → a (B, Lm, cond_dim) cross-attention memory,
+one row per prompt); the batch's memory rides in its run state.
+
 Determinism contract: a micro-batch over requests ``[r0..rn-1]`` samples
 with ``batch_generator(seeds)`` — serving a batch is *bit-identical* to
 calling ``DiffusionPipeline.generate(params, batch_generator(seeds), n,
-label=...)`` with the same store entry, because start + advance-until-done
+label=..., memory=text_encoder(prompts))`` with the same store entry (a
+stochastic solver's step noise follows from the same generator), because
+start + advance-until-done
 executes exactly the ops of ``sample_with_plan`` / ``sample_adaptive``
 (and the fused path equals the host loop bitwise).  Torch cannot
 reproduce JAX's random bits, so the generator is the port's own; the
@@ -153,6 +159,8 @@ class BatchRecord:
     #: (``join@<step>:<rids>``, ``regroup@<step>:<rids>``, …); empty for a
     #: batch that rode formation → finish unchanged
     lineage: Tuple[str, ...] = ()
+    #: the requests' prompts (text-conditioned models; None without)
+    prompts: Tuple[Optional[str], ...] = ()
 
 
 class _EagerState:
@@ -210,7 +218,8 @@ class ServeEngine:
                  registry=None, continuous: bool = False,
                  join_horizon: float = 0.5, admission=None,
                  resilience=None, telemetry: bool = False, journal=None,
-                 snapshot_dir=None, checkpoint_every: int = 1):
+                 snapshot_dir=None, checkpoint_every: int = 1,
+                 text_encoder=None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         if adaptive_chunk < 1:
@@ -227,6 +236,9 @@ class ServeEngine:
         if prepare is not None:
             prepare(params)
         self.store = store
+        #: prompts → (B, Lm, cond_dim) memory of a text-conditioned model
+        #: (one row per prompt, a function of that prompt alone), or None
+        self.text_encoder = text_encoder
         self.clock = clock if clock is not None else WallClock()
         self.queue = RequestQueue(self.clock)
         self.batcher = MicroBatcher(self.queue, store, max_batch=max_batch,
@@ -385,6 +397,8 @@ class ServeEngine:
                else float(now)}
         if r.label is not None:
             rec["label"] = int(r.label)
+        if r.prompt is not None:
+            rec["prompt"] = str(r.prompt)
         if r.priority:
             rec["priority"] = int(r.priority)
         if r.slo is not None:
@@ -503,6 +517,22 @@ class ServeEngine:
                              for lab in mb.labels], dtype=torch.int64,
                             device=self.executor.device)
 
+    def _memory(self, mb: MicroBatch) -> Dict:
+        """``{"memory": ...}`` of a batch whose requests carry prompts (the
+        text encoder's rows, on the executor's device), else ``{}`` — so
+        executors without a memory keep their signature."""
+        prompts = list(mb.prompts)
+        if all(pr is None for pr in prompts):
+            return {}
+        if any(pr is None for pr in prompts):
+            raise ValueError(f"batch {mb.rids} mixes requests with and "
+                             "without a prompt")
+        if self.text_encoder is None:
+            raise ValueError("requests carry prompts, and the engine has "
+                             "no text_encoder")
+        return {"memory": self.text_encoder(prompts).to(
+            self.executor.device)}
+
     @property
     def _fused_adaptive(self) -> bool:
         """Serve adaptive entries through the fused on-device path when
@@ -524,6 +554,7 @@ class ServeEngine:
             # per request
             extra["row_keys"] = [batch_generator([s]) for s in mb.seeds]
         label = self._labels(mb)
+        extra.update(self._memory(mb))
         if self.eager:
             kind, rs = "eager", _EagerState()
         elif entry.adaptive:
@@ -585,7 +616,8 @@ class ServeEngine:
         else:                                  # eager escape hatch
             fl.rs.x = self.executor.sample(
                 self.params, batch_generator(fl.mb.seeds), fl.mb.bucket,
-                schedule=fl.mb.entry.schedule, label=fl.label)
+                schedule=fl.mb.entry.schedule, label=fl.label,
+                **self._memory(fl.mb))
 
     def _advance_traced(self, fl: _Inflight) -> None:
         """``_advance`` under a per-advance span on the batch's track —
@@ -1091,7 +1123,8 @@ class ServeEngine:
             rids=mb.rids, seeds=mb.seeds, labels=mb.labels,
             num_steps=entry.plan.num_steps, compute_fraction=frac,
             formed_at=mb.formed_at, finished_at=done, decisions=decisions,
-            tau=entry.tau, quality_cost=qcost, lineage=fl.lineage)
+            tau=entry.tau, quality_cost=qcost, lineage=fl.lineage,
+            prompts=mb.prompts)
         self.records.append(record)
         self.policy.on_finish(self, record,
                               delivered if flags is not None
@@ -1154,7 +1187,7 @@ class ServeEngine:
         return Request(rid=rec["rid"], seed=rec["seed"],
                        policy=rec["policy"], label=rec.get("label"),
                        priority=int(rec.get("priority", 0)), slo=slo,
-                       arrival=rec.get("arrival"))
+                       arrival=rec.get("arrival"), prompt=rec.get("prompt"))
 
     def _refuse_snapshot(self, path: str, reason: str,
                          summary: Dict) -> None:

@@ -95,6 +95,8 @@ class Request:
     ``seed`` feeds the micro-batch generator (see
     :func:`repro_torch.serve.engine.batch_generator`); ``policy`` names the
     store entry (artifact / calibration-free policy) that serves it;
+    ``prompt`` is a text-conditioned model's prompt, which the engine's
+    ``text_encoder`` turns into the cross-attention memory;
     ``priority`` breaks ties ahead of arrival order (higher first).
     ``arrival`` is stamped by the queue at submit time unless given
     explicitly (virtual-clock tests and replayed traces pass it).
@@ -111,6 +113,7 @@ class Request:
     started: Optional[float] = None           # micro-batch launch time
     finished: Optional[float] = None          # result materialized
     joined_at: Optional[float] = None         # boundary join, if any
+    prompt: Optional[str] = None              # text-conditioned models
 
     @property
     def queue_wait(self) -> Optional[float]:

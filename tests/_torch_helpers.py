@@ -1,6 +1,7 @@
 """Shared inputs for the parity tests of the PyTorch port (``repro_torch``)
-against the JAX package: the dit-xl-256, mamba2-1.3b and opensora-v12
-smoke configs of both packages and one seeded parameter set of each,
+against the JAX package: the dit-xl-256, mamba2-1.3b, opensora-v12 and
+stable-audio-open smoke configs of both packages and one seeded parameter
+set of each,
 handed to each side from numpy; and a numpy emulation of the kernels'
 TF32 tensor-core products."""
 import functools
@@ -92,6 +93,32 @@ def video_params():
     """(jax params, torch params on the CPU) of the opensora-v12 smoke
     config with identical values."""
     pn = _video_numpy_params()
+    return (jax.tree.map(jnp.asarray, pn),
+            params_from_numpy(pn, device="cpu"))
+
+
+def audio_cfgs():
+    return (jconfigs.get("stable-audio-open", "smoke"),
+            tconfigs.get("stable-audio-open", "smoke"))
+
+
+@functools.lru_cache(maxsize=1)
+def _audio_numpy_params():
+    """Reference init plus a seeded +0.05·N(0,1) on every leaf, so that the
+    adaLN-zero leaves are not zero and every branch matters."""
+    cfg, _ = audio_cfgs()
+    p = jdiffusion.init_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(17)
+    return jax.tree.map(
+        lambda a: (np.asarray(a)
+                   + 0.05 * rng.standard_normal(a.shape)).astype(np.float32),
+        p)
+
+
+def audio_params():
+    """(jax params, torch params on the CPU) of the stable-audio-open smoke
+    config with identical values."""
+    pn = _audio_numpy_params()
     return (jax.tree.map(jnp.asarray, pn),
             params_from_numpy(pn, device="cpu"))
 

@@ -6,7 +6,10 @@ On the CPU: ``linear_ref`` against JAX's ``x @ w`` at ``highest``
 precision at the DiT-XL/2 shapes (5e-5 of the output's scale); the CPU
 dispatch is the plain product, bit for bit, and counts no launch; the
 wrapper refuses what the kernel does not take; ``row_sums`` gives a row
-the same bits whatever batch it rides in, and agrees with JAX's sum.  On a
+the same bits whatever batch it rides in, and agrees with JAX's sum; the
+token kernel's plan gives every Stable-Audio-Open product a tile width
+that divides N, whatever M, and keeps DiT-XL/2's and OpenSora's widths.
+On a
 CUDA card (skipped elsewhere): both kernels (the token and the
 request-row variant) against the plain version, a row's bits across batch
 sizes and row orders, a captured launch against an eager one, and a
@@ -99,6 +102,51 @@ def test_row_sums_are_batch_invariant_and_match_jax():
     want = np.asarray(jcal.rel_l1_change_rows(jnp.asarray(cur),
                                               jnp.asarray(prev)))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The token kernel's plan
+# ---------------------------------------------------------------------------
+
+# (K, N) of Stable-Audio-Open's token products: patch embedding, q/k/v/o
+# of self- and cross-attention (d 1536), the cross k/v over the 768-wide
+# memory, the gated MLP up/gate and down, the output projection
+AUDIO = [(64, 1536), (1536, 1536), (768, 1536), (1536, 6144), (6144, 1536),
+         (1536, 64)]
+
+
+@pytest.mark.parametrize("k,n", AUDIO)
+def test_audio_products_get_a_width_that_divides_n(k, n):
+    assert (k, n) in gemm.TOKEN_CHOICE
+    p = gemm.plan(k, n, "tokens")
+    bm, bn = p["tile"]
+    assert bn == gemm.TOKEN_CHOICE[(k, n)] and bn in gemm.TOKEN_BN
+    assert n % bn == 0 and bm == gemm.TOKEN_BM
+
+
+@pytest.mark.parametrize("k,n", AUDIO)
+def test_audio_plan_does_not_follow_m(k, n):
+    """The row contract: tile, stages and k order from (K, N) alone — the
+    audio path's row counts (2·216·B tokens, 2·128·B memory rows) and
+    others give one plan; only the grid follows M."""
+    plan = gemm.plan(k, n, "tokens")
+    grids = set()
+    for m in (1, 63, 256, 432, 512, 864, 1296, 1728, 4096):
+        lp = gemm.launch_plan(m, k, n, "tokens")
+        grids.add(tuple(lp.pop("grid")))
+        assert lp == plan
+    assert len(grids) > 1
+
+
+def test_dit_and_video_widths_are_pinned():
+    """DiT-XL/2's and OpenSora's token products (d 1152) keep the widths
+    their bitwise serving checks ran on; a change must be deliberate."""
+    assert {kn: w for kn, w in gemm.TOKEN_CHOICE.items()
+            if 1152 in kn} == {(16, 1152): 144, (1152, 1152): 144,
+                               (4608, 1152): 144, (1152, 4608): 144,
+                               (1152, 16): 16}
+    for (k, n), w in gemm.TOKEN_CHOICE.items():
+        assert gemm.plan(k, n, "tokens")["tile"] == [gemm.TOKEN_BM, w]
 
 
 # ---------------------------------------------------------------------------

@@ -108,10 +108,13 @@ def test_ddim_interface_bitwise(n):
 
 def test_registry_and_flags():
     assert set(tsolvers.SOLVERS) <= set(jsolvers.SOLVERS)
-    assert set(tsolvers.SOLVERS) == {"ddim", "rectified_flow"}
+    assert set(tsolvers.SOLVERS) == {"ddim", "dpmpp_3m_sde",
+                                     "rectified_flow"}
     for name, make in tsolvers.SOLVERS.items():
         ts, js = make(10), jsolvers.SOLVERS[name](10)
         assert ts.name == js.name == name
         assert (ts.stochastic, ts.scannable) == (js.stochastic, js.scannable)
-        assert ts.init_state() == js.init_state() == {}
+        assert ts.init_state() == js.init_state()
+        assert ts.init_state() == ({} if name != "dpmpp_3m_sde" else
+                                   dict.fromkeys(("d1", "d2", "h1", "h2")))
         assert ts.num_steps == 10
