@@ -170,11 +170,28 @@ exits non-zero:
    served batch ≡ its ``generate``, no join; a static and a host-loop
    run exported after 3 steps, restored on a fresh executor ≡
    uninterrupted; a traced B = 2 forward (``audio_profile``); peak
-   memory of calibration and of the slice.
+   memory of calibration and of the slice;
+19. the attention-LM slice (``qwen3``, budget ~120 s, after the Mamba
+   phases and before the video phase, on weights of its own drawn on the
+   card from a seeded CUDA generator): Qwen3-14B at its published widths
+   (d 5120, 40 query heads × 128 over 8 KV heads, qk-norm, RoPE θ 1e6,
+   gated SiLU MLP d_ff 17408, vocab 151936), 8 of its 40 blocks.  The
+   attention kernel at the prefill's causal GQA shape (4, 1024, 40 over
+   8, 128) against its plain version, bitwise twice, timed beside its
+   bound, the same shape non-causal and SDPA (``enable_gqa``); every
+   product at 4096 and 4 rows against cuBLAS and an f64 product, rows
+   bitwise, timed; a 2-block prefill of a 200-token prompt on the card
+   against the CPU (logits and every k / v cache ≤ 1e-4); ``generate``
+   on 4 prompts × 1024 tokens, 32 new, greedy, cache_len 1056 —
+   attention 8 launches in the prefill and none in the decode, linear 56
+   in the prefill and 56 a decode step; the 31 generated tokens decoded
+   teacher-forced against one forward over prompt + tokens (≤ 1e-4); a
+   traced prefill and 4 decode steps (``qwen3_profile``).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's,
-Mamba-2-1.3B's, OpenSora-v1.2's and Stable-Audio-Open's.
+Mamba-2-1.3B's, OpenSora-v1.2's and Stable-Audio-Open's, and Qwen3-14B's
+widths at 8 of its 40 blocks.
 """
 import gc
 import json
@@ -191,6 +208,10 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 REQUEST_LABELS = [207, 360, 387, 974]
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
+# the linear kernels' error against an f64 product, of the output's scale:
+# about 1e-6 at every K with the token kernel's promoted accumulation, and
+# 1.2e-4 at K 17408 without it
+F64_LIMIT = 1e-5
 # Published peaks per card (NVIDIA H100 data sheet: FP32 outside the tensor
 # cores, dense TF32 and BF16 on the tensor cores where cited, HBM
 # bandwidth), keyed by the name nvidia-smi reports.
@@ -386,33 +407,6 @@ def sass_phase(libs):
     return out
 
 
-def gemms(cfg, batch, mem_len=0):
-    """Every product of one forward over ``batch`` rows (CFG-doubled
-    requests) as ``(M, K, N, bias, calls, rows)``: the patch embedding,
-    the time MLP, per block the adaLN modulation, self-attention q/k/v/o,
-    cross-attention q/o over the tokens and k/v over a ``mem_len``-token
-    memory where the block has ``cross``, the MLP (up, and gate where it
-    is gated, then down), the final modulation and the output projection;
-    ``rows`` is the linear kernel's variant (``"requests"``: one row per
-    request)."""
-    from repro_torch.core.diffusion import TIME_EMB_DIM, token_shape
-    ffn = cfg.stages[0].unit[0].ffn
-    d, ff, up = cfg.d_model, ffn.d_ff, 2 if ffn.gated else 1
-    n_tok, tok_dim, _ = token_shape(cfg)
-    rows, toks, blocks = batch, batch * n_tok, cfg.num_layers
-    cross = sum(b.cross is not None for _, _, _, b in cfg.blocks())
-    t, r = "tokens", "requests"
-    memory = ([(batch * mem_len, cfg.cond_dim, d, False, 2 * cross, t)]
-              if cross else [])
-    return [(toks, tok_dim, d, True, 1, t),
-            (rows, TIME_EMB_DIM, d, True, 1, r), (rows, d, d, True, 1, r),
-            (rows, d, 6 * d, True, blocks, r),
-            (toks, d, d, False, 4 * blocks + 2 * cross, t), *memory,
-            (toks, d, ff, False, up * blocks, t),
-            (toks, ff, d, False, blocks, t),
-            (rows, d, 2 * d, True, 1, r), (toks, d, tok_dim, True, 1, t)]
-
-
 def linear_calls(cfg, computed):
     """``ops.linear`` calls of one forward whose branches of the types in
     ``computed`` run: 5 outside the blocks, per block its modulation, 4
@@ -431,12 +425,12 @@ def attn_calls(cfg, computed):
                for t in b.branch_types() if t in computed)
 
 
-def product_times(gemm, ref, peaks, x, w, b, rows):
+def product_times(gemm, ref, peaks, x, w, b, rows, iters=50):
     """One product x (M, K) @ w (K, N) (+ b) through its linear kernel
-    variant: device ms (batched and one call alone), the plain version's
-    and cuBLAS's (``addmm`` / ``mm``) ms, and its bound — 3xTF32 on the
-    tensor cores for token rows, f32 FMAs outside them for request rows,
-    against its bytes."""
+    variant: device ms (batched and one call alone; ``iters`` calls a
+    batch), the plain version's and cuBLAS's (``addmm`` / ``mm``) ms, and
+    its bound — 3xTF32 on the tensor cores for token rows, f32 FMAs
+    outside them for request rows, against its bytes."""
     from repro_torch.kernels.timing import device_ms, per_call_ms
     (m, k), n = x.shape, w.shape[1]
     bias = b is not None
@@ -449,11 +443,13 @@ def product_times(gemm, ref, peaks, x, w, b, rows):
     t_bytes = nbytes / peaks["hbm"] * 1e3
     row = {"m": m, "k": k, "n": n, "bias": bias, "rows": rows,
            "plan": gemm.launch_plan(m, k, n, rows),
-           "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows)),
+           "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows),
+                           iters=iters),
            "per_call_ms": per_call_ms(
-               lambda: gemm.linear_cuda(x, w, b, rows=rows)),
-           "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b)),
-           "library_ms": device_ms(lib),
+               lambda: gemm.linear_cuda(x, w, b, rows=rows), iters=iters),
+           "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b),
+                                 iters=iters),
+           "library_ms": device_ms(lib, iters=iters),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes}
@@ -470,6 +466,7 @@ def gemm_kernel_phase(gemm, ref, peaks, cfg):
     against an eager one in both, and a capture that finds no prepared
     weight raising; device times of one B = 8 forward's products beside
     their bound and cuBLAS's ``addmm`` / ``mm``, summed per variant."""
+    from repro_torch.kernels.products import gemms
     gen = torch.Generator().manual_seed(SEED + 11)
 
     def inputs(m, k, n):
@@ -903,20 +900,24 @@ def lm_slice_phase(cfg, T, serve, params, ops):
     return prompts, toks, launches
 
 
-def lm_decode_consistency_phase(cfg, T, params, prompts, toks):
-    """Teacher-forced recurrent decode of the generated tokens against one
-    card forward over prompt + the first 31 of them: the kernel's final
-    state and the conv tail must hand over to the decode step."""
+def lm_decode_consistency_phase(cfg, T, params, prompts, toks,
+                                name="lm_decode_consistency"):
+    """Teacher-forced decode of the generated tokens against one card
+    forward over prompt + the first 31 of them: the kernel's final state
+    and the conv tail (Mamba-2), or the KV cache and the RoPE positions
+    (an attention LM), must hand over to the decode step."""
     steps = LM_GEN - 1
-    logits, caches = T.prefill(cfg, params, prompts)
-    check(all(bool(torch.isfinite(c[k]).all())
+    logits, caches = T.prefill(cfg, params, prompts,
+                               cache_len=LM_PROMPT + LM_GEN)
+    check(all(bool(torch.isfinite(c[k].float()).all())
               for st in caches for c in st for k in c),
           "prefill states not finite")
     dec = []
     for i in range(steps):
-        lg, caches = T.decode_step(cfg, params, toks[:, i:i + 1], caches)
+        lg, caches = T.decode_step(cfg, params, toks[:, i:i + 1], caches,
+                                   pos=LM_PROMPT + i)
         dec.append(lg)
-    check(all(bool(torch.isfinite(c[k]).all())
+    check(all(bool(torch.isfinite(c[k].float()).all())
               for st in caches for c in st for k in c),
           "decode states not finite")
     dec = torch.cat(dec, dim=1)
@@ -924,7 +925,7 @@ def lm_decode_consistency_phase(cfg, T, params, prompts, toks):
     err = rel_err(dec, full[:, LM_PROMPT:])
     first = rel_err(logits[:, -1], full[:, LM_PROMPT - 1])
     agree = float((dec.argmax(-1) == toks[:, 1:]).float().mean())
-    emit({"phase": "lm_decode_consistency", "length": LM_PROMPT + steps,
+    emit({"phase": name, "length": LM_PROMPT + steps,
           "rel_max_err": err, "prefill_last_rel_err": first,
           "limit": 1e-4, "greedy_agreement": agree})
     check(err <= 1e-4 and first <= 1e-4,
@@ -1084,6 +1085,332 @@ def lm_profile_phase(cfg, T, params, prompts, toks):
     check(set(rows["prefill"]["ssd_pass_ms"]) == set(SASS_KERNELS["ssd"]),
           f"SSD passes in the prefill trace: {rows['prefill']['ssd_pass_ms']}")
     check(rows["decode_4_steps"]["ssd_ms"] == 0, "an SSD pass in the decode")
+
+
+QWEN3_BLOCKS = 8          # of 40: weights and prepared halves take ~38 GB
+QWEN3_CHECK_BLOCKS = 2    # the card-vs-CPU prefill's depth
+QWEN3_BUDGET_S = 120
+
+
+def qwen3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
+    """The attention kernel at the prefill's shape — q (4, 1024, 40, 128),
+    k = v (4, 1024, 8, 128), f32, causal, 5 query heads per KV head —
+    against its plain version (≤ 5e-5), two launches bitwise, device ms
+    beside its bound (the causal triangle's work), the same shape
+    non-causal (how far the early-finishing query tiles leave the grid
+    unbalanced) and SDPA with ``enable_gqa``.  Every product at the
+    prefill's 4096 rows and a decode step's 4 against cuBLAS f32 (≤ 5e-5
+    of the output's scale) and an f64 product (≤ ``F64_LIMIT``), each row
+    bitwise against fewer rows, timed beside its bound and cuBLAS's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.products import lm_products
+    from repro_torch.kernels.timing import device_ms
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 81)
+    spec = cfg.stages[0].unit[0].mixer
+    b, l, h, kv, d = (LM_BATCH, LM_PROMPT, spec.num_heads,
+                      spec.num_kv_heads, spec.head_dim)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    q, k, v = rand(b, l, h, d), rand(b, l, kv, d), rand(b, l, kv, d)
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    again = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    check(bool(torch.allclose(out, want, atol=5e-5, rtol=5e-5)),
+          f"qwen3 causal GQA attention vs plain: max abs err {err}")
+    check(bool(torch.equal(out, again)),
+          "two launches of the qwen3 attention differ")
+    del want
+    # the causal triangle: query row i meets keys 0..i
+    flops = 4 * b * h * d * l * (l + 1) // 2
+    nbytes = 4 * b * d * (2 * h * l + 2 * kv * l)
+    t_ops = 3 * flops / peaks["tf32"] * 1e3
+    t_bytes = nbytes / peaks["hbm"] * 1e3
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    tiles = -(-l // fa.QUERY_TILE)
+    attn = {"shape": [b, l, h, kv, d], "causal": True, **fa.plan(q, k, v),
+            "max_abs_err": err,
+            "ms": device_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                            causal=True)),
+            "noncausal_ms": device_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=False)),
+            "plain_ms": device_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True), iters=5),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            # grid (B·H, query tiles): tile i walks i + 1 key tiles
+            "grid": [b * h, tiles],
+            "sass": {name: row for name, row in sass["flash_attention"]
+                     .items() if "attn_fwdIfLi128" in name}}
+    attn["bound_share"] = attn["bound_ms"] / attn["ms"]
+    # the grid's balance as measured: a causal call does about half the
+    # non-causal work, and its time falls short of half by what the
+    # early-finishing query tiles leave idle
+    attn["noncausal_over_causal"] = attn["noncausal_ms"] / attn["ms"]
+    emit({"phase": "qwen3_attention", "limit": 5e-5, **attn})
+    del q, k, v, qt, kt, vt, out, again
+
+    sweep, rows_ok, times = [], {}, {}
+    for phase, m in (("prefill", LM_BATCH * LM_PROMPT), ("decode", LM_BATCH)):
+        for name, _, kk, n, calls in lm_products(cfg, m):
+            x, w = rand(m, kk), rand(kk, n) / kk ** 0.5
+            y = gemm.linear_cuda(x, w)
+            want = ref.linear_ref(x, w, None)
+            exact = ref.linear_ref(x.double(), w.double(), None)
+            fewer = gemm.linear_cuda(x[:m // 2].contiguous(), w)
+            torch.cuda.synchronize()
+            scale = float(exact.abs().max())
+            row = {"phase": phase, "shape": name, "m": m, "k": kk, "n": n,
+                   "plan": gemm.plan(kk, n)["tile"],
+                   "rel_max_err": float((y - want).abs().max()
+                                        / want.abs().max()),
+                   "kernel_vs_f64": float((y - exact).abs().max()) / scale,
+                   "plain_vs_f64": float((want - exact).abs().max()) / scale,
+                   "rows_max_abs_vs_fewer": float(
+                       (fewer - y[:m // 2]).abs().max())}
+            sweep.append(row)
+            check(row["rel_max_err"] <= 5e-5, f"qwen3 product {row}")
+            check(row["kernel_vs_f64"] <= F64_LIMIT,
+                  f"qwen3 product against f64 {row}")
+            rows_ok[f"{phase}:{name}"] = row["rows_max_abs_vs_fewer"] == 0.0
+            del want, exact, fewer, y
+            times[f"{phase}:{name}"] = {
+                **product_times(gemm, ref, peaks, x, w, None, "tokens",
+                                iters=10 if phase == "prefill" else 50),
+                "calls": calls}
+            gemm.release()
+    check(all(rows_ok.values()), f"a qwen3 product's row changes with the "
+          f"rows beside it: {rows_ok}")
+    summary = {}
+    for phase in ("prefill", "decode"):
+        rows = [r for key, r in times.items() if key.startswith(phase)]
+        summary[phase] = {key: sum(r[key] * r["calls"] for r in rows)
+                          for key in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms")}
+    emit({"phase": "qwen3_products", "limit": 5e-5, "f64_limit": F64_LIMIT,
+          "cases": sweep,
+          "times": times, "forward": summary,
+          "seconds": time.perf_counter() - t_phase})
+    return attn, {"shapes": times, "forward": summary,
+                  "max_rel_err": max(r["rel_max_err"] for r in sweep),
+                  "max_kernel_vs_f64": max(r["kernel_vs_f64"]
+                                           for r in sweep)}
+
+
+def qwen3_cross_check_phase(cfg, T, params):
+    """A prefill of one 200-token prompt (a ragged last query tile) at
+    ``QWEN3_CHECK_BLOCKS`` blocks, card against CPU on the card's own
+    weights copied over: logits and each block's k / v caches."""
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.models.transformer import tree_map
+    cut = lm_cut(cfg, QWEN3_CHECK_BLOCKS)
+    gpu = {**params, "stages": [tuple(
+        tree_map(lambda a: a[:QWEN3_CHECK_BLOCKS], u)
+        for u in params["stages"][0])]}
+    cpu = tree_map(lambda a: a.cpu(), gpu)
+    toks = torch.randint(0, cfg.vocab_size, (1, 200),
+                         generator=torch.Generator().manual_seed(SEED + 82))
+    (lg_gpu, c_gpu), gpu_s = _timed(
+        lambda: T.prefill(cut, gpu, toks.cuda(), cache_len=200))
+    t0 = time.perf_counter()
+    lg_cpu, c_cpu = T.prefill(cut, cpu, toks, cache_len=200)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lg_cpu).all()), "CPU logits not finite")
+    errs = {"logits": rel_err(lg_gpu, lg_cpu)}
+    for r in range(QWEN3_CHECK_BLOCKS):
+        for name in ("k", "v"):
+            errs[f"{name}{r}"] = rel_err(c_gpu[0][0][name][r],
+                                         c_cpu[0][0][name][r])
+    emit({"phase": "qwen3_cross_check", "blocks": QWEN3_CHECK_BLOCKS,
+          "prompt": 200, "rel_max_err": errs, "limit": 1e-4,
+          "gpu_s": gpu_s, "cpu_s": cpu_s})
+    for name, err in errs.items():
+        check(err <= 1e-4, f"qwen3 card vs CPU prefill {name}: relative "
+              f"error {err}")
+
+
+def qwen3_generate_phase(cfg, serve, params, ops, weight_bytes, prepared):
+    """The attention-LM main path: ``generate`` on 4 prompts × 1024 tokens,
+    32 new, greedy, cache_len 1056, after a cold run of 2 tokens — the
+    attention kernel once a block in the prefill and never in the decode,
+    the linear kernel 7 times a block in the prefill and in every decode
+    step."""
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 83))
+    prompts = prompts.cuda()
+    marks = {}
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        marks[phase] = (time.perf_counter(), dict(ops.LAUNCHES))
+
+    # a first, cold generate of 2 tokens at the same shapes: what the
+    # first call of each kernel and library routine costs stays out of the
+    # timed run
+    mark("start")
+    serve.generate(cfg, params, prompts, 2, cache_len=LM_PROMPT + LM_GEN,
+                   on_phase=mark)
+    cold = {"prefill_s": marks["prefill"][0] - marks["start"][0],
+            "decode_step_s": marks["decode"][0] - marks["prefill"][0]}
+    _reset_counts(ops)
+    torch.cuda.reset_peak_memory_stats()
+    mark("start")
+    toks = serve.generate(cfg, params, prompts, LM_GEN,
+                          cache_len=LM_PROMPT + LM_GEN, on_phase=mark)
+    launches = dict(ops.LAUNCHES)
+    (t0, _), (t1, pre), (t2, end) = (marks["start"], marks["prefill"],
+                                     marks["decode"])
+    steps = LM_GEN - 1
+    dec = {k: end[k] - pre[k] for k in end}
+    per_block = 7      # q, k, v, o, up, gate, down
+    row = {"phase": "qwen3_generate", "arch": cfg.name,
+           "blocks": cfg.num_layers, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "new_tokens": LM_GEN, "cache_len": LM_PROMPT + LM_GEN,
+           "prefill_s": t1 - t0, "decode_ms_per_step": 1e3 * (t2 - t1) / steps,
+           "decode_tokens_per_s": LM_BATCH * steps / (t2 - t1),
+           "tokens_per_s": LM_BATCH * LM_GEN / (t2 - t0),
+           "launches_prefill": pre, "launches_decode": dec, "cold": cold,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "weight_bytes": weight_bytes, "prepared_bytes": prepared}
+    emit(row)
+    want = {"flash_attention": (cfg.num_layers, 0),
+            "linear": (per_block * cfg.num_layers,
+                       per_block * cfg.num_layers * steps),
+            "linear_tokens": (per_block * cfg.num_layers,
+                              per_block * cfg.num_layers * steps),
+            "linear_requests": (0, 0), "ssd": (0, 0)}
+    for name, (n_pre, n_dec) in want.items():
+        check(pre[name] == n_pre and dec[name] == n_dec,
+              f"{name}: {pre[name]} launches in the prefill, {dec[name]} in "
+              f"the decode; expected {n_pre}, {n_dec}")
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "token out of range")
+    return prompts, toks, launches
+
+
+def qwen3_profile_phase(cfg, T, params, prompts, toks, ops):
+    """Where the attention LM's time goes: one prefill and 4 decode steps
+    (after one untraced step), each traced — device ms by kernel, the
+    shares of the linear kernel, the attention kernel, cuBLAS (the LM head
+    ``x @ lm_head``, and in the decode the attention einsums) and the
+    rest (elementwise), and the device's idle share of the wall time.
+    The calls each run made are counted by ``ops.LAUNCHES``; the trace's
+    own kernel counts are reported beside them (a trace has dropped a few
+    kernel records)."""
+    cache_len = LM_PROMPT + LM_GEN
+    _, caches = T.prefill(cfg, params, prompts, cache_len=cache_len)
+    _, caches = T.decode_step(cfg, params, toks[:, :1], caches,
+                              pos=LM_PROMPT)
+
+    def decode4():
+        c = caches
+        for i in range(1, 5):
+            _, c = T.decode_step(cfg, params, toks[:, i:i + 1], c,
+                                 pos=LM_PROMPT + i)
+
+    rows = {}
+    for name, fn in (("prefill", lambda: T.prefill(cfg, params, prompts,
+                                                   cache_len=cache_len)),
+                     ("decode_4_steps", decode4)):
+        before = dict(ops.LAUNCHES)
+        wall_us, kern = _traced(fn)
+        launched = {k: ops.LAUNCHES[k] - before[k]
+                    for k in ("flash_attention", "linear")}
+        busy = sum(us for us, _ in kern.values())
+        parts = {"linear": [LINEAR_KERNELS["tokens"]],
+                 "attention": ["attn_fwd"],
+                 "cublas": ["gemm", "gemv", "cutlass", "xmma", "cublas"]}
+        share = {}
+        for part, frags in parts.items():
+            keys = [k for k in kern if any(f in k.lower() for f in frags)
+                    and not any(k in s for s in share.values())]
+            share[part] = keys
+        ms = {part: sum(kern[k][0] for k in keys) / 1e3
+              for part, keys in share.items()}
+        ms["elementwise"] = busy / 1e3 - sum(ms.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+        rows[name] = {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+                      "idle_share": 1 - busy / wall_us, "ms": ms,
+                      "share": {k: v / (busy / 1e3) for k, v in ms.items()},
+                      "launched": launched,
+                      "kernels_in_trace": {
+                          part: sum(kern[k][1] for k in keys)
+                          for part, keys in share.items()},
+                      "kernels": len(kern),
+                      "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
+                              for k, (us, n) in top]}
+    emit({"phase": "qwen3_profile", **rows})
+    pre, dec = rows["prefill"], rows["decode_4_steps"]
+    check(pre["launched"] == {"flash_attention": cfg.num_layers,
+                              "linear": 7 * cfg.num_layers}
+          and dec["launched"] == {"flash_attention": 0,
+                                  "linear": 4 * 7 * cfg.num_layers},
+          f"traced runs launched {pre['launched']}, {dec['launched']}")
+    check(pre["ms"]["linear"] > 0 and pre["ms"]["attention"] > 0,
+          f"the prefill trace lacks a kernel of the path: {pre['ms']}")
+    check(dec["kernels_in_trace"]["attention"] == 0,
+          "an attention kernel in the decode trace")
+    return rows
+
+
+def qwen3_phase(peaks, kernels, sass):
+    """The attention-LM serving path at Qwen3-14B's published widths (d
+    5120, 40 × 128 heads over 8 KV heads, qk-norm, RoPE θ 1e6, d_ff 17408,
+    vocab 151936), 8 of its 40 blocks, after the Mamba phases and before
+    the video phase.  Budget ``QWEN3_BUDGET_S``: the weights (4.2 B
+    values) are drawn on the card from a seeded CUDA generator, since a
+    CPU draw of them takes about a minute."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = lm_cut(configs.get("qwen3-14b"), QWEN3_BLOCKS)
+    attn, products = qwen3_kernel_phase(fa, ref, gemm, peaks, cfg, sass)
+    t0 = time.perf_counter()
+    params = serve.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 80), cfg,
+        device="cuda")
+    weight_bytes = sum(a.numel() * a.element_size()
+                       for a in tree_leaves(params))
+    prepared = T.prepare_linear(params)
+    torch.cuda.synchronize()
+    emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
+          "d_model": cfg.d_model, "drawn_on": "cuda",
+          "seconds": time.perf_counter() - t0,
+          "count": sum(a.numel() for a in tree_leaves(params)),
+          "weight_bytes": weight_bytes, "linear_prepared_bytes": prepared,
+          "device_bytes": torch.cuda.memory_allocated()})
+    check(prepared == 2 * 4 * sum(w.numel() for w in T.token_weights(params)),
+          f"{prepared} prepared bytes")
+    qwen3_cross_check_phase(cfg, T, params)
+    prompts, toks, launches = qwen3_generate_phase(cfg, serve, params, ops,
+                                                   weight_bytes, prepared)
+    lm_decode_consistency_phase(cfg, T, params, prompts, toks,
+                                name="qwen3_decode_consistency")
+    profile = qwen3_profile_phase(cfg, T, params, prompts, toks, ops)
+    kernels["flash_attention"]["qwen3"] = attn
+    kernels["flash_attention"]["qwen3_launches"] = launches["flash_attention"]
+    kernels["linear"]["qwen3"] = {
+        **products, "profile_prefill_linear_ms":
+        profile["prefill"]["ms"]["linear"]}
+    kernels["linear"]["qwen3_launches"] = launches["linear"]
+    del params, prompts, toks
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "qwen3", "seconds": seconds, "budget_s": QWEN3_BUDGET_S,
+          "launches": launches})
 
 
 SERVE_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.18),tau=0.3"
@@ -2580,6 +2907,7 @@ def video_kernel_phase(fa, ref, gemm, peaks, cfg):
     output's scale) with its device ms, bound and cuBLAS's ms."""
     import torch.nn.functional as F
     from repro_torch.core.diffusion import token_shape
+    from repro_torch.kernels.products import gemms
     from repro_torch.kernels.timing import device_ms
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 40)
@@ -2944,11 +3272,12 @@ def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
     against the plain version (≤ 5e-5), two launches bitwise, device ms
     beside the bound and SDPA's.  Every product shape of a forward for 1–4
     requests, each through its call site's variant, against cuBLAS f32 (≤
-    5e-5 of the output's scale); each row bitwise against the product of
-    fewer requests' rows and of permuted rows; device ms of one B = 2
+    5e-5 of the output's scale) and an f64 product (≤ ``F64_LIMIT``); each
+    row bitwise against the product of fewer requests' rows and of permuted rows; device ms of one B = 2
     forward's products beside their bound and cuBLAS's."""
     import torch.nn.functional as F
     from repro_torch.core.diffusion import token_shape
+    from repro_torch.kernels.products import gemms
     from repro_torch.kernels.timing import device_ms
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 60)
@@ -3013,6 +3342,8 @@ def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
                           "plain_vs_f64": float((want - exact).abs().max())
                           / scale})
             check(rel <= 5e-5, f"audio product {sweep[-1]}")
+            check(sweep[-1]["kernel_vs_f64"] <= F64_LIMIT,
+                  f"audio product against f64 {sweep[-1]}")
             gemm.release()
     stable = {}
     for m, k, n, _, _, rows in gemms(cfg, 8, AUDIO_MEM):
@@ -3029,7 +3360,8 @@ def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
         stable[f"{k}x{n}:{rows}"] = {"plan": gemm.plan(k, n, rows)["tile"],
                                      **diffs}
         gemm.release()
-    emit({"phase": "audio_products", "limit": 5e-5, "max_rel_err": worst,
+    emit({"phase": "audio_products", "limit": 5e-5, "f64_limit": F64_LIMIT,
+          "max_rel_err": worst,
           "cases": sweep, "rows_max_abs_vs_full": stable})
     check(all(v == 0.0 for row in stable.values()
               for key, v in row.items() if key != "plan"),
@@ -3505,7 +3837,7 @@ def main():
     emit({"phase": "build",
           "seconds": {k: r["seconds"] for k, r in builds.items()},
           "wall_s": time.perf_counter() - t0})
-    sass_phase({k: r["path"] for k, r in builds.items()})
+    sass = sass_phase({k: r["path"] for k, r in builds.items()})
     cfg = configs.get("dit-xl-256")
     kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
                "ssd": ssd_kernel_phase(ssd, ref, peaks),
@@ -3592,8 +3924,9 @@ def main():
     lm_profile_phase(cfg, T, params_gpu, prompts, toks)
     del params_gpu, prompts, toks
     gemm.release()
-    gc.collect()              # the LM weights go before the video phase
+    gc.collect()              # the Mamba weights go before the qwen3 phases
     torch.cuda.empty_cache()
+    qwen3_phase(peaks, kernels, sass)
     video_phase(peaks, kernels)
     torch.cuda.empty_cache()  # the video weights go before the audio phase
     audio_phase(peaks, kernels)

@@ -120,6 +120,11 @@ class ModelConfig:
     patch: int = 1                       # diffusion image patch size
     cond_dim: int = 0                    # cross-attention memory width
     num_classes: int = 0                 # label conditioning (DiT-XL)
+    # long-context policy of the JAX package's long_500k preset: "native"
+    # (SSM) | "swa" (a sliding window of swa_window) | None; the port's
+    # paths do not read it
+    long_context: Optional[str] = None
+    swa_window: int = 8192
     dtype: str = "bfloat16"
     citation: str = ""
 

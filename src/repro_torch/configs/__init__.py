@@ -9,6 +9,8 @@ REGISTRY = {
     "dit-xl-256": "repro_torch.configs.dit_xl",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "opensora-v12": "repro_torch.configs.opensora_v12",
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "stable-audio-open": "repro_torch.configs.stable_audio_open",
 }
 

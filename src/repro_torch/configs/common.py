@@ -57,4 +57,5 @@ def smoke_variant(cfg: ModelConfig, d_model: int = 128,
         vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else cfg.vocab_size,
         stages=tuple(stages), max_seq_len=min(cfg.max_seq_len, 256),
         cond_dim=min(cfg.cond_dim, 64) if cfg.cond_dim else 0,
-        latent_shape=_shrink_latent(cfg.latent_shape), dtype="float32")
+        latent_shape=_shrink_latent(cfg.latent_shape), swa_window=16,
+        dtype="float32")

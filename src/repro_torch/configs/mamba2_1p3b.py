@@ -23,7 +23,7 @@ def full() -> ModelConfig:
         d_model=D, vocab_size=50_280,
         stages=(Stage(unit=(_block(),), repeat=48),),
         norm="rmsnorm", tie_embeddings=True,
-        max_seq_len=8192,
+        max_seq_len=8192, long_context="native",
         citation="arXiv:2405.21060")
 
 

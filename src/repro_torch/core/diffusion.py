@@ -155,18 +155,8 @@ def token_weights(params):
     q/k/v/o of self- and cross-attention, the MLP, output projection), one
     per product as the forward takes it: a block's weight as the view
     ``a[r]`` of its stacked leaf."""
-    out = [params["patch_in"]["w"], params["out"]["w"]]
-    names = {"mixer": ("wq", "wk", "wv", "wo"),
-             "cross": ("wq", "wk", "wv", "wo"),
-             "ffn": ("w_up", "w_gate", "w_down")}
-    for stage in params["backbone"]["stages"]:
-        for unit in stage:
-            for group, keys in names.items():
-                for key in keys:
-                    a = unit.get(group, {}).get(key)
-                    if a is not None:
-                        out.extend(a[r] for r in range(a.shape[0]))
-    return out
+    return ([params["patch_in"]["w"], params["out"]["w"]]
+            + T.token_weights(params["backbone"]))
 
 
 def prepare_linear(params) -> int:

@@ -21,6 +21,14 @@
 //   order into f32 registers (plain TF32 keeps 11 bits and misses the 5e-5
 //   parity limit).  `mma.sync` tops out near 296 TFLOP/s TF32 on this card
 //   (`mma_rate`); only `wgmma` reaches the 495.
+// - The `wgmma` accumulator loses a little at every k8 step, and over a
+//   whole K that loss grew with K (4.95e-5 of the output's scale at K 6144
+//   against an f64 product).  So an accumulator runs PROMOTE k-tiles (128
+//   of K) from zero, then waits for its last group and is added into a
+//   second f32 register sum with plain adds, run after run in ascending k
+//   (DeepSeek-V3's promotion of Hopper partial sums, arXiv:2412.19437
+//   §3.3.2): what the accumulator loses is bounded by one run's length,
+//   not by K.
 // - `wgmma` reads a TF32 B operand from shared memory K-major only, and the
 //   weights are (K, N).  So w is split once, outside the kernel, into
 //   w_big_t and w_small_t, each (N, K) (`gemm.prepare`): the split of w
@@ -39,8 +47,8 @@
 //   (`cuTensorMapEncodeTiled` through the runtime's driver entry point, no
 //   -lcuda) and passed by value as __grid_constant__ parameters, so a
 //   captured launch records them.
-// - Invariant by construction: BN, the k-tile of 32, STAGES and the k
-//   order are constants of the instance, which the caller picks by (K, N)
+// - Invariant by construction: BN, the k-tile of 32, STAGES, PROMOTE and
+//   the k order are constants of the instance, which the caller picks by (K, N)
 //   alone; no split of K, no atomics; the ragged M, N and K edges are
 //   zero-filled by TMA, so a tail tile computes the rows it holds exactly
 //   as a full tile does.  The order in which a block visits tiles depends
@@ -204,22 +212,23 @@ __device__ __forceinline__ uint64_t kmajor_desc(const void* tile) {
 template <int N>
 struct Wgmma;
 
-// Wgmma<N>::run(d, a, desc): d (N/2 f32 per thread) += a (the thread's four
-// tf32 of its warp's 16 x 8 slice of A) x the N x 8 B tile at desc.
-// ACC lists d's operands, A the four a operands, DESC and ONE the next two.
-#define DEFINE_WGMMA(N, ACC, A, DESC, ONE, ...)                              \
+// Wgmma<N>::run(d, a, desc, acc): d (N/2 f32 per thread) = a (the thread's
+// four tf32 of its warp's 16 x 8 slice of A) x the N x 8 B tile at desc,
+// plus d when acc is 1 (0: d's old value is not read).  ACC lists d's
+// operands, A the four a operands, DESC and ACCUMULATE the next two.
+#define DEFINE_WGMMA(N, ACC, A, DESC, ACCUMULATE, ...)                       \
   template <>                                                                \
   struct Wgmma<N> {                                                          \
     static __device__ __forceinline__ void run(float (&d)[N / 2],           \
                                                const uint32_t(&a)[4],       \
-                                               uint64_t desc) {             \
-      asm volatile("{.reg .pred p; setp.ne.b32 p, " ONE ", 0;\n"            \
+                                               uint64_t desc, uint32_t acc) {\
+      asm volatile("{.reg .pred p; setp.ne.b32 p, " ACCUMULATE ", 0;\n"     \
                    "wgmma.mma_async.sync.aligned.m64n" #N                   \
                    "k8.f32.tf32.tf32 {" ACC "}, {" A "}, " DESC             \
                    ", p, 1, 1;}\n"                                           \
                    : __VA_ARGS__                                             \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),            \
-                     "l"(desc), "r"(1));                                     \
+                     "l"(desc), "r"(acc));                                   \
     }                                                                        \
   };
 
@@ -243,6 +252,11 @@ constexpr int BM = 128;               // two consumer warpgroups x 64 rows
 constexpr int BK = 32;                // 128 B of f32 per tile row
 constexpr int TOKEN_THREADS = 384;    // consumers (warpgroups 0, 1), producer
 constexpr int X_TILE = BM * BK * 4;   // bytes
+// k-tiles a `wgmma` accumulator runs before its sum is promoted into the f32
+// register sum (128 of K)
+constexpr int PROMOTE = 4;
+static_assert(PROMOTE >= 2 && PROMOTE % 2 == 0,
+              "runs end on the second k-tile of a pair");
 
 template <int BN>
 struct TokenTile {
@@ -259,13 +273,15 @@ struct TokenTile {
 // One k-tile of one consumer warpgroup: split its x fragments (rows g and
 // g + 8 of the warp's 16, k = t and t + 4 of each k8 slice; the x tile is
 // 128 B-swizzled: 16 B chunk c of row r sits at chunk c ^ (r & 7)), then
-// the 12 products in the fixed order, committed as one group.
+// the 12 products in the fixed order, committed as one group.  On the
+// first k-tile of a run (`fresh`) the first product overwrites acc, so
+// that nothing but `wgmma` writes the accumulator's registers.
 template <int BN>
 __device__ __forceinline__ void consume_ktile(float (&acc)[BN / 2],
                                               uint32_t (&ab)[4][4],
                                               uint32_t (&as)[4][4],
                                               const char* stage, int row,
-                                              int g, int t) {
+                                              int g, int t, bool fresh) {
   const char* xr0 = stage + row * 128;
   const char* xr1 = xr0 + 8 * 128;
 #pragma unroll
@@ -282,9 +298,9 @@ __device__ __forceinline__ void consume_ktile(float (&acc)[BN / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    Wgmma<BN>::run(acc, as[kk], dbig + 2 * kk);
-    Wgmma<BN>::run(acc, ab[kk], dsmall + 2 * kk);
-    Wgmma<BN>::run(acc, ab[kk], dbig + 2 * kk);
+    Wgmma<BN>::run(acc, as[kk], dbig + 2 * kk, kk == 0 && fresh ? 0u : 1u);
+    Wgmma<BN>::run(acc, ab[kk], dsmall + 2 * kk, 1u);
+    Wgmma<BN>::run(acc, ab[kk], dbig + 2 * kk, 1u);
   }
   wgmma_commit();
 }
@@ -351,9 +367,14 @@ __global__ void __launch_bounds__(TOKEN_THREADS, 1)
     uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = (tile % mt_n) * BM, n0 = (tile / mt_n) * BN;
-      float acc[BN / 2];
+      // acc: the products of the current run of PROMOTE k-tiles; sum: the
+      // runs added in ascending order with f32 adds
+      float acc[BN / 2], sum[BN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) {
+        acc[i] = 0.f;
+        sum[i] = 0.f;
+      }
       fence_regs(acc);
       int prev = -1;
       // k-tiles in pairs, so that the group in flight reads one register
@@ -364,13 +385,28 @@ __global__ void __launch_bounds__(TOKEN_THREADS, 1)
           if (kt + h < kt_n) {
             mbar_wait(&full[stage], phase);
             const char* st = smem + stage * T::STAGE;
+            const bool fresh = (kt + h) % PROMOTE == 0;
             if (h == 0)
-              consume_ktile<BN>(acc, ab0, as0, st, row, g, t);
+              consume_ktile<BN>(acc, ab0, as0, st, row, g, t, fresh);
             else
-              consume_ktile<BN>(acc, ab1, as1, st, row, g, t);
-            wgmma_wait<1>();  // the group before this one is done
-            if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-            prev = stage;
+              consume_ktile<BN>(acc, ab1, as1, st, row, g, t, fresh);
+            if ((kt + h + 1) % PROMOTE == 0 || kt + h + 1 == kt_n) {
+              // end of a run: wait for its last group, release both
+              // stages, promote the run into sum
+              wgmma_wait<0>();
+              fence_regs(acc);
+              if (lane == 0) {
+                if (prev >= 0) mbar_arrive(&empty[prev]);
+                mbar_arrive(&empty[stage]);
+              }
+              prev = -1;
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+            } else {
+              wgmma_wait<1>();  // the group before this one is done
+              if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+              prev = stage;
+            }
             if (++stage == STAGES) {
               stage = 0;
               phase ^= 1;
@@ -378,9 +414,10 @@ __global__ void __launch_bounds__(TOKEN_THREADS, 1)
           }
         }
       }
+      // the last k-tile ended a run, so nothing is in flight; said here
+      // for the compiler, which cannot see it and would wait before the
+      // next tile's acc is written
       wgmma_wait<0>();
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(&empty[prev]);
 
       // C fragment: per n8 slice j, (row g, cols 2t, 2t + 1) and row g + 8
       const int r0 = m0 + row;
@@ -394,7 +431,7 @@ __global__ void __launch_bounds__(TOKEN_THREADS, 1)
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h;
           if (r >= M) continue;
-          float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          float2 v = make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
           if (bias != nullptr) {
             v.x += bv.x;
             v.y += bv.y;
@@ -649,7 +686,7 @@ int launch_requests(const void* x, const void* w, const void* bias, void* y,
 #ifdef GEMM_ALL_TILES
 #define TOKEN_TILES(X) X(16) X(64) X(96) X(128) X(144) X(192) X(256)
 #else
-#define TOKEN_TILES(X) X(16) X(96) X(144)
+#define TOKEN_TILES(X) X(16) X(64) X(96) X(128) X(144)
 #endif
 
 // y (M, N) = x (M, K) @ w (K, N) (+ bias (N,) when not null), f32,

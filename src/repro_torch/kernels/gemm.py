@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from pathlib import Path
 from typing import NamedTuple
 
@@ -29,19 +30,35 @@ from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).with_name("gemm.cu")
 ROWS = ("tokens", "requests")
+
+
+def _source_constant(name: str) -> int:
+    """``gemm.cu``'s ``constexpr int name``: what the library is built with."""
+    found = re.search(rf"^constexpr int {name} = (\d+);",
+                      SOURCE.read_text(), re.M)
+    if found is None:
+        raise RuntimeError(f"{SOURCE.name} defines no constexpr int {name}")
+    return int(found.group(1))
+
+
 #: the token kernel: rows per tile (two warpgroups of 64), the k-tile
-#: (128 B of f32), the tile widths built into ``gemm.cu`` (``TOKEN_TILES``)
-#: and the width picked per (K, N) by timing candidates (``gemm_ab
-#: --tiles``): DiT-XL/2's and OpenSora's products (d 1152) at M = 512 to
-#: 2048, Stable-Audio-Open's (d 1536) by their sum over one forward at 1,
-#: 2 and 4 requests (``--model audio``); other shapes take the widest
-#: built width that divides N
-TOKEN_BM, TOKEN_BK = 128, 32
-TOKEN_BN = (144, 96, 16)
+#: (128 B of f32) and the k-tiles of one accumulator run, read from
+#: ``gemm.cu``; the tile widths built into it (``TOKEN_TILES``) and the
+#: width picked per (K, N) by timing candidates (``gemm_ab --tiles``):
+#: DiT-XL/2's and OpenSora's products (d 1152) at M = 512 to 2048,
+#: Stable-Audio-Open's (d 1536) by their sum over one forward at 1, 2 and 4
+#: requests (``--model audio``), Qwen3-14B's (d 5120) by their sum over one
+#: generate, a prefill at M = 4096 and 31 decode steps at M = 4 (``--model
+#: qwen3``); other shapes take the widest built width that divides N
+TOKEN_BM, TOKEN_BK, TOKEN_PROMOTE = (_source_constant(name)
+                                     for name in ("BM", "BK", "PROMOTE"))
+TOKEN_BN = (144, 128, 96, 64, 16)
 TOKEN_CHOICE = {(16, 1152): 144, (1152, 1152): 144, (4608, 1152): 144,
                 (1152, 4608): 144, (1152, 16): 16,
                 (64, 1536): 96, (1536, 1536): 96, (768, 1536): 96,
-                (1536, 6144): 96, (6144, 1536): 96, (1536, 64): 16}
+                (1536, 6144): 96, (6144, 1536): 96, (1536, 64): 16,
+                (5120, 5120): 64, (5120, 1024): 64, (5120, 17408): 128,
+                (17408, 5120): 64}
 #: the request-row kernel: rows per tile, threads per block, column slices
 #: (16 bytes a thread along N), and the blocks it aims for (the H100's 132
 #: SMs)
@@ -85,8 +102,11 @@ def plan(k: int, n: int, rows: str = "tokens") -> dict:
         return {"rows": rows, "kernel": "gemm_tokens_wgmma",
                 "tile": [TOKEN_BM, width], "bk": TOKEN_BK,
                 "stages": token_stages(width),
-                "k_order": "k-tiles of 32 ascending; per k8 slice "
-                           "small_x*big_w, big_x*small_w, big_x*big_w"}
+                "k_order": f"runs of {TOKEN_PROMOTE} k-tiles of 32 "
+                           "ascending, each run in a fresh wgmma "
+                           "accumulator (per k8 slice small_x*big_w, "
+                           "big_x*small_w, big_x*big_w), then added to an "
+                           "f32 sum in run order"}
     slices = REQUEST_THREADS // (width // 4)
     return {"rows": rows, "kernel": "gemm_requests_ffma",
             "tile": [REQUEST_ROWS, width], "k_slices": slices,
@@ -111,7 +131,7 @@ def build(flags=()) -> dict:
     """Compile the kernels (a no-op when this source is already built);
     ``flags`` (for example ``("-DGEMM_ALL_TILES",)``) build a separate
     library.  Returns ``{"path", "seconds"}``."""
-    name = "gemm" + "".join(f.lstrip("-").split("=")[0].lower()
+    name = "gemm" + "".join("_" + f.lstrip("-").replace("=", "").lower()
                             for f in flags)
     return _build.build(name, SOURCE, flags=list(flags))
 

@@ -26,7 +26,20 @@ its bits are from the first candidate's.
 
 does the same at Stable-Audio-Open's token shapes for 1, 2 and 4 requests
 under CFG (2·216·B token rows, 2·128·B memory rows for the cross k/v), and
-sums each width over one forward per bucket.
+sums each width over one forward per bucket.  ``--model qwen3`` times
+Qwen3-14B's products (8 blocks) at M = 4096 (a prefill of 4 × 1024 tokens)
+and M = 4 (a decode step of 4 sequences), and sums each width over one
+``generate`` of 32 tokens: one prefill and 31 decode steps.
+
+    git show <commit>:src/repro_torch/kernels/gemm.cu > build/ab/gemm_base.cu
+    PYTHONPATH=src python3 -m repro_torch.kernels.gemm_ab --accuracy build/ab/gemm_base.cu
+
+holds the token kernel's accumulation against an earlier ``gemm.cu`` with
+the same C entry points (``linear_tokens_f32``), both built with
+``-DGEMM_ALL_TILES``: the error against an f64 product at K = 1152 …
+17408, the resources ``cuobjdump`` reports per instance, and the device ms
+of each model's forward token products at its planned widths, timed in
+turns (baseline, current, current, baseline).
 """
 from __future__ import annotations
 
@@ -39,8 +52,9 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import configs
 from repro_torch.kernels import build as _build
-from repro_torch.kernels import gemm, ref, timing
+from repro_torch.kernels import gemm, products, ref, timing
 
 D, FF, TOK, TOK_DIM, T_DIM, BLOCKS = 1152, 4608, 256, 16, 256, 28
 # (name, K, N, rows, bias, calls per forward) of every DiT-XL/2 product
@@ -64,10 +78,36 @@ AUDIO_SHAPES = [("patch", A_CH, A_D, 2 * A_TOK, 1),
                 ("mlp_up_gate", A_D, A_FF, 2 * A_TOK, 2 * A_BLOCKS),
                 ("mlp_down", A_FF, A_D, 2 * A_TOK, A_BLOCKS),
                 ("out", A_D, A_CH, 2 * A_TOK, 1)]
+# Qwen3-14B at 8 of its 40 blocks: the prefill's rows (4 × 1024 tokens),
+# a decode step's (4 sequences) and the decode steps of one generate
+Q_BLOCKS, Q_PREFILL, Q_DECODE, Q_STEPS = 8, 4 * 1024, 4, 31
+# OpenSora-v1.2's text memory, in tokens
+V_MEM = 300
+K_SWEEP = (1152, 1536, 4608, 6144, 17408)
 BUCKETS = (1, 2, 4)
 METHODS = ("per_call_ms", "device_ms")
 LIMIT = 5e-5
 CANDIDATES = (16, 64, 96, 128, 144, 192, 256)
+
+
+def qwen3_config():
+    """Qwen3-14B at its published widths, ``Q_BLOCKS`` blocks deep."""
+    return products.lm_cut(configs.get("qwen3-14b"), Q_BLOCKS)
+
+
+def forwards() -> dict:
+    """Each model's forward token products as (M, K, N, bias, calls), from
+    its config: DiT-XL/2 at 4 requests, OpenSora and Stable-Audio-Open at
+    1 (under CFG), Qwen3-14B's prefill."""
+    def tokens(cfg, batch, mem_len=0):
+        return [(m, k, n, bias, calls) for m, k, n, bias, calls, rows
+                in products.gemms(cfg, batch, mem_len) if rows == "tokens"]
+
+    return {"dit": tokens(configs.get("dit-xl-256"), 8),
+            "video": tokens(configs.get("opensora-v12"), 2, V_MEM),
+            "audio": tokens(configs.get("stable-audio-open"), 2, A_MEM),
+            "qwen3": [(m, k, n, False, calls) for _, m, k, n, calls
+                      in products.lm_products(qwen3_config(), Q_PREFILL)]}
 
 
 def rows_of(rows: str, bucket: int) -> int:
@@ -154,23 +194,30 @@ def compare(kernels: dict, gen: torch.Generator) -> dict:
     return out
 
 
+def _tokens(lib, x, w, b, bn):
+    """The token kernel of library ``lib`` at tile width bn over w's
+    prepared halves."""
+    (m, k), n = x.shape, w.shape[1]
+    p = gemm.prepare(w)
+    y = torch.empty(m, n, device="cuda")
+    rc = lib.linear_tokens_f32(
+        x.data_ptr(), p.big_t.data_ptr(), p.small_t.data_ptr(),
+        None if b is None else b.data_ptr(), y.data_ptr(), m, n, k, bn,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(lib.linear_error_string(rc).decode())
+    return y
+
+
 def _tile_row(lib, name, m, k, n, bias, widths, gen):
     """Each width's device ms at one product, its error against the plain
     version and its distance from the first width's bits."""
     x, w, b = inputs(m, k, n, bias, gen)
-    p = gemm.prepare(w)
     want = ref.linear_ref(x, w, b)
     first, row = None, {"shape": name, "m": m, "k": k, "n": n}
 
     def call(bn):
-        y = torch.empty(m, n, device="cuda")
-        rc = lib.linear_tokens_f32(
-            x.data_ptr(), p.big_t.data_ptr(), p.small_t.data_ptr(),
-            None if b is None else b.data_ptr(), y.data_ptr(), m, n,
-            k, bn, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(lib.linear_error_string(rc).decode())
-        return y
+        return _tokens(lib, x, w, b, bn)
 
     for bn in widths:
         y = call(bn)
@@ -222,26 +269,125 @@ def audio_tiles(gen: torch.Generator) -> dict:
     return {"tiles": out, "forward_ms": forward}
 
 
+def qwen3_tiles(gen: torch.Generator) -> dict:
+    """Every built width that divides N at each Qwen3-14B product, at the
+    prefill's and a decode step's rows, and each width's sum over one
+    generate (calls per forward × (prefill ms + 31 decode steps' ms)) with
+    the width that wins it."""
+    lib = gemm.bind(gemm.build(("-DGEMM_ALL_TILES",))["path"])
+    out, generate = [], {}
+    for name, _, k, n, calls in products.lm_products(qwen3_config(),
+                                                      Q_PREFILL):
+        widths = [bn for bn in CANDIDATES if n % bn == 0]
+        ms = {}
+        for phase, m in (("prefill", Q_PREFILL), ("decode", Q_DECODE)):
+            row = _tile_row(lib, name, m, k, n, False, widths, gen)
+            row.update(phase=phase, calls=calls)
+            out.append(row)
+            ms[phase] = {bn: row[str(bn)]["ms"] for bn in widths}
+        total = {bn: calls * (ms["prefill"][bn] + Q_STEPS * ms["decode"][bn])
+                 for bn in widths}
+        generate[f"{k}x{n}"] = {
+            "ms": {str(bn): v for bn, v in total.items()},
+            "prefill_ms": {str(bn): calls * v
+                           for bn, v in ms["prefill"].items()},
+            "decode_step_ms": {str(bn): calls * v
+                               for bn, v in ms["decode"].items()},
+            "best": min(widths, key=total.get)}
+    return {"tiles": out, "generate": generate}
+
+
+def _resources(path: str) -> dict:
+    """Registers, stack and local memory of each token-kernel instance in
+    the library at path (``cuobjdump -res-usage``)."""
+    import re
+    import subprocess
+    from torch.utils.cpp_extension import CUDA_HOME
+    res = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
+                          "-res-usage", path], capture_output=True,
+                         text=True, check=True).stdout
+    return {name: {k.lower(): int(v) for k, v in re.findall(
+        r"(REG|STACK|LOCAL):(\d+)", usage)}
+        for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)",
+                                      res) if "gemm_tokens" in name}
+
+
+def accuracy(baseline: str, gen: torch.Generator) -> dict:
+    """The token kernel of an earlier source (``baseline``) against this
+    one: error against f64 per K, resources per instance, and each model's
+    forward token products in ms."""
+    flags = ("-DGEMM_ALL_TILES",)
+    with ThreadPoolExecutor(2) as pool:
+        builds = {"baseline": pool.submit(
+            _build.build, "gemm_accum_baseline", Path(baseline).resolve(),
+            flags), "current": pool.submit(gemm.build, flags)}
+        paths = {name: f.result()["path"] for name, f in builds.items()}
+    libs = {name: gemm.bind(path) for name, path in paths.items()}
+    result = {"resources": {name: _resources(path)
+                            for name, path in paths.items()}}
+
+    # one product of 512 rows and 1024 columns per K: max |y - exact| over
+    # max |exact|, exact the f64 product; every library at width 128 (the
+    # k order does not depend on the width), cuBLAS f32 beside them
+    errs = {}
+    for k in K_SWEEP:
+        x, w, _ = inputs(512, k, 1024, False, gen)
+        exact = x.double() @ w.double()
+        scale = float(exact.abs().max())
+        row = {name: float((_tokens(lib, x, w, None, 128) - exact).abs()
+                           .max()) / scale for name, lib in libs.items()}
+        row["cublas"] = float((torch.mm(x, w) - exact).abs().max()) / scale
+        errs[str(k)] = row
+        gemm.release()
+    result["rel_err_vs_f64"] = errs
+
+    order = ["baseline", "current", "current", "baseline"]
+    result["forwards"] = {}
+    for model, shapes in forwards().items():
+        total = {name: 0.0 for name in libs}
+        for m, k, n, bias, calls in shapes:
+            x, w, b = inputs(m, k, n, bias, gen)
+            bn = gemm.plan(k, n)["tile"][1]
+            ms = {name: [] for name in libs}
+            for name in order:
+                ms[name].append(timing.device_ms(
+                    lambda lib=libs[name]: _tokens(lib, x, w, b, bn),
+                    iters=10, reps=3, warmup=2))
+            for name in libs:
+                total[name] += calls * statistics.mean(ms[name])
+            gemm.release()
+        result["forwards"][model] = {
+            "ms": total, "current_over_baseline":
+            total["current"] / total["baseline"]}
+    result["order"] = order
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("baseline", nargs="?", help="the earlier gemm.cu")
     ap.add_argument("--tiles", action="store_true",
                     help="time the token kernel's candidate tile widths")
-    ap.add_argument("--model", choices=("dit", "audio"), default="dit",
-                    help="whose token shapes --tiles times")
+    ap.add_argument("--model", choices=("dit", "audio", "qwen3"),
+                    default="dit", help="whose token shapes --tiles times")
+    ap.add_argument("--accuracy", metavar="BASELINE",
+                    help="an earlier gemm.cu with linear_tokens_f32: hold "
+                         "the token kernel's accumulation against it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_ab needs a CUDA card")
-    if not args.tiles and args.baseline is None:
-        ap.error("give the earlier gemm.cu, or --tiles")
+    if not (args.tiles or args.accuracy) and args.baseline is None:
+        ap.error("give the earlier gemm.cu, --tiles or --accuracy")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = timing.card()
     print(card, flush=True)
     gen = torch.Generator().manual_seed(0)
     result = {"card": card}
-    if args.tiles:
-        result.update(tiles(gen) if args.model == "dit"
-                      else audio_tiles(gen))
+    if args.accuracy:
+        result.update(accuracy(args.accuracy, gen))
+    elif args.tiles:
+        result.update({"dit": tiles, "audio": audio_tiles,
+                       "qwen3": qwen3_tiles}[args.model](gen))
     else:
         with ThreadPoolExecutor(2) as pool:
             base = pool.submit(_build.build, "gemm_baseline",

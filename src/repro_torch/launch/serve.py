@@ -1,7 +1,9 @@
-"""AR serving driver: prefill + recurrent decode loop over a static batch.
+"""Autoregressive serving: prefill + decode loop over a static batch.
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b --variant full \
         --batch 4 --prompt-len 1024 --gen 32
+    python -m repro_torch.launch.serve --arch qwen3-14b --variant smoke \
+        --device cpu
 
 The weights are random, drawn from ``--seed``; the prompts are uniform
 random tokens from the same seed.  Runs on ``cuda`` unless ``--device cpu``.
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
@@ -20,9 +23,10 @@ from repro_torch.models import transformer as T
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 *, device=None):
-    """Seeded LM parameters in the JAX package's layout, drawn on the CPU
-    from ``gen`` (so a seed gives the same parameters on every device) and
-    moved to ``device`` (default ``cuda``)."""
+    """Seeded LM parameters in the JAX package's layout, drawn from ``gen``
+    on its device (a CPU generator gives the same parameters on every
+    device; a CUDA generator draws on the card) and moved to ``device``
+    (default ``cuda``)."""
     if cfg.task != "lm":
         raise ValueError(f"{cfg.name} is not a language model config")
     dev = resolve_device(device)
@@ -41,12 +45,14 @@ def _pick(logits, temperature: float, generator):
 
 
 def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
-             temperature: float = 0.0, generator=None, device=None,
-             on_phase=None):
+             cache_len: Optional[int] = None, temperature: float = 0.0,
+             generator=None, device=None, on_phase=None):
     """Greedy or temperature batched generation on ``device`` (default
     ``cuda``), where ``params`` must lie.  prompts: (B, L) tokens.  Returns
-    (B, gen_len) new tokens.  Sampling (``temperature > 0``) needs an
-    explicit ``torch.Generator``.  ``on_phase``, if given, is called with
+    (B, gen_len) new tokens; decode step i runs at position L + i against
+    KV caches of ``cache_len`` slots (default L + gen_len; a state-cache
+    model has none).  Sampling (``temperature > 0``) needs an explicit
+    ``torch.Generator``.  ``on_phase``, if given, is called with
     ``"prefill"`` once the prompts are prefilled and the first token is
     picked, and with ``"decode"`` at the end."""
     dev = resolve_device(device)
@@ -56,13 +62,15 @@ def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
     if temperature > 0 and generator is None:
         raise ValueError("sampling at temperature > 0 needs a generator")
     prompts = prompts.to(params["embed"].device)
-    logits, caches = T.prefill(cfg, params, prompts)
+    plen = prompts.shape[1]
+    logits, caches = T.prefill(cfg, params, prompts,
+                               cache_len=cache_len or plen + gen_len)
     tok = _pick(logits[:, -1:], temperature, generator)
     if on_phase is not None:
         on_phase("prefill")
     out = [tok]
-    for _ in range(gen_len - 1):
-        lg, caches = T.decode_step(cfg, params, tok, caches)
+    for i in range(gen_len - 1):
+        lg, caches = T.decode_step(cfg, params, tok, caches, pos=plen + i)
         tok = _pick(lg, temperature, generator)
         out.append(tok)
     if on_phase is not None:

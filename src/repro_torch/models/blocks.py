@@ -1,8 +1,9 @@
 """Residual blocks: norm → mixer → +res [→ norm → cross → +res]
 [→ norm → ffn → +res], with adaLN-zero (DiT) conditioning and the
 SmoothCache branch-caching contract.  The mixer is self-attention (DiT,
-OpenSora's spatial / temporal attention) or a Mamba-2 SSD mixer, which
-carries a state cache from a full-sequence pass into the one-token decode.
+OpenSora's spatial / temporal attention, the attention LMs) or a Mamba-2
+SSD mixer; an LM's mixer carries a cache from a full-sequence pass into the
+one-token decode (a KV cache, or the SSD state).
 The cross branch (OpenSora) attends to a conditioning memory, with no
 adaLN modulation and no gate.
 
@@ -13,6 +14,8 @@ bool]``: when a branch's type is skipped, its output comes from
 ``branch_cache`` and the branch is not computed.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,15 +48,27 @@ def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
     return p
 
 
-def init_cache(spec: BlockSpec, d_model: int, batch: int, device=None):
-    """Decode-time state cache of this block (None for a block without a
-    mixer)."""
-    if spec.mixer is None:
+def init_cache(spec: BlockSpec, d_model: int, batch: int,
+               cache_len: Optional[int] = None, dtype=torch.float32,
+               device=None):
+    """Decode-time cache of this block (None for a block without a mixer):
+    an SSD state, or a KV cache of ``cache_len`` slots (at most the
+    window) whose ``slots`` (S,) hold each slot's position, -1 when
+    empty."""
+    m = spec.mixer
+    if m is None:
         return None
-    if isinstance(spec.mixer, SSMSpec):
-        return ssm.init_cache(spec.mixer, d_model, batch, torch.float32,
+    if isinstance(m, SSMSpec):
+        return ssm.init_cache(m, d_model, batch, torch.float32,
                               device=device)
-    raise NotImplementedError("attention decode caches are not ported yet")
+    if cache_len is None:
+        raise ValueError("an attention block's cache needs cache_len")
+    clen = min(cache_len, m.window) if m.window else cache_len
+    c = attention.init_cache(m, batch, clen, dtype, device=device)
+    if c is not None:
+        c["slots"] = torch.full((clen,), -1, dtype=torch.int32,
+                                device=device)
+    return c
 
 
 def _modulation(spec: BlockSpec, params, cond):
@@ -68,17 +83,17 @@ def _mod_norm(x_norm, shift, scale):
     return x_norm * (1.0 + scale) + shift
 
 
-def apply(spec: BlockSpec, params, x, *, mode: str = "full", cache=None,
-          cond=None, skip=None, branch_cache=None, memory=None,
-          video_shape=None):
+def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
+          pos=None, cache=None, cond=None, skip=None, branch_cache=None,
+          memory=None, video_shape=None):
     """Returns ``(x, branch_out, new_cache)``.
 
     branch_out holds the pre-residual, pre-gate outputs of the computed
     branches (the SmoothCache cache content).  new_cache is the mixer's
-    state cache: built by a full-sequence pass (``mode="full"``), advanced
-    by one token in ``mode="decode"`` from ``cache``; None for attention,
-    whose caches are not ported.  ``memory`` (B, Lm, cond_dim) feeds the
-    cross branch; ``video_shape`` (T, S) the factorized attention."""
+    cache: built by a full-sequence pass (``mode="full"``; attention's
+    (k, v) at ``positions``), advanced by one token at position ``pos`` in
+    ``mode="decode"`` from ``cache``.  ``memory`` (B, Lm, cond_dim) feeds
+    the cross branch; ``video_shape`` (T, S) the factorized attention."""
     skip = skip or {}
     branch_cache = branch_cache or {}
     mod = _modulation(spec, params, cond)
@@ -101,10 +116,14 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", cache=None,
                 out, new_cache = ssm.apply_decode(m, params["mixer"], h,
                                                   cache, d_model)
             elif mode == "full":
-                out = attention.apply(m, params["mixer"], h,
-                                      video_shape=video_shape)
+                out, new_cache = attention.apply(
+                    m, params["mixer"], h, positions=positions,
+                    video_shape=video_shape)
             else:
-                raise NotImplementedError("attention decode is not ported yet")
+                out, new_cache = attention.apply(
+                    m, params["mixer"], h, mode="decode", pos=pos,
+                    cache={k: v for k, v in cache.items() if k != "slots"},
+                    slot_pos=cache["slots"])
             branch_out["mixer"] = out
         if mod is not None:
             out = out * mod[2]
@@ -115,8 +134,8 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", cache=None,
             out = branch_cache["cross"]
         else:
             h = L.apply_norm(spec.norm, params["norm_x"], x)
-            out = attention.apply(spec.cross, params["cross"], h,
-                                  memory=memory)
+            out, _ = attention.apply(spec.cross, params["cross"], h,
+                                     memory=memory)
             branch_out["cross"] = out
         x = x + out.to(x.dtype)
 

@@ -12,21 +12,23 @@ import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
-# Init (drawn on the CPU from an explicit generator; callers move the tree)
+# Init (drawn from an explicit generator on its device; callers move the
+# tree)
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, scale: Optional[float] = None):
     """Truncated-normal fan-in init (±2σ), σ = 1/√in_dim unless given."""
     std = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    w = torch.empty(in_dim, out_dim, dtype=torch.float32)
+    w = torch.empty(in_dim, out_dim, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.float32):
-    w = torch.randn(vocab, dim, generator=gen, dtype=torch.float32) * 0.02
+    w = torch.randn(vocab, dim, generator=gen, dtype=torch.float32,
+                    device=gen.device) * 0.02
     return w.to(dtype)
 
 

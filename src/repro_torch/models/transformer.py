@@ -7,22 +7,24 @@ and state caches are stacked back to a leading ``repeat`` axis per leaf, the
 JAX layout.
 
 Entry points
-  init_params(gen, cfg, dtype)                  # CPU tensors
+  init_params(gen, cfg, dtype)                  # on the generator's device
   forward(cfg, params, tokens | embeds=...)     # LM logits / DiT hidden
-  init_caches(cfg, batch)
-  prefill(cfg, params, tokens)                  # forward + decode caches
-  decode_step(cfg, params, token, caches)       # one AR token
+  init_caches(cfg, batch[, cache_len])
+  prefill(cfg, params, tokens[, cache_len=])    # forward + decode caches
+  decode_step(cfg, params, token, caches[, pos=])  # one AR token
 
-Only state-cache (SSM) blocks decode; attention decode caches, and the
-cache length and positions they need, are not ported.
+A state-cache (SSM) model decodes without positions; an attention model's
+KV caches need the cache length (``cache_len``) and each decode step its
+position (``pos``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import BlockSpec, ModelConfig, SSMSpec
+from repro_torch.config import AttentionSpec, BlockSpec, ModelConfig
+from repro_torch.kernels import gemm
 from repro_torch.models import blocks, layers as L
 
 
@@ -43,12 +45,16 @@ def _stack(trees):
         return None
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[i] for t in trees])
+                           for i in range(len(first)))
     return torch.stack(trees)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 adaln_dim: int = 0) -> Dict[str, Any]:
-    """Seeded parameters on the CPU, drawn from ``gen`` in a fixed order."""
+    """Seeded parameters drawn from ``gen`` in a fixed order, on the
+    generator's device (the zero and one leaves on the CPU)."""
     p: Dict[str, Any] = {}
     if cfg.task == "lm":
         p["embed"] = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
@@ -68,14 +74,45 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     return p
 
 
-def init_caches(cfg: ModelConfig, batch: int, device=None):
+def token_weights(params):
+    """The weights of the stack's token products (q/k/v/o of self- and
+    cross-attention, the MLP), one per product as :func:`apply_stages`
+    takes it: a block's weight as the view ``a[r]`` of its stacked leaf."""
+    out = []
+    names = {"mixer": ("wq", "wk", "wv", "wo"),
+             "cross": ("wq", "wk", "wv", "wo"),
+             "ffn": ("w_up", "w_gate", "w_down")}
+    for stage in params["stages"]:
+        for unit in stage:
+            for group, keys in names.items():
+                for key in keys:
+                    a = unit.get(group, {}).get(key)
+                    if a is not None:
+                        out.extend(a[r] for r in range(a.shape[0]))
+    return out
+
+
+def prepare_linear(params) -> int:
+    """Make the token kernel's prepared weights (``gemm.prepare``) for every
+    token product of the stack, before any timed window; a no-op for
+    parameters on the CPU.  Returns the bytes the prepared copies hold."""
+    if params["final_norm"]["scale"].device.type != "cuda":
+        return 0
+    return gemm.prepare_params(token_weights(params))
+
+
+def init_caches(cfg: ModelConfig, batch: int,
+                cache_len: Optional[int] = None, dtype=torch.float32,
+                device=None):
     """Zeroed decode caches: per stage, a tuple per unit block of the
-    block's cache stacked ``(repeat, ...)``."""
+    block's cache stacked ``(repeat, ...)`` (a KV cache's ``slots`` -1,
+    ``(repeat, S)``)."""
     out = []
     for st in cfg.stages:
         out.append(tuple(
             tree_map(lambda a, r=st.repeat: a.expand(r, *a.shape).clone(),
-                     blocks.init_cache(b, cfg.d_model, batch, device=device))
+                     blocks.init_cache(b, cfg.d_model, batch, cache_len,
+                                       dtype, device=device))
             for b in st.unit))
     return out
 
@@ -119,17 +156,19 @@ def _normalize_collect(collect_branches):
     return frozenset(collect_branches)
 
 
-def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
-                 cond=None, skip=None, branch_caches=None,
-                 collect_branches=False, collect_caches=False, memory=None,
-                 video_shape=None):
-    """Run all stages.  Returns ``(x, branch, new_caches)``.
+def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
+                 pos=None, caches=None, cond=None, skip=None,
+                 branch_caches=None, collect_branches=False,
+                 collect_caches=False, memory=None, video_shape=None):
+    """Run all stages.  Returns ``(x, branch, new_caches)``.  ``positions``
+    (full mode) and ``pos`` (decode mode) reach every attention mixer.
 
     branch: per stage, a tuple per unit block of ``{branch_name: (repeat,
     B, N, d)}`` (None for a block that collected nothing), or None when
     nothing is collected.  new_caches: per stage, a tuple per unit block of
     the block's state cache stacked ``(repeat, ...)``, when
-    ``collect_caches`` or ``mode == "decode"``; else None per stage."""
+    ``collect_caches`` or ``mode == "decode"``; else None per stage.  A
+    decode step's KV caches are the given ones, updated in place."""
     collect = _normalize_collect(collect_branches)
     collect_any = collect is None or len(collect) > 0
     keep_caches = collect_caches or mode == "decode"
@@ -148,8 +187,9 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
                          if scache is not None else None)
                 x, bo, nc = blocks.apply(
                     b, tree_map(lambda a: a[r], sp[i]), x, mode=mode,
-                    cache=cache, cond=cond, skip=skip, branch_cache=bc,
-                    memory=memory, video_shape=video_shape)
+                    positions=positions, pos=pos, cache=cache, cond=cond,
+                    skip=skip, branch_cache=bc, memory=memory,
+                    video_shape=video_shape)
                 if collect is not None:
                     types = dict(zip(b.branch_names(), b.branch_types()))
                     bo = {n: v for n, v in bo.items() if types[n] in collect}
@@ -157,9 +197,13 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
                 new_caches.append(nc if keep_caches else None)
             per_rep.append(outs)
             per_rep_caches.append(new_caches)
+        # a decode step updates a KV cache in place: its stacked leaves
+        # already hold every repeat's new column
         all_caches.append(tuple(
-            _stack([c[i] for c in per_rep_caches])
-            for i in range(len(st.unit))) if keep_caches else None)
+            scache[i] if mode == "decode" and isinstance(b.mixer,
+                                                         AttentionSpec)
+            else _stack([c[i] for c in per_rep_caches])
+            for i, b in enumerate(st.unit)) if keep_caches else None)
         if not collect_any:
             all_branch.append(None)
             continue
@@ -176,50 +220,89 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", caches=None,
 
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None, cond=None,
             skip=None, branch_caches=None, collect_branches=False,
-            collect_caches=False, memory=None, video_shape=None):
+            collect_caches=False, memory=None, video_shape=None,
+            positions=None):
     """Full-sequence forward.  For an LM: tokens (B, L) → logits.  For a
     diffusion backbone: embeddings ``embeds`` (B, L, d) → hidden states
     after ``final_norm`` (the diffusion wrapper owns patchify and head).
-    ``memory`` (B, Lm, cond_dim) and ``video_shape`` (T, S) reach every
-    block.
+    ``memory`` (B, Lm, cond_dim), ``video_shape`` (T, S) and
+    ``positions`` ((1, L) or (B, L); attention takes ``arange(L)`` when
+    None) reach every block.
     Returns ``(out, {"branch", "caches", "hidden"})`` (see
     :func:`apply_stages`)."""
     x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
     x, branch, caches = apply_stages(
-        cfg, params, x, mode="full", cond=cond, skip=skip,
-        branch_caches=branch_caches, collect_branches=collect_branches,
-        collect_caches=collect_caches, memory=memory, video_shape=video_shape)
+        cfg, params, x, mode="full", positions=positions, cond=cond,
+        skip=skip, branch_caches=branch_caches,
+        collect_branches=collect_branches, collect_caches=collect_caches,
+        memory=memory, video_shape=video_shape)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     out = logits_from_hidden(cfg, params, x) if cfg.task == "lm" else x
     return out, {"branch": branch, "caches": caches, "hidden": x}
 
 
-def _to_decode_cache(block_spec: BlockSpec, prefill_cache):
+def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
+                     prefill_len: int, cache_dtype):
     """One block's stacked prefill cache → its decode cache.  A state cache
     (SSM) already has the decode layout, with the leading ``(repeat,)``
-    axis on each leaf."""
-    if block_spec.mixer is None:
+    axis on each leaf.  An attention layer's (k, v), each (repeat, B, L,
+    KV, dh), keeps the positions the decode step can still see (the last
+    ``window`` of them) in the slots that step's ring indexing gives them
+    (``pos % S`` under a window, else ``pos``), in the decode layouts k
+    (repeat, B, KV, dh, S) and v (repeat, B, KV, S, dh), with ``slots``
+    (repeat, S) holding each slot's position (-1 empty)."""
+    m = block_spec.mixer
+    if m is None:
         return None
-    if isinstance(block_spec.mixer, SSMSpec):
+    if not isinstance(m, AttentionSpec):
         return prefill_cache
-    raise NotImplementedError("attention decode caches are not ported yet")
+    if cache_len is None:
+        raise ValueError("an attention model's prefill needs cache_len")
+    clen = min(cache_len, m.window) if m.window else cache_len
+    dev = prefill_cache[0].device
+    positions = torch.arange(prefill_len, device=dev)
+    if m.window and prefill_len > m.window:
+        positions = positions[-m.window:]
+    slots = (positions % clen if m.window
+             else torch.clamp(positions, max=clen - 1))
+    out = {}
+    for name, arr in zip(("k", "v"), prefill_cache):
+        buf = torch.zeros(arr.shape[:2] + (clen,) + arr.shape[3:],
+                          dtype=cache_dtype, device=dev)
+        buf[:, :, slots] = arr[:, :, positions].to(cache_dtype)
+        out[name] = buf
+    out["k"] = out["k"].permute(0, 1, 3, 4, 2).contiguous()
+    out["v"] = out["v"].permute(0, 1, 3, 2, 4).contiguous()
+    slot_pos = torch.full((clen,), -1, dtype=torch.int32, device=dev)
+    slot_pos[slots] = positions.to(torch.int32)
+    out["slots"] = slot_pos.expand(arr.shape[0], clen).clone()
+    return out
 
 
-def prefill(cfg: ModelConfig, params, tokens):
+def prefill(cfg: ModelConfig, params, tokens, *,
+            cache_len: Optional[int] = None, cache_dtype=torch.float32):
     """Full forward that also builds the decode caches.  Returns (logits,
-    caches); state caches keep the dtypes the forward made them in."""
+    caches).  State caches keep the dtypes the forward made them in; KV
+    caches hold ``cache_len`` slots (an attention model needs it) in
+    ``cache_dtype``."""
     out, aux = forward(cfg, params, tokens, collect_caches=True)
-    caches = [tuple(_to_decode_cache(b, aux["caches"][si][bi])
+    caches = [tuple(_to_decode_cache(b, aux["caches"][si][bi], cache_len,
+                                     tokens.shape[1], cache_dtype)
                     for bi, b in enumerate(st.unit))
               for si, st in enumerate(cfg.stages)]
     return out, caches
 
 
-def decode_step(cfg: ModelConfig, params, token, caches):
-    """One AR decode step.  token: (B, 1).  Returns (logits (B, 1, V),
-    caches)."""
+def decode_step(cfg: ModelConfig, params, token, caches, *,
+                pos: Optional[int] = None):
+    """One AR decode step.  token: (B, 1) at position ``pos`` (an int; an
+    attention model needs it).  Returns (logits (B, 1, V), caches); an
+    attention model's KV caches are the given ones, updated in place."""
+    if pos is None and any(isinstance(b.mixer, AttentionSpec)
+                           for _, _, _, b in cfg.blocks()):
+        raise ValueError("an attention model's decode step needs pos=")
     x = embed_tokens(cfg, params, token)
-    x, _, new_caches = apply_stages(cfg, params, x, mode="decode",
+    x, _, new_caches = apply_stages(cfg, params, x, mode="decode", pos=pos,
                                     caches=caches)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), new_caches

@@ -294,8 +294,8 @@ def test_attention_matches_reference(kind, route):
                         jnp.asarray(x), mode="full",
                         use_flash=route == "pallas", **jkw)
     tkw = dict(memory=torch.from_numpy(mem)) if kind == "cross" else {}
-    yt = tattn.apply(tspec, _block_params(pt, part, "torch"),
-                     torch.from_numpy(x), **tkw)
+    yt, _ = tattn.apply(tspec, _block_params(pt, part, "torch"),
+                        torch.from_numpy(x), **tkw)
     _rel_close(yj, yt)
 
 

@@ -138,6 +138,31 @@ def test_audio_plan_does_not_follow_m(k, n):
     assert len(grids) > 1
 
 
+# (K, N) of Qwen3-14B's products: q and o (d 5120 = 40 × 128), k and v
+# (8 KV heads × 128), the gated MLP's up and gate (d_ff 17408), down
+QWEN3 = [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120)]
+
+
+@pytest.mark.parametrize("k,n", QWEN3)
+def test_qwen3_products_get_a_built_width_that_divides_n(k, n):
+    """The LM's widths are planned by (K, N), a prefill's 4096 rows and a
+    decode step's 4 alike, never the 16-wide fallback."""
+    assert (k, n) in gemm.TOKEN_CHOICE
+    bm, bn = gemm.plan(k, n, "tokens")["tile"]
+    assert bn in gemm.TOKEN_BN and n % bn == 0 and bn >= 64
+    for m in (4, 200, 4096, 4220):
+        assert gemm.launch_plan(m, k, n, "tokens")["tile"] == [bm, bn]
+
+
+def test_token_k_order_names_the_promotion():
+    """``plan`` reads the tile and the promotion interval from the source
+    the library is built from: 4 k-tiles of 32, the interval whose error
+    against an f64 product was measured."""
+    order = gemm.plan(17408, 5120, "tokens")["k_order"]
+    assert "runs of 4 k-tiles of 32" in order
+    assert (gemm.TOKEN_BM, gemm.TOKEN_BK, gemm.TOKEN_PROMOTE) == (128, 32, 4)
+
+
 def test_dit_and_video_widths_are_pinned():
     """DiT-XL/2's and OpenSora's token products (d 1152) keep the widths
     their bitwise serving checks ran on; a change must be deliberate."""

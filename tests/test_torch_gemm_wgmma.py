@@ -225,7 +225,9 @@ def test_request_kernel_refuses_a_k_past_its_shared_memory():
                          torch.zeros(4, 4), rows="requests")
 
 
-@pytest.mark.parametrize("argv", [["baseline.cu"], ["--tiles"]])
+@pytest.mark.parametrize("argv", [["baseline.cu"], ["--tiles"],
+                                  ["--tiles", "--model", "qwen3"],
+                                  ["--accuracy", "baseline.cu"]])
 def test_gemm_ab_needs_a_card(monkeypatch, tmp_path, argv):
     from repro_torch.kernels import gemm_ab
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -242,3 +244,46 @@ def test_gemm_ab_shapes_are_the_forwards_products():
     assert calls == 5 + 28 * 7  # a DiT-XL/2 forward's 201 products
     assert sum(c for _, _, _, rows, _, c in gemm_ab.SHAPES
                if rows == "requests") == 28 + 3
+
+
+def test_gemm_ab_qwen3_shapes_are_the_lm_products():
+    """``--model qwen3`` times the products of Qwen3-14B's blocks: 7 a
+    block (q, k, v, o, up, gate, down) at the config's widths."""
+    from repro_torch import configs
+    from repro_torch.kernels import gemm_ab, products
+    cfg = configs.get("qwen3-14b")
+    spec, ffn = cfg.stages[0].unit[0].mixer, cfg.stages[0].unit[0].ffn
+    d, kv = cfg.d_model, spec.num_kv_heads * spec.head_dim
+    shapes = products.lm_products(gemm_ab.qwen3_config(), gemm_ab.Q_DECODE)
+    assert {(k, n) for _, _, k, n, _ in shapes} == {
+        (d, spec.num_heads * spec.head_dim), (d, kv), (d, ffn.d_ff),
+        (ffn.d_ff, d)}
+    assert sum(c for *_, c in shapes) == 7 * gemm_ab.Q_BLOCKS
+    assert [m for m, *_ in gemm_ab.forwards()["qwen3"]] == [4 * 1024] * 4
+
+
+# each model's forward token products as (M, K, N, bias, calls), written
+# out: DiT-XL/2 at 4 requests, OpenSora-v1.2 and Stable-Audio-Open at 1
+# (under CFG), Qwen3-14B's prefill at 8 blocks
+FORWARD_TOKENS = {
+    "dit": [(2048, 16, 1152, True, 1), (2048, 1152, 1152, False, 112),
+            (2048, 1152, 4608, False, 28), (2048, 4608, 1152, False, 28),
+            (2048, 1152, 16, True, 1)],
+    "video": [(8192, 16, 1152, True, 1), (8192, 1152, 1152, False, 336),
+              (600, 1152, 1152, False, 112), (8192, 1152, 4608, False, 56),
+              (8192, 4608, 1152, False, 56), (8192, 1152, 16, True, 1)],
+    "audio": [(432, 64, 1536, True, 1), (432, 1536, 1536, False, 144),
+              (256, 768, 1536, False, 48), (432, 1536, 6144, False, 48),
+              (432, 6144, 1536, False, 24), (432, 1536, 64, True, 1)],
+    "qwen3": [(4096, 5120, 5120, False, 16), (4096, 5120, 1024, False, 16),
+              (4096, 5120, 17408, False, 16),
+              (4096, 17408, 5120, False, 8)]}
+
+
+@pytest.mark.parametrize("model", sorted(FORWARD_TOKENS))
+def test_gemm_ab_forwards_come_from_the_configs(model):
+    """``--accuracy`` times each model's forward token products as the
+    configs give them (``kernels.products``, which ``chip_smoke.py``
+    checks too)."""
+    from repro_torch.kernels import gemm_ab
+    assert gemm_ab.forwards()[model] == FORWARD_TOKENS[model]

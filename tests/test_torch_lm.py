@@ -42,7 +42,8 @@ def _same(t, j, path="cfg"):
         assert t == j, f"{path}: {t!r} != {j!r}"
 
 
-@pytest.mark.parametrize("arch", ["dit-xl-256", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["dit-xl-256", "mamba2-1.3b",
+                                  "qwen3-14b", "qwen2.5-14b"])
 @pytest.mark.parametrize("variant", ["full", "smoke"])
 def test_configs_match_jax(arch, variant):
     _same(tconfigs.get(arch, variant), jconfigs.get(arch, variant))

@@ -85,8 +85,9 @@ def test_gqa_full_matches():
     x = _rand(2, 16, 128, seed=8)
     oj, _ = jattn._gqa_full(cfg.stages[0].unit[0].mixer, sj["mixer"],
                             jnp.asarray(x), jnp.arange(16)[None])
-    close(oj, tattn._gqa_full(tcfg.stages[0].unit[0].mixer, st["mixer"],
-                              torch.from_numpy(x)))
+    ot, _ = tattn._gqa_full(tcfg.stages[0].unit[0].mixer, st["mixer"],
+                            torch.from_numpy(x))
+    close(oj, ot)
 
 
 @pytest.mark.parametrize("skip", [None, {"attn": True}, {"ffn": True},

@@ -178,8 +178,8 @@ def test_attention_matches_reference(kind, route):
                         use_flash=route == "pallas", **kw)
     tkw = dict(memory=torch.from_numpy(mem)) if kind == "cross" else dict(
         video_shape=video_shape)
-    yt = tattn.apply(tspec, _block_params(pt, bi, part, "torch"),
-                     torch.from_numpy(x), **tkw)
+    yt, _ = tattn.apply(tspec, _block_params(pt, bi, part, "torch"),
+                        torch.from_numpy(x), **tkw)
     _rel_close(yj, yt)
 
 
