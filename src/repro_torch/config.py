@@ -65,6 +65,7 @@ class BlockSpec:
     cross: Optional[AttentionSpec] = None
     ffn: Optional[MLPSpec] = None
     norm: str = "rmsnorm"                # "rmsnorm" | "layernorm"
+    post_norm: bool = False              # gemma2: extra norm after branch
     adaln: bool = False                  # DiT-style adaLN-zero conditioning
     type_tag: str = ""                   # SmoothCache type prefix
 

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a) on the tensor cores.
+// Flash attention forward for Hopper (sm_90a) on the tensor cores: attn_fwd
+// for head dims up to 128, attn_fwd_wide (below) for 129..256.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention`, body `_attn_kernel`): the same function — online
@@ -482,6 +483,328 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
   return launch<B16, 128>(a, s);
 }
 
+// ---------------------------------------------------------------------------
+// Head dims 129..256 (Gemma-2's 256), f32 and bf16.
+//
+// What bounds it: at Gemma-2-9B's prefill (B 2, L 4352, 16 query heads over
+// 8 KV heads, D 256, causal) the causal band is 3.1e11 flops, 9.3e11 as
+// 3xTF32, 1.9 ms at 495 TFLOP/s, against 0.13 ms for q/k/v/o's bytes: bound
+// by operations, as at D <= 128.
+//
+// Why attn_fwd does not stretch to D 256: each of its threads keeps its Q
+// fragments (KS * 4 values) and its output accumulator (NO * 4) in
+// registers, 128 + 64 at D 128, where it already takes 255 registers.  At
+// D 256 that is 256 + 128.  This kernel keeps Q in shared memory for the
+// block's whole life and reads one k-step's fragment at a time (4 values,
+// split into big and small as attn_fwd splits its register copy), so a
+// thread holds the output accumulator (128 registers), one score tile and
+// the running max and sum.
+// - 8 warps, BQW = 128 query rows (16 a warp), K/V tiles of BKW = 16 keys,
+//   double-buffered with the same cp.async / plain-load staging.  Shared
+//   memory in f32: Q 128 x 260 x 4 B = 133.1 KB and two stages of K and V,
+//   4 x 16 x 260 x 4 B = 66.6 KB: 199.7 KB, one block an SM (8 warps of 255
+//   registers fill the SM's 65,536).  bf16: 101.4 KB.
+// - Rows hold the head dim padded with zeros to 256, plus 4 f32 or 8 bf16
+//   words, so that a warp's fragment loads hit 32 banks.
+// - Everything else is attn_fwd's: the 3xTF32 split, the masks and the
+//   tiles they skip, the online softmax in base 2, P straight from the
+//   score registers, a fixed order of every sum (bitwise repeatable).
+constexpr int BQW = 128;                      // query rows per block
+constexpr int BKW = 16;                       // keys per K/V tile
+constexpr int THREADS_W = 32 * (BQW / 16);
+constexpr int DKW = 256;                      // the padded head dim
+static_assert(THREADS_W == DKW, "plain staging gives a thread one column");
+
+// Rows [row0, row0 + n) of a (rows, D) matrix with row stride rs into dst
+// (n rows of STR elements); rows at or past `rows` are staged as zeros and
+// the columns D..DKW-1 are never written.  With cp.async a thread copies
+// one fixed 16 B chunk of every (THREADS_W / CPR)-th row, with plain loads
+// one fixed column of every row.
+template <typename T, int STR>
+__device__ __forceinline__ void stage_wide(T* dst, const T* src, long long rs,
+                                           int row0, int rows, int n, int D,
+                                           bool vec) {
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T);  // elements per copy
+    constexpr int CPR = DKW / E;            // copies per padded row
+    const int c = (threadIdx.x % CPR) * E;
+    if (c >= D) return;
+    for (int r = threadIdx.x / CPR; r < n; r += THREADS_W / CPR) {
+      const int row = row0 + r;
+      const bool in = row < rows;
+      const T* s = src + (in ? row * rs : 0) + c;
+      const unsigned sa =
+          static_cast<unsigned>(__cvta_generic_to_shared(dst + r * STR + c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sa),
+                   "l"(s), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+    const int c = threadIdx.x;
+    if (c >= D) return;
+    for (int r = 0; r < n; ++r) {
+      const int row = row0 + r;
+      dst[r * STR + c] = row < rows ? src[row * rs + c] : zero<T>();
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS_W, 1) attn_fwd_wide(const Args a) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int STR = DKW + (F32 ? 4 : 8);     // shared row stride
+  constexpr int KS = F32 ? DKW / 8 : DKW / 16;  // k-steps of Q·Kᵀ
+  constexpr int NO = DKW / 8;                   // n-tiles of the output
+  constexpr int NS = BKW / 8;                   // n-tiles of a score tile
+  constexpr int QSZ = BQW * STR;                // the Q tile
+  constexpr int TILE = 2 * BKW * STR;           // one K/V stage
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* skv = sq + QSZ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x % a.H;
+  const int hk = h / (a.H / a.KV);
+  const int q0 = blockIdx.y * BQW;
+  const bool vec = a.vec != 0;
+  const T* qp = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
+  const T* kp = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
+
+  // Zero Q and both stages once: the padding columns are never written.
+  for (int i = threadIdx.x; i < (QSZ + 2 * TILE) * (int)sizeof(T) / 16;
+       i += THREADS_W)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // Key tiles that hold an unmasked key for some row of this query tile.
+  int k_begin = 0, k_end = a.Lk;
+  if (a.causal) k_end = min(k_end, q0 + BQW);
+  if (a.window > 0) k_begin = max(0, q0 - a.window + 1);
+  k_begin = (k_begin / BKW) * BKW;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BKW - 1) / BKW : 0;
+
+  // Q and the first K/V tile (stage 0) in one group; tile `it` lives in
+  // stage it & 1.
+  stage_wide<T, STR>(sq, qp, a.sql, q0, a.Lq, BQW, a.D, vec);
+  if (ntiles > 0) {
+    stage_wide<T, STR>(skv, kp, a.skl, k_begin, a.Lk, BKW, a.D, vec);
+    stage_wide<T, STR>(skv + BKW * STR, vp, a.svl, k_begin, a.Lk, BKW, a.D,
+                       vec);
+  }
+  cp_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  // this thread's rows: g (fragment entries 0, 1) and g + 8 (entries 2, 3)
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const float sl2 = a.scale * LOG2E;
+  const T* qs = sq + (warp * 16 + g) * STR;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kt = k_begin + it * BKW;
+    if (it + 1 < ntiles) {
+      T* nxt = skv + ((it + 1) & 1) * TILE;
+      stage_wide<T, STR>(nxt, kp, a.skl, kt + BKW, a.Lk, BKW, a.D, vec);
+      stage_wide<T, STR>(nxt + BKW * STR, vp, a.svl, kt + BKW, a.Lk, BKW,
+                         a.D, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const T* ks_ = skv + (it & 1) * TILE;
+    const T* vs_ = ks_ + BKW * STR;
+
+    // S = Q·Kᵀ for this warp's 16 rows and the tile's 16 keys, Q's
+    // fragments read from shared memory one k-step at a time
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (F32) {
+        const float* r = qs + ks * 8 + t;
+        uint32_t ab[4], as[4];
+        split(r[0], ab[0], as[0]);
+        split(r[8 * STR], ab[1], as[1]);
+        split(r[4], ab[2], as[2]);
+        split(r[8 * STR + 4], ab[3], as[3]);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float* kr = ks_ + (n * 8 + g) * STR + ks * 8 + t;
+          mma_3xtf32(s[n], ab, as, kr[0], kr[4]);
+        }
+      } else {
+        const T* r = qs + ks * 16 + 2 * t;
+        const uint32_t qa[4] = {ld32(r), ld32(r + 8 * STR), ld32(r + 8),
+                                ld32(r + 8 * STR + 8)};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const T* kr = ks_ + (n * 8 + g) * STR + ks * 16 + 2 * t;
+          mma_bf16(s[n], qa, ld32(kr), ld32(kr + 8));
+        }
+      }
+    }
+
+    // online softmax in base 2; masked entries never reach exp2.  A tile
+    // that no mask reaches for any row of the block skips the masks.
+    const bool edge = kt + BKW > a.Lk || (a.causal && kt + BKW - 1 > q0) ||
+                      (a.window > 0 && kt <= q0 + BQW - 1 - a.window);
+    if (a.softcap > 0.f) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = a.softcap * tanhf(s[n][i] * a.scale / a.softcap) * LOG2E;
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] *= sl2;
+    }
+    unsigned ok = (1u << (NS * 4)) - 1u;
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = kt + n * 8 + 2 * t + (i & 1);
+          const int row = i < 2 ? row0 : row1;
+          bool in = key < a.Lk;
+          if (a.causal) in = in && key <= row;
+          if (a.window > 0) in = in && key > row - a.window;
+          if (!in) {
+            s[n][i] = NEG_INF;
+            ok &= ~(1u << (n * 4 + i));
+          }
+        }
+    }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;  // this thread's part of the row sums
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = (ok >> (n * 4 + i) & 1u)
+                            ? exp2f(s[n][i] - (i < 2 ? m0 : m1))
+                            : 0.f;
+        s[n][i] = p;
+        if (i < 2)
+          ps0 += p;
+        else
+          ps1 += p;
+      }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+    }
+
+    // O += P·V, P straight from the score registers
+    if constexpr (F32) {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        // A fragment (row, k t / t+4) = scores (row, key 2t / 2t+1)
+        uint32_t pb[4], pl[4];
+        split(s[kk][0], pb[0], pl[0]);
+        split(s[kk][2], pb[1], pl[1]);
+        split(s[kk][1], pb[2], pl[2]);
+        split(s[kk][3], pb[3], pl[3]);
+        const float* vr = vs_ + (kk * 8 + 2 * t) * STR + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          mma_3xtf32(o[n], pb, pl, vr[n * 8], vr[n * 8 + STR]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const unsigned short* vr =
+            reinterpret_cast<const unsigned short*>(vs_) +
+            (j * 16 + 2 * t) * STR + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const unsigned short* c = vr + n * 8;
+          mma_bf16(o[n], pa, c[0] | (uint32_t)c[STR] << 16,
+                   c[8 * STR] | (uint32_t)c[9 * STR] << 16);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_wait<0>();  // no tile: Q's group is still in flight
+
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+  T* ob = static_cast<T*>(a.o) + b * a.sob + h * a.soh;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (row0 < a.Lq) {
+      T* p = ob + row0 * a.sol + c;
+      if (c < a.D) store(p, o[n][0] / d0);
+      if (c + 1 < a.D) store(p + 1, o[n][1] / d0);
+    }
+    if (row1 < a.Lq) {
+      T* p = ob + row1 * a.sol + c;
+      if (c < a.D) store(p, o[n][2] / d1);
+      if (c + 1 < a.D) store(p + 1, o[n][3] / d1);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  constexpr int STR = DKW + (std::is_same<T, float>::value ? 4 : 8);
+  const int smem = (int)((BQW + 2 * 2 * BKW) * STR * sizeof(T));
+  const auto kernel = attn_fwd_wide<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.B * a.H, (a.Lq + BQW - 1) / BQW);
+  kernel<<<grid, THREADS_W, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  vec: 1 when q, k and v's pointers and
@@ -496,13 +819,15 @@ extern "C" int flash_attention_fwd(
     long long svl, long long svh, long long sob, long long sol, long long soh,
     float scale, int causal, int window, float softcap, int vec,
     void* stream) {
-  if (D < 1 || D > 128 || KV < 1 || H % KV != 0 ||
+  if (D < 1 || D > DKW || KV < 1 || H % KV != 0 ||
       (long long)B * H > 2147483647LL || (Lq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q,   k,   v,   o,   B,   Lq,  Lk,    H,      KV,     D,
                sqb, sql, sqh, skb, skl, skh, svb,   svl,    svh,    sob,
                sol, soh, scale, causal, window, softcap, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 128 && dtype == 0) return (int)launch_wide<float>(a, s);
+  if (D > 128 && dtype == 1) return (int)launch_wide<__nv_bfloat16>(a, s);
   if (dtype == 0) return (int)launch_f32(a, s);
   if (dtype == 1) return (int)launch_bf16(a, s);
   return (int)cudaErrorInvalidValue;

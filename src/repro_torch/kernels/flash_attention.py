@@ -11,11 +11,15 @@ Both products run on the tensor cores: f32 inputs as three TF32 products
 (the 3xTF32 split), bf16 inputs as bf16 products, f32 accumulation.  K/V
 rows are staged into shared memory with 16-byte ``cp.async`` copies when
 every row is 16-byte aligned, and with plain loads otherwise (``plan``).
+Head dims up to 128 take ``attn_fwd`` (Q fragments in registers, 64 query
+rows a block); 129..256 take ``attn_fwd_wide`` (Q in shared memory, 128
+query rows a block).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import re
 from pathlib import Path
 from typing import Optional
 
@@ -26,10 +30,29 @@ from repro_torch.kernels import build as _build
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARITH = {torch.float32: "3xtf32-mma.sync", torch.bfloat16: "bf16-mma.sync"}
-#: query rows per block (``BQ`` in ``flash_attention.cu``); the grid is
-#: (batch·heads, query tiles)
-QUERY_TILE = 64
 _LIB = None
+
+
+def _source_constant(name: str) -> int:
+    """``flash_attention.cu``'s ``constexpr int name``: what the library is
+    built with."""
+    found = re.search(rf"^constexpr int {name} = (\d+);",
+                      SOURCE.read_text(), re.M)
+    if found is None:
+        raise RuntimeError(f"{SOURCE.name} defines no constexpr int {name}")
+    return int(found.group(1))
+
+
+#: query rows per block of ``attn_fwd`` (``BQ``) and of ``attn_fwd_wide``
+#: (``BQW``), which takes head dims above 128 up to its padded ``DKW``; the
+#: grid is (batch·heads, query tiles)
+QUERY_TILE, WIDE_QUERY_TILE, MAX_HEAD_DIM = (
+    _source_constant(name) for name in ("BQ", "BQW", "DKW"))
+
+
+def query_tile(d: int) -> int:
+    """Query rows per block at head dim ``d``."""
+    return QUERY_TILE if d <= 128 else WIDE_QUERY_TILE
 
 
 def build() -> dict:
@@ -80,8 +103,9 @@ def _check(q, k, v, window, softcap, scale):
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch or head dim")
-    if not 1 <= d <= 128:
-        raise ValueError(f"head dim {d} outside the kernel's 1..128")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside the kernel's "
+                         f"1..{MAX_HEAD_DIM}")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads are not a multiple of {kv} KV "
                          "heads")

@@ -37,19 +37,31 @@ def gemms(cfg: ModelConfig, batch: int, mem_len: int = 0) -> list:
 
 def lm_cut(cfg: ModelConfig, blocks: int) -> ModelConfig:
     """``cfg`` at its published widths with its one stage cut to
-    ``blocks`` blocks."""
+    ``blocks`` blocks, a whole number of its unit (Gemma-2's unit is a
+    local and a global block)."""
     (st,) = cfg.stages
-    return cfg.replace(stages=(dataclasses.replace(st, repeat=blocks),))
+    if blocks < 1 or blocks % len(st.unit):
+        raise ValueError(f"{blocks} blocks is not a whole number of "
+                         f"{cfg.name}'s {len(st.unit)}-block unit")
+    return cfg.replace(stages=(dataclasses.replace(
+        st, repeat=blocks // len(st.unit)),))
 
 
 def lm_products(cfg: ModelConfig, rows: int) -> list:
     """A dense GQA attention LM's products over ``rows`` token rows as
-    ``(name, M, K, N, calls per forward)``: q and o, k and v (N = KV · dh),
-    the gated MLP's up and gate, and down."""
-    spec, ffn = cfg.stages[0].unit[0].mixer, cfg.stages[0].unit[0].ffn
-    d, blocks = cfg.d_model, cfg.num_layers
-    kv = spec.num_kv_heads * spec.head_dim
-    return [("q_o", rows, d, spec.num_heads * spec.head_dim, 2 * blocks),
-            ("k_v", rows, d, kv, 2 * blocks),
-            ("up_gate", rows, d, ffn.d_ff, 2 * blocks),
-            ("down", rows, ffn.d_ff, d, blocks)]
+    ``(name, M, K, N, calls per forward)``: q (d → H · dh), k and v (N = KV
+    · dh), o (H · dh → d), the gated MLP's up and gate, and down.  Where H
+    · dh = d, q and o are one shape, ``"q_o"``.  Every block of the stage
+    has the same widths (Gemma-2's differ only in the window)."""
+    (st,) = cfg.stages
+    widths = {(b.mixer.num_heads, b.mixer.num_kv_heads, b.mixer.head_dim,
+               b.ffn.d_ff) for b in st.unit}
+    if len(widths) != 1:
+        raise ValueError(f"{cfg.name}'s blocks differ in width: {widths}")
+    ((h, kvh, dh, ff),) = widths
+    d, blocks, hd, kv = cfg.d_model, cfg.num_layers, h * dh, kvh * dh
+    q_o = ([("q_o", rows, d, hd, 2 * blocks)] if hd == d else
+           [("q", rows, d, hd, blocks), ("o", rows, hd, d, blocks)])
+    return [*q_o[:1], ("k_v", rows, d, kv, 2 * blocks), *q_o[1:],
+            ("up_gate", rows, d, ff, 2 * blocks),
+            ("down", rows, ff, d, blocks)]

@@ -4,6 +4,8 @@
         --batch 4 --prompt-len 1024 --gen 32
     python -m repro_torch.launch.serve --arch qwen3-14b --variant smoke \
         --device cpu
+    python -m repro_torch.launch.serve --arch gemma2-9b --variant smoke \
+        --device cpu --prompt-len 24
 
 The weights are random, drawn from ``--seed``; the prompts are uniform
 random tokens from the same seed.  Runs on ``cuda`` unless ``--device cpu``.

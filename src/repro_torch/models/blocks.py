@@ -1,6 +1,8 @@
-"""Residual blocks: norm → mixer → +res [→ norm → cross → +res]
-[→ norm → ffn → +res], with adaLN-zero (DiT) conditioning and the
-SmoothCache branch-caching contract.  The mixer is self-attention (DiT,
+"""Residual blocks: norm → mixer [→ post-norm] → +res
+[→ norm → cross → +res] [→ norm → ffn [→ post-norm] → +res], with
+adaLN-zero (DiT) conditioning and the SmoothCache branch-caching contract.
+The post-norms (Gemma-2) come before the branch output is recorded, so a
+cached branch is the post-normed one.  The mixer is self-attention (DiT,
 OpenSora's spatial / temporal attention, the attention LMs) or a Mamba-2
 SSD mixer; an LM's mixer carries a cache from a full-sequence pass into the
 one-token decode (a KV cache, or the SSD state).
@@ -34,6 +36,8 @@ def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
             p["mixer"] = ssm.init(gen, spec.mixer, d_model, dtype)
         else:
             p["mixer"] = attention.init(gen, spec.mixer, d_model, dtype)
+        if spec.post_norm:
+            p["post_norm1"] = L.norm_init(spec.norm, d_model, dtype)
     if spec.cross is not None:
         p["norm_x"] = L.norm_init(spec.norm, d_model, dtype)
         p["cross"] = attention.init(gen, spec.cross, d_model, dtype,
@@ -41,6 +45,8 @@ def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
     if spec.ffn is not None:
         p["norm2"] = L.norm_init(spec.norm, d_model, dtype)
         p["ffn"] = mlp.init(gen, spec.ffn, d_model, dtype)
+        if spec.post_norm:
+            p["post_norm2"] = L.norm_init(spec.norm, d_model, dtype)
     if spec.adaln:
         # adaLN-zero: cond → 6*d (shift/scale/gate for mixer and ffn)
         p["mod"] = {"w": torch.zeros(adaln_dim, 6 * d_model, dtype=dtype),
@@ -124,6 +130,8 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
                     m, params["mixer"], h, mode="decode", pos=pos,
                     cache={k: v for k, v in cache.items() if k != "slots"},
                     slot_pos=cache["slots"])
+            if spec.post_norm:
+                out = L.apply_norm(spec.norm, params["post_norm1"], out)
             branch_out["mixer"] = out
         if mod is not None:
             out = out * mod[2]
@@ -147,6 +155,8 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
             if mod is not None:
                 h = _mod_norm(h, mod[3], mod[4])
             out = mlp.apply(spec.ffn, params["ffn"], h)
+            if spec.post_norm:
+                out = L.apply_norm(spec.norm, params["post_norm2"], out)
             branch_out["ffn"] = out
         if mod is not None:
             out = out * mod[5]

@@ -32,10 +32,13 @@ CASES = ([s + (True, None, None, dt) for s in SHAPES for dt in DTYPES]
 
 
 # the kernel's new code paths: D 72 at L 256, D 128, a head dim that is not
-# a multiple of 8 (and, in bf16, rows that are not 16 B)
+# a multiple of 8 (and, in bf16, rows that are not 16 B); the wide instance
+# at D 256 (Gemma-2) and D 200, with GQA, a window and a softcap
 NEW_CASES = [(2, 256, 4, 4, 72, False, None, None, dt) for dt in DTYPES] + [
     (1, 128, 4, 2, 128, True, None, None, dt) for dt in DTYPES] + [
-    (2, 64, 4, 2, 20, True, None, None, dt) for dt in DTYPES]
+    (2, 64, 4, 2, 20, True, None, None, dt) for dt in DTYPES] + [
+    (1, 200, 4, 2, 256, True, 16, 50.0, dt) for dt in DTYPES] + [
+    (2, 72, 4, 4, 200, False, None, None, dt) for dt in DTYPES]
 
 
 def _qkv(b, l, h, kv, d, seed=0):
@@ -95,12 +98,12 @@ def test_tf32_rounding_matches_cvt_rna():
 
 def _bad_inputs():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 4, 2, 8))
-    wide = torch.zeros(1, 16, 4, 129)
+    wide = torch.zeros(1, 16, 4, 257)
     return {
         "rank": ((q[0], k, v), {}, "expected q"),
         "v shape": ((q, k, v[:, :8]), {}, "expected q"),
         "batch": ((q, torch.cat([k, k]), torch.cat([v, v])), {}, "differ"),
-        "head dim": ((wide, wide, wide), {}, "head dim 129"),
+        "head dim": ((wide, wide, wide), {}, "head dim 257"),
         "gqa": ((q[:, :, :3], k, v), {}, "not a multiple"),
         # 65535 query tiles of 64 rows at most along the grid's y
         "grid": ((torch.zeros(1, 64 * 65535 + 1, 1, 1),
@@ -173,6 +176,18 @@ def test_kernel_wrapper_takes_batch_heads_past_65535():
     big = torch.zeros(1, 64 * 65535, 1, 1)
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.flash_attention_cuda(big, big[:, :1], big[:, :1], causal=False)
+
+
+@pytest.mark.parametrize("d", [129, 256])
+def test_kernel_wrapper_takes_head_dims_up_to_256(d):
+    """Head dims 129..256 go to the wide instance: every check passes but
+    the device's."""
+    q = torch.zeros(1, 16, 4, d)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA device"):
+            tfa.flash_attention_cuda(q.to(dtype), q[:, :, :2].to(dtype),
+                                     q[:, :, :2].to(dtype), window=16,
+                                     softcap=50.0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
