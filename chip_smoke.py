@@ -107,7 +107,9 @@ exits non-zero:
    move between the τ > 0 rungs capturing nothing, variants within the
    budget, every request served or shed with a reason, every served batch
    bitwise its ``generate`` at its rung's τ;
-14. fault recovery (``resilience``, ~60 s): the SmoothCache and adaptive
+14. fault recovery (``resilience``, ~25 s; phases 14–16 run the first
+   ``SERVE_CUT_BLOCKS`` = 7 of DiT-XL/2's 28 blocks at its full width,
+   on views of the same weights): the SmoothCache and adaptive
    artifacts under ``ResiliencePolicy(watchdog_factor=4.0,
    watchdog_floor_s=0.5)``, the chaos harness writing real NaNs that only
    the executor's sentinels see — clean drains with resilience off and on
@@ -116,11 +118,11 @@ exits non-zero:
    deadline) served in full, its static survivors bitwise their clean
    rows, every unsplit record bitwise its ``generate``; a seeded ramp at
    rate 0.3 with every request resolved;
-15. step telemetry (``telemetry``, ~15 s): a fused batch with the proxy
+15. step telemetry (``telemetry``, ~4 s): a fused batch with the proxy
    trace on and off bitwise under the sync guard, its reports realizing
    the host loop's decisions; a traced telemetry drain bitwise the plain
    one, a report per request, a valid trace;
-16. durable serving (``durable``, ~60 s): the SmoothCache and adaptive
+16. durable serving (``durable``, ~30 s): the SmoothCache and adaptive
    artifacts, ``max_batch`` 2, 2 in flight, ``adaptive_chunk`` 4, the
    fused advances under the sync guard, snapshots in a temporary
    directory with at least 4 GB free — 8 requests with durability off,
@@ -132,7 +134,7 @@ exits non-zero:
    quarantined with reasons and replayed bitwise; a seeded kill ramp
    (``KillPlan(seed=0, kill_rate=0.3, max_kills=4)``) losing nothing,
    every row bitwise, device memory at each restart not growing;
-17. the video slice (``video``, ~90 s, last, on weights of its own after
+17. the video slice (``video``, ~110 s, on weights of its own after
    the DiT and LM weights are freed): OpenSora-v1.2 at full width (56
    blocks, 16 × 256 tokens, a 300-token text memory stub, rectified flow
    30, CFG 7.0).  The attention kernel at the spatial, temporal and cross
@@ -206,11 +208,31 @@ exits non-zero:
    84 in the prefill and 84 a decode step;
    teacher-forced decode vs one forward over 4383 tokens (≤ 1e-4); a
    traced prefill and 4 decode steps (``gemma2_profile``).
+21. the MLA slice (``minicpm3``, budget ~120 s, after ``gemma2`` and
+   before the video phase, on weights of its own drawn on the card):
+   MiniCPM3-4B at its published widths and depth (62 blocks, d 2560, 40
+   heads, q-LoRA 768, a kv latent of 256 and a shared RoPE key of 32,
+   nope 64, v 64, gated SiLU MLP d_ff 6400, tied embeddings of 73448).
+   The attention kernel's (96, 64) instance — q and k 96 wide, v 64 — at
+   the prefill's shape (4, 1024, 40), causal, against its plain version,
+   bitwise twice, timed beside its bound, its plain version and SDPA (a
+   value head dim of its own; the kernel it ran, from a trace); a sweep
+   of (D, Dv) pairs, f32 and bf16, causal and not; every product at 4096
+   and 4 rows (kv_b in the prefill only) against cuBLAS and f64, rows
+   bitwise, timed; a 2-block prefill card against CPU (logits and every
+   ckv / krope cache ≤ 1e-4); ``generate`` on 4 prompts × 1024 tokens, 32
+   new, greedy, cache_len 1056 — attention 62 launches in the prefill and
+   none in the decode (absorbed einsums over the latent cache), linear 496
+   in the prefill and 434 a decode step; the latent cache's bytes;
+   teacher-forced decode vs one forward (≤ 1e-4); a traced prefill and 4
+   decode steps (``minicpm3_profile``).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's,
-Mamba-2-1.3B's, OpenSora-v1.2's and Stable-Audio-Open's, Qwen3-14B's
-widths at 8 of its 40 blocks and Gemma-2-9B's at 12 of its 42.
+Mamba-2-1.3B's, OpenSora-v1.2's, Stable-Audio-Open's and MiniCPM3-4B's
+(the fault, telemetry and durability phases at 7 of DiT-XL/2's 28
+blocks); Qwen3-14B's widths at 8 of its 40 blocks and Gemma-2-9B's at 12
+of its 42.
 """
 import gc
 import json
@@ -1020,6 +1042,14 @@ def _device_us(prof, fragment):
     return busy / 1e3, part / 1e3, count
 
 
+def _top_kernel(fn, calls=10):
+    """The kernel that takes most of the device time of ``calls`` calls of
+    ``fn`` in one trace (None if the trace holds none: a trace late in a
+    process has come back empty)."""
+    _, kern = _traced(lambda: [fn() for _ in range(calls)])
+    return max(kern, key=lambda k: kern[k][0])[:90] if kern else None
+
+
 def dit_profile_phase(cfg, diffusion, params, ops):
     """Where a DiT-XL/2 step's time goes: one full-width denoiser forward at
     B = 8 (4 requests under CFG) after one untraced warm-up forward —
@@ -1177,71 +1207,84 @@ def flex_library(qt, kt, vt, window, softcap):
 def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
                             sass_key, noncausal=False):
     """The attention kernel at an attention LM's prefill, ``shape`` =
-    (prompts, length): q (B, L, H, D), k = v (B, L, KV, D) from
-    ``rand(*shape)``, f32, causal, once for each distinct mixer of the
-    unit (``local`` with a window, ``global`` without): against its plain
-    version (≤ 5e-5), two launches bitwise, device ms beside its bound (the
-    band's work as 3xTF32), the plain version's ms and one library call's —
-    SDPA (``enable_gqa``) where there is no softcap, else
-    :func:`flex_attention <flex_library>`, with SDPA beside it as
-    ``library_no_softcap_ms`` (another function: no softcap).
+    (prompts, length): q (B, L, H, D), k (B, L, KV, D), v (B, L, KV, Dv)
+    from ``rand(*shape)`` — GQA: D = Dv = the head dim; MLA: KV = H, D =
+    nope + rope, Dv the value head dim, as ``_mla_full`` expands the
+    latent — f32, causal, once for each distinct mixer of the unit
+    (``local`` with a window, ``global`` without): against its plain
+    version (≤ 5e-5), two launches bitwise, device ms beside its bound
+    (the band's work as 3xTF32), the plain version's ms and SDPA's
+    (``enable_gqa``; the backend its dispatcher picks, and the kernel a
+    trace shows, which a trace late in the process can miss) — the
+    library call where there is no softcap, else :func:`flex_attention
+    <flex_library>`, with SDPA beside it as ``library_no_softcap_ms``
+    (another function: no softcap).
     ``noncausal`` adds the same shape non-causal: how far the
     early-finishing query tiles leave the grid unbalanced.  Returns
     ({case: row}, the instance's SASS rows: names with ``sass_key``)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
     from repro_torch.kernels.timing import device_ms
     specs = {}
     for blk in cfg.stages[0].unit:
         specs.setdefault("global" if blk.mixer.window is None else "local",
                          blk.mixer)
     first = next(iter(specs.values()))
-    (b, l), h, kv, d = shape, first.num_heads, first.num_kv_heads, \
-        first.head_dim
-    q, k, v = rand(b, l, h, d), rand(b, l, kv, d), rand(b, l, kv, d)
+    (b, l), h = shape, first.num_heads
+    if first.kind == "mla":
+        kv, d = h, first.nope_head_dim + first.rope_head_dim
+        dv = first.v_head_dim
+    else:
+        kv, d = first.num_kv_heads, first.head_dim
+        dv = d
+    q, k, v = rand(b, l, h, d), rand(b, l, kv, d), rand(b, l, kv, dv)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     i = torch.arange(l, device=q.device)
     cases = {}
     for name, spec in specs.items():
+        # the default scale, 1/√D, is MLA's 1/√(nope + rope) too
         kw = dict(causal=True, window=spec.window,
                   softcap=spec.logit_softcap)
         out = fa.flash_attention_cuda(q, k, v, **kw)
         again = fa.flash_attention_cuda(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        check(tuple(out.shape) == (b, l, h, dv), f"out {tuple(out.shape)}")
         err = float((out - want).abs().max())
         check(bool(torch.allclose(out, want, atol=5e-5, rtol=5e-5)),
               f"{cfg.name} {name} attention vs plain: max abs err {err}")
         check(bool(torch.equal(out, again)),
               f"two launches of the {cfg.name} {name} attention differ")
         del again, want
-        flops = 4 * b * h * d * _band_pairs(l, spec.window)
-        nbytes = 4 * b * d * (2 * h * l + 2 * kv * l)
+        flops = 2 * b * h * (d + dv) * _band_pairs(l, spec.window)
+        nbytes = 4 * b * l * (h * d + kv * d + kv * dv + h * dv)
         t_ops = 3 * flops / peaks["tf32"] * 1e3
         t_bytes = nbytes / peaks["hbm"] * 1e3
         if spec.window is None:
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            sdpa_kw = dict(is_causal=True, enable_gqa=True)
         else:
-            band = (i[None, :] <= i[:, None]) & (
-                i[None, :] > i[:, None] - spec.window)
+            sdpa_kw = dict(attn_mask=(i[None, :] <= i[:, None]) & (
+                i[None, :] > i[:, None] - spec.window), enable_gqa=True)
 
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=band, enable_gqa=True)
-        row = {"shape": [b, l, h, kv, d], "causal": True,
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        sdpa_ms = device_ms(sdpa, iters=10)
+        row = {"shape": [b, l, h, kv, d], "dv": dv, "causal": True,
                "window": spec.window, "softcap": spec.logit_softcap,
                **fa.plan(q, k, v), "max_abs_err": err,
                "ms": device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
                                iters=10),
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
-                   q, k, v, **kw), iters=3, reps=3)}
+                   q, k, v, **kw), iters=3, reps=3),
+               "sdpa_backend": SDPBackend(torch._fused_sdp_choice(
+                   qt, kt, vt, **sdpa_kw)).name.lower(),
+               "sdpa_kernel": _top_kernel(sdpa)}
         if noncausal:
             row["noncausal_ms"] = device_ms(lambda: fa.flash_attention_cuda(
                 q, k, v, causal=False), iters=10)
         if spec.logit_softcap is None:
-            row["library"] = "scaled_dot_product_attention"
-            row["library_ms"] = device_ms(sdpa, iters=10)
+            row.update(library="scaled_dot_product_attention",
+                       library_ms=sdpa_ms)
         else:
             route, flex, errors = flex_library(qt, kt, vt, spec.window,
                                                spec.logit_softcap)
@@ -1251,7 +1294,7 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
                 library_max_abs_diff=float(
                     (got.transpose(1, 2) - out).abs().max()),
                 library_ms=device_ms(flex, iters=5, reps=3),
-                library_no_softcap_ms=device_ms(sdpa, iters=5, reps=3))
+                library_no_softcap_ms=sdpa_ms)
             del got, flex
         row.update(bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1303,7 +1346,8 @@ def lm_product_phase(gemm, ref, peaks, cfg, rand, batch, prompt, tag):
     t_phase = time.perf_counter()
     sweep, rows_ok, times = [], {}, {}
     for phase, m in (("prefill", batch * prompt), ("decode", batch)):
-        for name, _, kk, n, calls in lm_products(cfg, m):
+        for name, _, kk, n, calls in lm_products(
+                cfg, m, decode=phase == "decode"):
             x, w = rand(m, kk), rand(kk, n) / kk ** 0.5
             y = gemm.linear_cuda(x, w)
             want = ref.linear_ref(x, w, None)
@@ -1350,8 +1394,8 @@ def lm_product_phase(gemm, ref, peaks, cfg, rand, batch, prompt, tag):
 def attn_lm_cross_check_phase(cfg, T, params, blocks, seed, tag):
     """A prefill of one 200-token prompt (a ragged last query tile) at
     ``blocks`` blocks (whole units), card against CPU on the card's own
-    weights copied over: logits and each block's k / v caches.  Emits
-    ``<tag>_cross_check``."""
+    weights copied over: logits and each block's k / v (MLA: ckv / krope)
+    caches.  Emits ``<tag>_cross_check``."""
     from repro_torch.kernels.products import lm_cut
     from repro_torch.models.transformer import tree_map
     cut = lm_cut(cfg, blocks)
@@ -1371,7 +1415,7 @@ def attn_lm_cross_check_phase(cfg, T, params, blocks, seed, tag):
     unit = len(cut.stages[0].unit)
     for r in range(reps):
         for i in range(unit):
-            for name in ("k", "v"):
+            for name in sorted(set(c_gpu[0][i]) - {"slots"}):
                 errs[f"{name}{r * unit + i}"] = rel_err(
                     c_gpu[0][i][name][r], c_cpu[0][i][name][r])
     emit({"phase": f"{tag}_cross_check", "blocks": blocks,
@@ -1382,14 +1426,23 @@ def attn_lm_cross_check_phase(cfg, T, params, blocks, seed, tag):
               f"error {err}")
 
 
+def lm_linear_calls(cfg):
+    """The linear kernel's calls in an attention LM's prefill and in one
+    decode step: its products' calls per forward (``lm_products``; 7 a
+    block for GQA, MLA's 8 in a prefill and 7 in a decode step)."""
+    from repro_torch.kernels.products import lm_products
+    return tuple(sum(r[-1] for r in lm_products(cfg, 1, decode=decode))
+                 for decode in (False, True))
+
+
 def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
                            **row):
     """The attention-LM main path: ``generate`` on ``shape`` = (prompts,
     prompt length, new tokens), greedy, cache_len prompt + new, after a
     cold run of 2 tokens — the attention kernel once a block in the
-    prefill and never in the decode, the linear kernel 7 times a block in
-    the prefill and in every decode step.  Emits ``<tag>_generate`` with
-    ``row`` added."""
+    prefill and never in the decode, the linear kernel once per product
+    (:func:`lm_linear_calls`) in the prefill and in every decode step.
+    Emits ``<tag>_generate`` with ``row`` added."""
     batch, plen, gen_len = shape
     cache_len = plen + gen_len
     prompts = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1419,7 +1472,7 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
                                      marks["decode"])
     steps = gen_len - 1
     dec = {k: end[k] - pre[k] for k in end}
-    per_block = 7      # q, k, v, o, up, gate, down
+    lin_pre, lin_step = lm_linear_calls(cfg)
     row = {"phase": f"{tag}_generate", "arch": cfg.name,
            "blocks": cfg.num_layers, "batch": batch, "prompt": plen,
            "new_tokens": gen_len, "cache_len": cache_len,
@@ -1430,10 +1483,8 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
            "peak_device_bytes": torch.cuda.max_memory_allocated(), **row}
     emit(row)
     want = {"flash_attention": (cfg.num_layers, 0),
-            "linear": (per_block * cfg.num_layers,
-                       per_block * cfg.num_layers * steps),
-            "linear_tokens": (per_block * cfg.num_layers,
-                              per_block * cfg.num_layers * steps),
+            "linear": (lin_pre, lin_step * steps),
+            "linear_tokens": (lin_pre, lin_step * steps),
             "linear_requests": (0, 0), "ssd": (0, 0)}
     for name, (n_pre, n_dec) in want.items():
         check(pre[name] == n_pre and dec[name] == n_dec,
@@ -1499,10 +1550,11 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag):
                               for k, (us, n) in top]}
     emit({"phase": f"{tag}_profile", **rows})
     pre, dec = rows["prefill"], rows["decode_4_steps"]
+    lin_pre, lin_step = lm_linear_calls(cfg)
     check(pre["launched"] == {"flash_attention": cfg.num_layers,
-                              "linear": 7 * cfg.num_layers}
+                              "linear": lin_pre}
           and dec["launched"] == {"flash_attention": 0,
-                                  "linear": 4 * 7 * cfg.num_layers},
+                                  "linear": 4 * lin_step},
           f"traced runs launched {pre['launched']}, {dec['launched']}")
     check(pre["ms"]["linear"] > 0 and pre["ms"]["attention"] > 0,
           f"the prefill trace lacks a kernel of the path: {pre['ms']}")
@@ -1654,9 +1706,128 @@ def gemma2_phase(peaks, kernels, sass):
           f"the gemma2 phase took {seconds} s of its {GEMMA2_BUDGET_S}")
 
 
+MINICPM3_BLOCKS = 62      # of 62: weights 16.3 GB, prepared halves 31.1 GB
+MINICPM3_CHECK_BLOCKS = 2
+MINICPM3_BUDGET_S = 120
+# (D, Dv) pairs of the value-head-dim sweep: MLA's own (the (96, 64)
+# instance), a smaller pair and one on the (128, 128) instance (both with
+# V's extra columns zero), and Dv = D on the instance MLA's D would take
+# without its own
+MLA_PAIRS = ((96, 64), (48, 32), (128, 64), (72, 72))
+
+
+def minicpm3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
+    """The attention kernel's (96, 64) instance at the prefill's shape —
+    q and k (4, 1024, 40, 96), v (4, 1024, 40, 64), f32, causal, as
+    ``_mla_full`` expands the latent — with SDPA (a value head dim of its
+    own) as the library call (:func:`attn_lm_attention_phase`); a sweep of
+    (D, Dv) pairs, f32 and bf16, causal and not, against the plain
+    version; then every product (:func:`lm_product_phase`: q_a, q_b, kv_a,
+    kv_b in the prefill only, o, the MLP)."""
+    gen = torch.Generator().manual_seed(SEED + 101)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    sweep = []
+    for d, dv in MLA_PAIRS:
+        for dtype, tol in ((torch.float32, 5e-5), (torch.bfloat16, 5e-2)):
+            q, k = rand(2, 100, 4, d).to(dtype), rand(2, 100, 2, d).to(dtype)
+            v = rand(2, 100, 2, dv).to(dtype)
+            for causal in (True, False):
+                out = fa.flash_attention_cuda(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = float((out.float() - want.float()).abs().max())
+                sweep.append({"d": d, "dv": dv, "dtype": str(dtype)[6:],
+                              "causal": causal, **fa.plan(q, k, v),
+                              "max_abs_err": err})
+                check(tuple(out.shape) == (2, 100, 4, dv) and bool(
+                    torch.allclose(out.float(), want.float(), atol=tol,
+                                   rtol=tol)), f"(D, Dv) sweep {sweep[-1]}")
+    cases, rows = attn_lm_attention_phase(
+        fa, ref, peaks, cfg, rand, (LM_BATCH, LM_PROMPT), sass,
+        "attn_fwdIfLi96ELi")
+    attn = {**cases["global"], "sass": rows, "dv_sweep": sweep}
+    emit({"phase": "minicpm3_attention", "limit": 5e-5, **attn})
+    check(len(rows) == 1, f"the f32 (96, 64) instance in the SASS: "
+          f"{list(rows)}")
+    return attn, lm_product_phase(gemm, ref, peaks, cfg, rand, LM_BATCH,
+                                  LM_PROMPT, "minicpm3")
+
+
+def minicpm3_phase(peaks, kernels, sass):
+    """The MLA serving path at MiniCPM3-4B's published widths and depth
+    (62 blocks, d 2560, 40 heads, q_lora 768, kv_lora 256, nope 64, rope
+    32, v 64, gated SiLU MLP d_ff 6400, tied embeddings of 73448), after
+    the gemma2 phase and before the video phase: the prefill's attention
+    through the kernel's (96, 64) instance, the decode's absorbed einsums
+    over the (ckv, krope) latent cache.  Budget ``MINICPM3_BUDGET_S``; the
+    weights (4.07 B values) are drawn on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = lm_cut(configs.get("minicpm3-4b"), MINICPM3_BLOCKS)
+    attn, products = minicpm3_kernel_phase(fa, ref, gemm, peaks, cfg, sass)
+    params, weight_bytes, prepared = lm_params_phase(cfg, serve, T,
+                                                     SEED + 100)
+    attn_lm_cross_check_phase(cfg, T, params, MINICPM3_CHECK_BLOCKS,
+                              SEED + 102, "minicpm3")
+    m = cfg.stages[0].unit[0].mixer
+    cache_len = LM_PROMPT + LM_GEN
+    prompts, toks, launches, row = attn_lm_generate_phase(
+        cfg, serve, params, ops, (LM_BATCH, LM_PROMPT, LM_GEN), SEED + 103,
+        "minicpm3", weight_bytes=weight_bytes, prepared_bytes=prepared,
+        mla_cache_bytes=4 * cfg.num_layers * LM_BATCH * cache_len * (
+            m.kv_lora_rank + m.rope_head_dim))
+    lm_decode_consistency_phase(cfg, T, params, prompts, toks,
+                                name="minicpm3_decode_consistency")
+    profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
+                                    "minicpm3")
+    kernels["flash_attention"]["minicpm3"] = attn
+    kernels["flash_attention"]["minicpm3_launches"] = launches[
+        "flash_attention"]
+    kernels["linear"]["minicpm3"] = {
+        **products, "profile_prefill_linear_ms":
+        profile["prefill"]["ms"]["linear"]}
+    kernels["linear"]["minicpm3_launches"] = launches["linear"]
+    del params, prompts, toks
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "minicpm3", "seconds": seconds,
+          "budget_s": MINICPM3_BUDGET_S, "launches": launches,
+          "peak_device_bytes": row["peak_device_bytes"]})
+    check(seconds <= MINICPM3_BUDGET_S,
+          f"the minicpm3 phase took {seconds} s of its {MINICPM3_BUDGET_S}")
+
+
 SERVE_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.18),tau=0.3"
 SERVE_ENTRIES = ("no_cache", "smoothcache:alpha=0.18", "static:n=2",
                  SERVE_ADAPTIVE)
+# the fault, telemetry and durability phases' depth, of DiT-XL/2's 28
+# blocks: what they check does not depend on it, and it cuts the cost of
+# their model calls to a quarter (the serve, fused, continuous and SLO
+# phases, whose joins and controller moves depend on the service time,
+# keep all 28)
+SERVE_CUT_BLOCKS = 7
+
+
+def dit_cut(cfg, params, blocks):
+    """``cfg`` cut to its first ``blocks`` blocks, and ``params``' views of
+    those blocks: no copy, and each block's weights keep the prepared
+    halves made for them."""
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.models.transformer import tree_map
+    bb = params["backbone"]
+    stages = [tuple(tree_map(lambda a: a[:blocks], u)
+                    for u in bb["stages"][0])]
+    return lm_cut(cfg, blocks), {**params,
+                                 "backbone": {**bb, "stages": stages}}
 
 
 def computed_attn_steps(record, entry):
@@ -2481,7 +2652,7 @@ def _replay_pipe(cfg, entry):
 
 
 def resilience_phase(cfg, params, ops, store):
-    """Fault recovery at full width (phase 14; budget ~60 s): the
+    """Fault recovery at full width (phase 14; budget ~25 s): the
     SmoothCache artifact and the adaptive artifact, ``max_batch`` 4, 2 in
     flight, a wall clock, ``ResiliencePolicy(watchdog_factor=4.0,
     watchdog_floor_s=0.5)``, the chaos harness writing real NaNs into
@@ -2706,7 +2877,7 @@ def resilience_phase(cfg, params, ops, store):
 
 
 def telemetry_phase(cfg, params, ops, store):
-    """Step telemetry at full width (phase 15; budget ~15 s): one fused
+    """Step telemetry at full width (phase 15; budget ~4 s): one fused
     batch of 4 on the adaptive artifact with ``telemetry=True`` and
     without, the replays under ``set_sync_debug_mode("error")``: latents,
     decisions and flags bitwise equal, no decision sync, 4 reports whose
@@ -2845,7 +3016,7 @@ def _free_engine(eng):
 
 
 def durable_phase(cfg, params, ops, store):
-    """Durable serving at full width (phase 16; budget ~60 s): the
+    """Durable serving at full width (phase 16; budget ~30 s): the
     SmoothCache artifact and the adaptive artifact (fused), ``max_batch``
     2, 2 in flight, ``adaptive_chunk`` 4, a wall clock, the fused
     advances under ``set_sync_debug_mode("error")`` (captures and
@@ -3448,7 +3619,7 @@ def video_profile_phase(cfg, diffusion, params, ops, memory):
 def video_phase(peaks, kernels):
     """The OpenSora-v1.2 text-to-video path at full width (56 blocks, 16 ×
     256 tokens, a 300-token T5 memory stub, rectified flow 30, CFG 7.0),
-    after every other phase, on weights of its own.  Budget ~90 s."""
+    after the LM phases, on weights of its own.  Budget ~110 s."""
     from repro_torch import configs
     from repro_torch.core import diffusion
     from repro_torch.data import synthetic
@@ -4137,14 +4308,15 @@ def main():
     kernels["flash_attention"]["fused_replayed"] = fused["replayed_launches"]
     continuous_phase(cfg, params_gpu, ops, store)
     slo_phase(cfg, params_gpu, ops, store)
+    cut, cut_params = dit_cut(cfg, params_gpu, SERVE_CUT_BLOCKS)
     for name, phase in (("resilience", resilience_phase),
                         ("telemetry", telemetry_phase),
                         ("durable", durable_phase)):
-        launches = phase(cfg, params_gpu, ops, store)
+        launches = phase(cut, cut_params, ops, store)
         kernels["flash_attention"][name + "_launches"] = \
             launches["flash_attention"]
         kernels["linear"][name + "_launches"] = launches["linear"]
-    del params_gpu, store
+    del params_gpu, cut_params, store
     gemm.release()            # the prepared halves hold the DiT weights
     gc.collect()              # the DiT weights go before the Mamba phases
 
@@ -4169,6 +4341,7 @@ def main():
     torch.cuda.empty_cache()
     qwen3_phase(peaks, kernels, sass)
     gemma2_phase(peaks, kernels, sass)
+    minicpm3_phase(peaks, kernels, sass)
     video_phase(peaks, kernels)
     torch.cuda.empty_cache()  # the video weights go before the audio phase
     audio_phase(peaks, kernels)

@@ -1,5 +1,5 @@
-"""Configuration schema: the spec dataclasses of the DiT and Mamba-2
-families.
+"""Configuration schema: the spec dataclasses of the DiT, Mamba-2 and
+attention-LM families.
 
 A copy of the JAX package's schema, cut to the specs the port runs: a
 `ModelConfig` is a sequence of *stages*, each a repeated *unit* of block
@@ -15,7 +15,8 @@ from typing import Optional, Tuple, Union
 
 @dataclass(frozen=True)
 class AttentionSpec:
-    """Multi-head attention (GQA/MQA/MHA)."""
+    """Multi-head attention: GQA/MQA/MHA or MLA (DeepSeek-style latent
+    KV)."""
     kind: str = "gqa"
     num_heads: int = 8
     num_kv_heads: int = 8
@@ -31,6 +32,24 @@ class AttentionSpec:
     #: factorized video attention (OpenSora STDiT): None | "spatial" |
     #: "temporal"
     pattern: Optional[str] = None
+    # --- MLA only ---
+    q_lora_rank: Optional[int] = None    # None: full-rank q projection
+    kv_lora_rank: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+    @property
+    def q_dim(self) -> int:
+        if self.kind == "mla":
+            return self.num_heads * (self.nope_head_dim + self.rope_head_dim)
+        return self.num_heads * self.head_dim
+
+    @property
+    def o_in_dim(self) -> int:
+        if self.kind == "mla":
+            return self.num_heads * self.v_head_dim
+        return self.num_heads * self.head_dim
 
 
 @dataclass(frozen=True)

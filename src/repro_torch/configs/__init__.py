@@ -9,6 +9,7 @@ REGISTRY = {
     "dit-xl-256": "repro_torch.configs.dit_xl",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "opensora-v12": "repro_torch.configs.opensora_v12",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",

@@ -16,6 +16,10 @@ def _shrink_mixer(m, d_model: int):
     heads = 4 if m.num_heads >= 4 else m.num_heads
     kv = max(1, heads * m.num_kv_heads // m.num_heads)
     kw = dict(num_heads=heads, num_kv_heads=kv, head_dim=d_model // heads)
+    if m.kind == "mla":
+        kw.update(q_lora_rank=(64 if m.q_lora_rank else None),
+                  kv_lora_rank=64, rope_head_dim=16, nope_head_dim=32,
+                  v_head_dim=32)
     if m.window is not None:
         kw["window"] = min(m.window, 16)
     return dataclasses.replace(m, **kw)

@@ -14,6 +14,17 @@ methods of ``kernels.timing`` in the order baseline, current, current,
 baseline; SDPA (PyTorch's ``scaled_dot_product_attention`` on head-major
 copies) is timed beside them.  Prints the card's name and power limit, then
 one JSON line with every reading and the ratios of the means.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.attention_ab --wide
+
+times the head-dim-256 instance (``attn_fwd_wide``) alone, in f32 and in
+bf16, at Gemma-2-9B's prefill — q (2, 4352, 16, 256) over k = v (2, 4352,
+8, 256), causal, softcap 50, with the local layers' window 4096 and
+without — beside its bound (the band's operations at the dtype's tensor
+rate: 3xTF32 in f32, bf16 as it is), its plain version, ``flex_attention``
+(the one PyTorch call with a softcap, compiled: ~30 s of compile a case;
+Inductor and Triton cache under ``build/``) and SDPA without the softcap
+(another function).  Each kernel is held against its plain version first.
 """
 from __future__ import annotations
 
@@ -32,6 +43,13 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, timing
 
 SHAPE = (8, 256, 16, 72)  # DiT-XL/2 (B, L, H, D): 2 x 4 requests under CFG
+# Gemma-2-9B's prefill in chip_smoke.py: (B, L, H, KV, D), the local
+# layers' window and the attention softcap
+WIDE_SHAPE, WIDE_WINDOW, WIDE_SOFTCAP = (2, 4352, 16, 8, 256), 4096, 50.0
+# the H100 SXM's published dense tensor-core rates and HBM bandwidth
+# (NVIDIA's data sheet): 3xTF32 runs at the TF32 rate, bf16 at its own
+PEAK = {torch.float32: 495e12, torch.bfloat16: 989e12}
+HBM = 3.35e12
 METHODS = ("per_call_ms", "device_ms")
 TOLS = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 
@@ -91,16 +109,133 @@ def compare(kernels: dict, dtype, gen: torch.Generator) -> dict:
     return row
 
 
+def flex_library(qt, kt, vt, window, softcap):
+    """``flex_attention``: the one PyTorch call that computes the kernel's
+    function with a softcap (``score_mod``) under a causal or banded
+    ``block_mask``, on (B, H, L, D) inputs with ``enable_gqa``.  Tried
+    compiled (the library's fused Triton kernel), then compiled with 32-row
+    blocks (f32 at D 256 may overflow the default's shared memory), then
+    eager (the scores materialized).  Inductor and Triton cache under
+    ``build/`` and compile in this process.  Returns (route, the call, the
+    failed routes' errors)."""
+    import os
+    root = Path(__file__).resolve().parents[3]
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(root / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(root / "build" / "triton"))
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    inductor_config.compile_threads = 1
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi
+        return keep if window is None else keep & (ki > qi - window)
+
+    l = qt.shape[2]
+    mask = create_block_mask(mask_mod, None, None, l, l, device=qt.device)
+    routes = (("compiled", torch.compile(flex_attention), {}),
+              ("compiled_block_32", torch.compile(flex_attention),
+               {"kernel_options": {"BLOCK_M": 32, "BLOCK_N": 32}}),
+              ("eager", flex_attention, {}))
+    errors = {}
+    for route, fn, kw in routes:
+        def call(fn=fn, kw=kw):
+            return fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                      enable_gqa=True, **kw)
+        try:
+            call()
+            torch.cuda.synchronize()
+            return route, call, errors
+        except Exception as e:   # the next route is timed instead
+            errors[route] = f"{type(e).__name__}: {str(e)[:300]}"
+    raise RuntimeError(f"flex_attention failed on every route: {errors}")
+
+
+def wide(dtype, gen: torch.Generator) -> dict:
+    """The head-dim-256 instance at ``WIDE_SHAPE`` in ``dtype``, with and
+    without the window: kernel, bound, plain, ``flex_attention`` and SDPA
+    without the softcap, in ms (``timing.device_ms``)."""
+    import torch.nn.functional as F
+    b, l, h, kv, d = WIDE_SHAPE
+    q = torch.randn(b, l, h, d, generator=gen).to("cuda", dtype)
+    k, v = (torch.randn(b, l, kv, d, generator=gen).to("cuda", dtype)
+            for _ in range(2))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    i = torch.arange(l, device="cuda")
+    out = {}
+    for window in (WIDE_WINDOW, None):
+        kw = dict(causal=True, window=window, softcap=WIDE_SOFTCAP)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOLS[dtype]
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise RuntimeError(f"the wide instance vs plain in {dtype}, "
+                               f"window {window}: max abs err {err}")
+        del want
+        w = window or l
+        pairs = sum(min(r + 1, w) for r in range(l))
+        flops = 4 * b * h * d * pairs
+        nbytes = q.element_size() * b * l * d * 2 * (h + kv)
+        t_ops = (3 if dtype == torch.float32 else 1) * flops / PEAK[dtype]
+        t_bytes = nbytes / HBM
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+        route, flex, errors = flex_library(qt, kt, vt, window, WIDE_SOFTCAP)
+        flex_diff = float((flex().transpose(1, 2).float() - got.float())
+                          .abs().max())
+        row = {"max_abs_err": err, "flops": flops, "bytes": nbytes,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "ms": timing.device_ms(
+                   lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10),
+               "plain_ms": timing.device_ms(
+                   lambda: ref.flash_attention_ref(q, k, v, **kw), iters=3,
+                   reps=3),
+               "library": f"flex_attention ({route})",
+               "library_errors": errors,
+               "library_max_abs_diff": flex_diff,
+               "library_ms": timing.device_ms(flex, iters=5, reps=3),
+               "sdpa_no_softcap_ms": timing.device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=band, enable_gqa=True)
+                   if window else F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   iters=5, reps=3)}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out["window" if window else "global"] = row
+        del got, flex
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("baseline", help="the earlier flash_attention.cu")
+    ap.add_argument("baseline", nargs="?",
+                    help="the earlier flash_attention.cu")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the head-dim-256 instance at Gemma-2's "
+                         "prefill beside flex_attention")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_ab needs a CUDA card")
+    if not args.wide and args.baseline is None:
+        ap.error("give the earlier flash_attention.cu or --wide")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = timing.card()
     print(card, flush=True)
+    if args.wide:
+        fa.build()
+        gen = torch.Generator().manual_seed(0)
+        result = {"card": card, "shape": list(WIDE_SHAPE),
+                  "softcap": WIDE_SOFTCAP, "causal": True}
+        for dtype in TOLS:
+            result[str(dtype)[6:]] = wide(dtype, gen)
+            print(json.dumps(result), flush=True)
+        return 0
     with ThreadPoolExecutor(2) as pool:
         base = pool.submit(_build.build, "flash_attention_baseline",
                            Path(args.baseline).resolve())

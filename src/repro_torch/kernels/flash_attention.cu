@@ -50,6 +50,15 @@
 //   spilled to the stack): one wave on 132 SMs.
 // - No atomics and a fixed order of every sum: two launches on the same
 //   inputs give the same bits.
+// - V may have a head dim Dv of its own, Dv <= D (MLA: q and k carry
+//   nope + rope = 96 columns, v 64).  V is staged at Dv columns and O
+//   written at Dv.  An instance's DV (n-tiles of the output) defaults to
+//   its DK; the (96, 64) f32 instance keeps 8 output n-tiles where the
+//   (128, 128) one would pad Q.Kt to 128 and run 16, 8 of them on zeros.
+//   Any other Dv < D takes the (DK, DK) instance for D, with V's columns
+//   Dv..DK-1 zero.  At MiniCPM3's prefill (B 4, L 1024, H 40, causal) the
+//   band is 2.7e10 flops, 8.1e10 as 3xTF32, 0.163 ms at 495 TFLOP/s,
+//   against 0.063 ms for q/k/v/o's bytes: bound by operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +79,7 @@ struct Args {
   const void* v;
   void* o;
   int B, Lq, Lk, H, KV, D;
+  int Dv;         // V's and O's head dim, <= D
   long long sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sob, sol, soh;
   float scale;
   int causal;
@@ -188,13 +198,15 @@ __device__ __forceinline__ void stage(T* dst, const T* src, long long rs,
   }
 }
 
-// DK: the head dim rounded up to an instance's (launch_f32, launch_bf16).
-template <typename T, int DK, int MINB>
+// DK: the head dim rounded up to an instance's (launch_f32, launch_bf16);
+// DV: V's, at most DK.
+template <typename T, int DK, int MINB, int DV = DK>
 __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int STR = DK + (F32 ? 4 : 8);     // shared row stride
   constexpr int KS = F32 ? DK / 8 : DK / 16;  // k-steps of Q·Kᵀ
-  constexpr int NO = DK / 8;                  // n-tiles of the output
+  constexpr int NO = DV / 8;                  // n-tiles of the output
+  static_assert(DV <= DK && DV % (F32 ? 8 : 16) == 0, "DV");
   constexpr int NS = BK / 8;                  // n-tiles of a score tile
   constexpr int TILE = 2 * BK * STR;          // one K/V stage
   using QF = typename std::conditional<F32, float, uint32_t>::type;
@@ -212,7 +224,8 @@ __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
   const T* kp = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
   const T* vp = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
 
-  // Zero both stages once: the padding columns D..DK-1 are never written.
+  // Zero both stages once: the padding columns D..DK-1 (Dv..DK-1 of V)
+  // are never written.
   for (int i = threadIdx.x; i < 2 * TILE * (int)sizeof(T) / 16; i += THREADS)
     reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
@@ -229,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
   cp_commit();
   if (ntiles > 0) {
     stage<T, STR>(sm + TILE, kp, a.skl, k_begin, a.Lk, BK, a.D, vec);
-    stage<T, STR>(sm + TILE + BK * STR, vp, a.svl, k_begin, a.Lk, BK, a.D,
+    stage<T, STR>(sm + TILE + BK * STR, vp, a.svl, k_begin, a.Lk, BK, a.Dv,
                   vec);
   }
   cp_commit();
@@ -257,6 +270,14 @@ __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
     }
   }
   __syncthreads();  // stage 0 is free for the second tile
+  // Q's rows BK..2BK-1 left columns Dv..D-1 of stage 0's V half, which V
+  // does not overwrite: clear those that P·V reads.
+  {
+    const int v_end = min(a.D, DV), w = v_end - a.Dv;
+    if (w > 0)
+      for (int i = threadIdx.x; i < BK * w; i += THREADS)
+        sm[(BK + i / w) * STR + a.Dv + i % w] = zero<T>();
+  }
 
   float o[NO][4];
 #pragma unroll
@@ -273,7 +294,8 @@ __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
     if (it + 1 < ntiles) {
       T* nxt = sm + (it & 1) * TILE;
       stage<T, STR>(nxt, kp, a.skl, kt + BK, a.Lk, BK, a.D, vec);
-      stage<T, STR>(nxt + BK * STR, vp, a.svl, kt + BK, a.Lk, BK, a.D, vec);
+      stage<T, STR>(nxt + BK * STR, vp, a.svl, kt + BK, a.Lk, BK, a.Dv,
+                    vec);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -429,18 +451,18 @@ __global__ void __launch_bounds__(THREADS, MINB) attn_fwd(const Args a) {
     const int c = n * 8 + 2 * t;
     if (row0 < a.Lq) {
       T* p = ob + row0 * a.sol + c;
-      if (c < a.D) store(p, o[n][0] / d0);
-      if (c + 1 < a.D) store(p + 1, o[n][1] / d0);
+      if (c < a.Dv) store(p, o[n][0] / d0);
+      if (c + 1 < a.Dv) store(p + 1, o[n][1] / d0);
     }
     if (row1 < a.Lq) {
       T* p = ob + row1 * a.sol + c;
-      if (c < a.D) store(p, o[n][2] / d1);
-      if (c + 1 < a.D) store(p + 1, o[n][3] / d1);
+      if (c < a.Dv) store(p, o[n][2] / d1);
+      if (c + 1 < a.Dv) store(p + 1, o[n][3] / d1);
     }
   }
 }
 
-template <typename T, int DK>
+template <typename T, int DK, int DV = DK>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr bool F32 = std::is_same<T, float>::value;
   // blocks per SM the registers must allow: 4 puts the DiT-XL/2 grid in
@@ -448,7 +470,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int MINB = F32 ? (DK <= 72 ? 4 : 2) : (DK <= 80 ? 4 : 3);
   constexpr int STR = DK + (F32 ? 4 : 8);
   const int smem = (int)(2 * 2 * BK * STR * sizeof(T));
-  const auto kernel = attn_fwd<T, DK, MINB>;
+  const auto kernel = attn_fwd<T, DK, MINB, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -465,8 +487,10 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // One instance per head dim that a caller runs (DiT-XL/2's 72, 80 in bf16,
 // and the tests' 16, 32, 64, 128); any other D takes the next one up, whose
-// padding columns are zeros.
+// padding columns are zeros.  MLA's (96, 64) has its own f32 instance.
 cudaError_t launch_f32(const Args& a, cudaStream_t s) {
+  if (a.Dv < a.D && a.D > 72 && a.D <= 96 && a.Dv <= 64)
+    return launch<float, 96, 64>(a, s);
   if (a.D <= 16) return launch<float, 16>(a, s);
   if (a.D <= 32) return launch<float, 32>(a, s);
   if (a.D <= 64) return launch<float, 64>(a, s);
@@ -808,23 +832,25 @@ cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  vec: 1 when q, k and v's pointers and
-// strides are multiples of 16 bytes and D of 16 / element size, so that
-// rows are staged with cp.async; 0 stages them with plain loads.  Returns a
-// cudaError_t (0 = launched).  The caller checks shapes, strides, devices
-// and `vec`; nothing here allocates or synchronizes.
+// strides are multiples of 16 bytes and D and Dv of 16 / element size, so
+// that rows are staged with cp.async; 0 stages them with plain loads.
+// Returns a cudaError_t (0 = launched).  The caller checks shapes, strides,
+// devices and `vec`; nothing here allocates or synchronizes.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Lq, int Lk, int H, int KV, int D, long long sqb, long long sql,
+    int Lq, int Lk, int H, int KV, int D, int Dv, long long sqb, long long sql,
     long long sqh, long long skb, long long skl, long long skh, long long svb,
     long long svl, long long svh, long long sob, long long sol, long long soh,
     float scale, int causal, int window, float softcap, int vec,
     void* stream) {
-  if (D < 1 || D > DKW || KV < 1 || H % KV != 0 ||
-      (long long)B * H > 2147483647LL || (Lq + BQ - 1) / BQ > 65535)
+  // the wide instance takes one head dim: Dv = D above 128
+  if (D < 1 || D > DKW || Dv < 1 || Dv > D || (D > 128 && Dv != D) ||
+      KV < 1 || H % KV != 0 || (long long)B * H > 2147483647LL ||
+      (Lq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q,   k,   v,   o,   B,   Lq,  Lk,    H,      KV,     D,
-               sqb, sql, sqh, skb, skl, skh, svb,   svl,    svh,    sob,
-               sol, soh, scale, causal, window, softcap, vec};
+               Dv,  sqb, sql, sqh, skb, skl, skh,   svb,    svl,    svh,
+               sob, sol, soh, scale, causal, window, softcap, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 128 && dtype == 0) return (int)launch_wide<float>(a, s);
   if (D > 128 && dtype == 1) return (int)launch_wide<__nv_bfloat16>(a, s);

@@ -13,7 +13,9 @@ rows are staged into shared memory with 16-byte ``cp.async`` copies when
 every row is 16-byte aligned, and with plain loads otherwise (``plan``).
 Head dims up to 128 take ``attn_fwd`` (Q fragments in registers, 64 query
 rows a block); 129..256 take ``attn_fwd_wide`` (Q in shared memory, 128
-query rows a block).
+query rows a block).  V may have a head dim of its own, Dv ≤ D (MLA: q and
+k at nope + rope = 96, v at 64), in ``attn_fwd`` only: an instance built
+for (96, 64), else the (D, D) instance with V's columns past Dv zero.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def _library():
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         lib.flash_attention_fwd.argtypes = (
-            [p, p, p, p, i] + [i] * 6 + [ll] * 12 + [f, i, i, f, i, p])
+            [p, p, p, p, i] + [i] * 7 + [ll] * 12 + [f, i, i, f, i, p])
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -79,10 +81,10 @@ def _library():
 def plan(q, k, v) -> dict:
     """How the kernel computes these inputs: ``arith`` names the tensor-core
     arithmetic of q's dtype, ``load`` how K/V rows reach shared memory —
-    ``"cp.async"`` when the head dim, every pointer and every stride (of a
-    dim longer than 1) are multiples of 16 bytes, else ``"scalar"``."""
+    ``"cp.async"`` when both head dims, every pointer and every stride (of
+    a dim longer than 1) are multiples of 16 bytes, else ``"scalar"``."""
     e = 16 // q.element_size()
-    aligned = q.shape[-1] % e == 0 and all(
+    aligned = q.shape[-1] % e == 0 and v.shape[-1] % e == 0 and all(
         t.data_ptr() % 16 == 0
         and all(st % e == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
                 if n > 1)
@@ -94,18 +96,24 @@ def plan(q, k, v) -> dict:
 def _check(q, k, v, window, softcap, scale):
     """Raise ValueError on what the kernel does not take; the device last,
     so that every other check also runs on CPU tensors."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q (B,Lq,H,D) and k = v (B,Lk,KV,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"expected q (B,Lq,H,D), k (B,Lk,KV,D) and v "
+                         f"(B,Lk,KV,Dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, _, h, d = q.shape
-    kv = k.shape[2]
+    kv, dv = k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch or head dim")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside the kernel's "
                          f"1..{MAX_HEAD_DIM}")
+    if not 1 <= dv <= d:
+        raise ValueError(f"value head dim {dv} outside 1..{d}, the key's")
+    if dv != d and d > 128:
+        raise ValueError(f"value head dim {dv} != head dim {d}: the wide "
+                         "instance (head dims 129..256) takes one head dim")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads are not a multiple of {kv} KV "
                          "heads")
@@ -137,13 +145,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None,
                          scale: Optional[float] = None):
-    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) CUDA tensors of one dtype
-    (float32 or bfloat16), any strides with a unit last-dim stride →
-    (B, Lq, H, D) in q's dtype, computed in f32."""
+    """q: (B, Lq, H, D), k: (B, Lk, KV, D), v: (B, Lk, KV, Dv) with Dv ≤ D
+    (Dv = D above 128) CUDA tensors of one dtype (float32 or bfloat16), any
+    strides with a unit last-dim stride → (B, Lq, H, Dv) in q's dtype,
+    computed in f32; ``scale`` defaults to 1/√D."""
     _check(q, k, v, window, softcap, scale)
     b, lq, h, d = q.shape
-    lk, kv = k.shape[1], k.shape[2]
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, lq, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -153,7 +162,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, lq, lk, h, kv, d,
+            _DTYPES[q.dtype], b, lq, lk, h, kv, d, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(scale), int(causal),
             0 if window is None else int(window),

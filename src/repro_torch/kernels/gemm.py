@@ -17,6 +17,7 @@ version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import re
@@ -90,6 +91,25 @@ def _width(k: int, n: int, rows: str) -> int:
             (bn for bn in TOKEN_BN if bn >= n), default=TOKEN_BN[0])
     fits = [nb for nb in REQUEST_NB if -(-n // nb) >= REQUEST_BLOCKS]
     return fits[0] if fits else REQUEST_NB[-1]
+
+
+@contextlib.contextmanager
+def token_widths(choice: dict):
+    """Within the block, plan the token kernel's (K, N) in ``choice`` at
+    the built width it gives, as if it were in ``TOKEN_CHOICE``: an A/B of
+    whole runs at other widths (``gemm_ab --generate``)."""
+    bad = {kn: bn for kn, bn in choice.items() if bn not in TOKEN_BN}
+    if bad:
+        raise ValueError(f"widths not built: {bad}; built: {TOKEN_BN}")
+    saved = dict(TOKEN_CHOICE)
+    TOKEN_CHOICE.update(choice)
+    _width.cache_clear()
+    try:
+        yield
+    finally:
+        TOKEN_CHOICE.clear()
+        TOKEN_CHOICE.update(saved)
+        _width.cache_clear()
 
 
 def plan(k: int, n: int, rows: str = "tokens") -> dict:

@@ -30,6 +30,22 @@ sums each width over one forward per bucket.  ``--model qwen3`` times
 Qwen3-14B's products (8 blocks) at M = 4096 (a prefill of 4 × 1024 tokens)
 and M = 4 (a decode step of 4 sequences), and sums each width over one
 ``generate`` of 32 tokens: one prefill and 31 decode steps.
+``--model gemma2`` does the same for Gemma-2-9B's (12 blocks; M = 8704,
+2 × 4352 tokens, and M = 2) and ``--model minicpm3`` for MiniCPM3-4B's
+(62 blocks; M = 4096 and 4; kv_b in the prefill only).  Each (K, N) also
+names the width its plan takes now and the built width (``gemm.TOKEN_BN``)
+that wins the sum.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.gemm_ab --tiles \
+        --model minicpm3 --generate
+
+then runs whole ``generate`` calls of that model (random weights drawn on
+the card, 32 new tokens, greedy) with the planned widths (``base``) and
+with every product at its sum's winning built width (``tiles``), in the
+order base, tiles, tiles, base, base, tiles: the prefill's seconds and a
+decode step's ms on the host's clock, whether the tokens agree, and the
+widths tried.  A width goes into ``gemm.TOKEN_CHOICE`` only where the
+whole generate gains, not its device time alone.
 
     git show <commit>:src/repro_torch/kernels/gemm.cu > build/ab/gemm_base.cu
     PYTHONPATH=src python3 -m repro_torch.kernels.gemm_ab --accuracy build/ab/gemm_base.cu
@@ -47,6 +63,7 @@ import argparse
 import ctypes
 import json
 import statistics
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -81,6 +98,12 @@ AUDIO_SHAPES = [("patch", A_CH, A_D, 2 * A_TOK, 1),
 # Qwen3-14B at 8 of its 40 blocks: the prefill's rows (4 × 1024 tokens),
 # a decode step's (4 sequences) and the decode steps of one generate
 Q_BLOCKS, Q_PREFILL, Q_DECODE, Q_STEPS = 8, 4 * 1024, 4, 31
+# the attention LMs' generates as chip_smoke.py runs them: (config, blocks,
+# prefill rows, decode rows), each with Q_STEPS decode steps
+# (tests/test_torch_mla.py holds them to chip_smoke.py's constants)
+LM_TILES = {"qwen3": ("qwen3-14b", Q_BLOCKS, Q_PREFILL, Q_DECODE),
+            "gemma2": ("gemma2-9b", 12, 2 * 4352, 2),
+            "minicpm3": ("minicpm3-4b", 62, 4 * 1024, 4)}
 # OpenSora-v1.2's text memory, in tokens
 V_MEM = 300
 K_SWEEP = (1152, 1536, 4608, 6144, 17408)
@@ -88,11 +111,6 @@ BUCKETS = (1, 2, 4)
 METHODS = ("per_call_ms", "device_ms")
 LIMIT = 5e-5
 CANDIDATES = (16, 64, 96, 128, 144, 192, 256)
-
-
-def qwen3_config():
-    """Qwen3-14B at its published widths, ``Q_BLOCKS`` blocks deep."""
-    return products.lm_cut(configs.get("qwen3-14b"), Q_BLOCKS)
 
 
 def forwards() -> dict:
@@ -269,32 +287,96 @@ def audio_tiles(gen: torch.Generator) -> dict:
     return {"tiles": out, "forward_ms": forward}
 
 
-def qwen3_tiles(gen: torch.Generator) -> dict:
-    """Every built width that divides N at each Qwen3-14B product, at the
-    prefill's and a decode step's rows, and each width's sum over one
-    generate (calls per forward × (prefill ms + 31 decode steps' ms)) with
-    the width that wins it."""
+def lm_tiles(model: str, gen: torch.Generator) -> dict:
+    """Every built width that divides N at each product of an attention
+    LM (``LM_TILES[model]``), at the prefill's and a decode step's rows,
+    and each width's sum over one generate (prefill calls × prefill ms +
+    ``Q_STEPS`` × decode calls × decode ms) with the width that wins it,
+    the built width (``gemm.TOKEN_BN``) that wins it and the planned
+    one."""
+    name, blocks, prefill_rows, decode_rows = LM_TILES[model]
+    cfg = products.lm_cut(configs.get(name), blocks)
     lib = gemm.bind(gemm.build(("-DGEMM_ALL_TILES",))["path"])
     out, generate = [], {}
-    for name, _, k, n, calls in products.lm_products(qwen3_config(),
-                                                      Q_PREFILL):
+    calls = {phase: {(k, n): c for _, _, k, n, c in products.lm_products(
+        cfg, 1, decode=phase == "decode")} for phase in ("prefill", "decode")}
+    for shape, _, k, n, _ in products.lm_products(cfg, 1):
         widths = [bn for bn in CANDIDATES if n % bn == 0]
         ms = {}
-        for phase, m in (("prefill", Q_PREFILL), ("decode", Q_DECODE)):
-            row = _tile_row(lib, name, m, k, n, False, widths, gen)
-            row.update(phase=phase, calls=calls)
+        for phase, m in (("prefill", prefill_rows), ("decode", decode_rows)):
+            c = calls[phase].get((k, n), 0)
+            row = _tile_row(lib, shape, m, k, n, False, widths, gen)
+            row.update(phase=phase, calls=c)
             out.append(row)
-            ms[phase] = {bn: row[str(bn)]["ms"] for bn in widths}
-        total = {bn: calls * (ms["prefill"][bn] + Q_STEPS * ms["decode"][bn])
+            ms[phase] = {bn: c * row[str(bn)]["ms"] for bn in widths}
+        total = {bn: ms["prefill"][bn] + Q_STEPS * ms["decode"][bn]
                  for bn in widths}
+        built = [bn for bn in widths if bn in gemm.TOKEN_BN]
         generate[f"{k}x{n}"] = {
             "ms": {str(bn): v for bn, v in total.items()},
-            "prefill_ms": {str(bn): calls * v
-                           for bn, v in ms["prefill"].items()},
-            "decode_step_ms": {str(bn): calls * v
-                               for bn, v in ms["decode"].items()},
-            "best": min(widths, key=total.get)}
-    return {"tiles": out, "generate": generate}
+            "prefill_ms": {str(bn): v for bn, v in ms["prefill"].items()},
+            "decode_step_ms": {str(bn): v for bn, v in ms["decode"].items()},
+            "best": min(widths, key=total.get),
+            "best_built": min(built, key=total.get) if built else None,
+            "planned": gemm.plan(k, n)["tile"][1]}
+    return {"model": name, "blocks": blocks, "tiles": out,
+            "generate": generate}
+
+
+def lm_generate_ab(model: str, sums: dict) -> dict:
+    """Whole generates of ``LM_TILES[model]``'s cut, 32 new tokens, greedy,
+    with the planned widths and with the winning built widths of ``sums``
+    (:func:`lm_tiles`' ``generate``), in turns (see the module's doc)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    name, blocks, prefill_rows, decode_rows = LM_TILES[model]
+    cfg = products.lm_cut(configs.get(name), blocks)
+    plen = prefill_rows // decode_rows
+    new = Q_STEPS + 1
+    tiles = {tuple(map(int, kn.split("x"))): g["best_built"]
+             for kn, g in sums.items()
+             if g["best_built"] not in (None, g["planned"])}
+    params = serve.init_params(torch.Generator(device="cuda").manual_seed(7),
+                               cfg, device="cuda")
+    T.prepare_linear(params)
+    prompts = torch.randint(0, cfg.vocab_size, (decode_rows, plen),
+                            generator=torch.Generator().manual_seed(3))
+    marks = {}
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        marks[phase] = time.perf_counter()
+
+    # a cold generate first: the first call of each routine stays out
+    serve.generate(cfg, params, prompts.cuda(), 2, cache_len=plen + new,
+                   on_phase=mark)
+    runs, tokens = {"base": [], "tiles": []}, {}
+    try:
+        for which in ("base", "tiles", "tiles", "base", "base", "tiles"):
+            with gemm.token_widths(tiles if which == "tiles" else {}):
+                mark("start")
+                toks = serve.generate(cfg, params, prompts.cuda(), new,
+                                      cache_len=plen + new, on_phase=mark)
+            runs[which].append({
+                "prefill_s": marks["prefill"] - marks["start"],
+                "decode_ms": 1e3 * (marks["decode"] - marks["prefill"])
+                / (new - 1)})
+            tokens.setdefault(which, toks)
+    finally:
+        gemm.release()
+    mean = {which: {k: statistics.mean(r[k] for r in rs)
+                    for k in ("prefill_s", "decode_ms")}
+            for which, rs in runs.items()}
+    return {"widths": {f"{k}x{n}": bn for (k, n), bn in tiles.items()},
+            "order": ["base", "tiles", "tiles", "base", "base", "tiles"],
+            "runs": runs, "mean": mean,
+            "same_tokens": bool(torch.equal(tokens["base"],
+                                            tokens["tiles"]))}
+
+
+def qwen3_config():
+    """Qwen3-14B at its published widths, ``Q_BLOCKS`` blocks deep."""
+    return products.lm_cut(configs.get("qwen3-14b"), Q_BLOCKS)
 
 
 def _resources(path: str) -> dict:
@@ -368,8 +450,11 @@ def main(argv=None) -> int:
     ap.add_argument("baseline", nargs="?", help="the earlier gemm.cu")
     ap.add_argument("--tiles", action="store_true",
                     help="time the token kernel's candidate tile widths")
-    ap.add_argument("--model", choices=("dit", "audio", "qwen3"),
+    ap.add_argument("--model", choices=("dit", "audio", *LM_TILES),
                     default="dit", help="whose token shapes --tiles times")
+    ap.add_argument("--generate", action="store_true",
+                    help="with --tiles and an LM --model: whole generates "
+                         "at the planned and the winning widths")
     ap.add_argument("--accuracy", metavar="BASELINE",
                     help="an earlier gemm.cu with linear_tokens_f32: hold "
                          "the token kernel's accumulation against it")
@@ -378,6 +463,8 @@ def main(argv=None) -> int:
         raise SystemExit("gemm_ab needs a CUDA card")
     if not (args.tiles or args.accuracy) and args.baseline is None:
         ap.error("give the earlier gemm.cu, --tiles or --accuracy")
+    if args.generate and not (args.tiles and args.model in LM_TILES):
+        ap.error(f"--generate goes with --tiles --model {sorted(LM_TILES)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = timing.card()
     print(card, flush=True)
@@ -386,8 +473,14 @@ def main(argv=None) -> int:
     if args.accuracy:
         result.update(accuracy(args.accuracy, gen))
     elif args.tiles:
-        result.update({"dit": tiles, "audio": audio_tiles,
-                       "qwen3": qwen3_tiles}[args.model](gen))
+        if args.model in LM_TILES:
+            result.update(lm_tiles(args.model, gen))
+            if args.generate:
+                result["generate_ab"] = lm_generate_ab(args.model,
+                                                       result["generate"])
+        else:
+            result.update({"dit": tiles, "audio": audio_tiles}[args.model](
+                gen))
     else:
         with ThreadPoolExecutor(2) as pool:
             base = pool.submit(_build.build, "gemm_baseline",

@@ -60,7 +60,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None):
-    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) → (B, Lq, H, D)."""
+    """q: (B, Lq, H, D); k: (B, Lk, KV, D); v: (B, Lk, KV, Dv), Dv ≤ D →
+    (B, Lq, H, Dv)."""
     if q.device.type == "cuda":
         out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)

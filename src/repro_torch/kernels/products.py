@@ -47,21 +47,35 @@ def lm_cut(cfg: ModelConfig, blocks: int) -> ModelConfig:
         st, repeat=blocks // len(st.unit)),))
 
 
-def lm_products(cfg: ModelConfig, rows: int) -> list:
-    """A dense GQA attention LM's products over ``rows`` token rows as
-    ``(name, M, K, N, calls per forward)``: q (d → H · dh), k and v (N = KV
-    · dh), o (H · dh → d), the gated MLP's up and gate, and down.  Where H
-    · dh = d, q and o are one shape, ``"q_o"``.  Every block of the stage
-    has the same widths (Gemma-2's differ only in the window)."""
+def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
+    """An attention LM's products over ``rows`` token rows as ``(name, M,
+    K, N, calls per forward)``.  GQA: q (d → H · dh), k and v (N = KV ·
+    dh), o (H · dh → d), the gated MLP's up and gate, and down; where H ·
+    dh = d, q and o are one shape, ``"q_o"``.  MLA: the q-LoRA's q_a (d →
+    q_lora) and q_b (q_lora → H · (nope + rope)), or a full-rank q, kv_a
+    (d → kv_lora + rope), kv_b (kv_lora → H · (nope + v)) in a prefill
+    only (a ``decode`` step folds it into the attention einsums), o (H · v
+    → d) and the MLP.  Every block of the stage has the same widths
+    (Gemma-2's differ only in the window)."""
     (st,) = cfg.stages
-    widths = {(b.mixer.num_heads, b.mixer.num_kv_heads, b.mixer.head_dim,
-               b.ffn.d_ff) for b in st.unit}
+    widths = {(dataclasses.replace(b.mixer, window=None), b.ffn.d_ff)
+              for b in st.unit}
     if len(widths) != 1:
         raise ValueError(f"{cfg.name}'s blocks differ in width: {widths}")
-    ((h, kvh, dh, ff),) = widths
-    d, blocks, hd, kv = cfg.d_model, cfg.num_layers, h * dh, kvh * dh
+    ((m, ff),) = widths
+    d, blocks = cfg.d_model, cfg.num_layers
+    mlp = [("up_gate", rows, d, ff, 2 * blocks), ("down", rows, ff, d, blocks)]
+    if m.kind == "mla":
+        q = ([("q_a", rows, d, m.q_lora_rank, blocks),
+              ("q_b", rows, m.q_lora_rank, m.q_dim, blocks)]
+             if m.q_lora_rank else [("q", rows, d, m.q_dim, blocks)])
+        kv_b = [] if decode else [
+            ("kv_b", rows, m.kv_lora_rank,
+             m.num_heads * (m.nope_head_dim + m.v_head_dim), blocks)]
+        return [*q, ("kv_a", rows, d, m.kv_lora_rank + m.rope_head_dim,
+                     blocks), *kv_b,
+                ("o", rows, m.o_in_dim, d, blocks), *mlp]
+    hd, kv = m.q_dim, m.num_kv_heads * m.head_dim
     q_o = ([("q_o", rows, d, hd, 2 * blocks)] if hd == d else
            [("q", rows, d, hd, blocks), ("o", rows, hd, d, blocks)])
-    return [*q_o[:1], ("k_v", rows, d, kv, 2 * blocks), *q_o[1:],
-            ("up_gate", rows, d, ff, 2 * blocks),
-            ("down", rows, ff, d, blocks)]
+    return [*q_o[:1], ("k_v", rows, d, kv, 2 * blocks), *q_o[1:], *mlp]

@@ -64,9 +64,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         scale: Optional[float] = None):
-    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D) with H % KV == 0.
-    Full-precision softmax attention: f32 scores and softmax, the
-    probabilities cast to v's dtype for the value product."""
+    """q: (B, Lq, H, D); k: (B, Lk, KV, D); v: (B, Lk, KV, Dv) with H % KV
+    == 0 → (B, Lq, H, Dv).  Full-precision softmax attention: f32 scores
+    and softmax, the probabilities cast to v's dtype for the value
+    product."""
     b, lq, h, d = q.shape
     lk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -85,7 +86,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
-    return out.reshape(b, lq, h, d)
+    return out.reshape(b, lq, h, v.shape[-1])
 
 
 # ---------------------------------------------------------------------------

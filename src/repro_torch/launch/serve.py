@@ -6,6 +6,8 @@
         --device cpu
     python -m repro_torch.launch.serve --arch gemma2-9b --variant smoke \
         --device cpu --prompt-len 24
+    python -m repro_torch.launch.serve --arch minicpm3-4b --variant smoke \
+        --device cpu
 
 The weights are random, drawn from ``--seed``; the prompts are uniform
 random tokens from the same seed.  Runs on ``cuda`` unless ``--device cpu``.

@@ -16,7 +16,12 @@ JAX package's einsum ``_decode_sdpa`` over the cache layouts, in f32 plain
 PyTorch on both devices (the JAX package computes it outside any kernel
 too).  Caches are functional: a decode step returns a new cache.
 
-Not ported yet: MLA.
+MLA (DeepSeek-style latent-KV attention, MiniCPM3): the full mode expands
+the latent into per-head keys and values and runs the same kernel, with
+q and k each [nope | rope] (nope + rope wide) and a value head dim of its
+own; the JAX package computes it as two score einsums.  The decode step
+is the JAX package's absorbed einsum path over the (ckv, krope) latent
+cache, in f32 plain PyTorch on both devices.
 """
 from __future__ import annotations
 
@@ -34,7 +39,28 @@ NEG_INF = -2.0e38
 
 def init(gen: torch.Generator, spec: AttentionSpec, d_model: int,
          dtype=torch.float32, cond_dim: int = 0):
-    """A cross layer's k/v projections take ``cond_dim`` inputs."""
+    """A cross layer's k/v projections take ``cond_dim`` inputs.  An MLA
+    layer has a q-LoRA (``wq_a``, ``q_norm``, ``wq_b``) or a full-rank
+    ``wq``, the kv latent's down projection ``wkv_a`` (to kv_lora + rope),
+    ``kv_norm``, its up projection ``wkv_b`` (to H · (nope + v)) and
+    ``wo``."""
+    if spec.kind == "mla":
+        h, qd = spec.num_heads, spec.q_dim
+        p = {}
+        if spec.q_lora_rank:
+            p["wq_a"] = L.dense_init(gen, d_model, spec.q_lora_rank, dtype)
+            p["q_norm"] = L.rmsnorm_init(spec.q_lora_rank, dtype)
+            p["wq_b"] = L.dense_init(gen, spec.q_lora_rank, qd, dtype)
+        else:
+            p["wq"] = L.dense_init(gen, d_model, qd, dtype)
+        p["wkv_a"] = L.dense_init(
+            gen, d_model, spec.kv_lora_rank + spec.rope_head_dim, dtype)
+        p["kv_norm"] = L.rmsnorm_init(spec.kv_lora_rank, dtype)
+        p["wkv_b"] = L.dense_init(
+            gen, spec.kv_lora_rank,
+            h * (spec.nope_head_dim + spec.v_head_dim), dtype)
+        p["wo"] = L.dense_init(gen, spec.o_in_dim, d_model, dtype)
+        return p
     h, kv, dh = spec.num_heads, spec.num_kv_heads, spec.head_dim
     kv_in = cond_dim if (spec.cross and cond_dim) else d_model
     p = {"wq": L.dense_init(gen, d_model, h * dh, dtype),
@@ -54,10 +80,16 @@ def init(gen: torch.Generator, spec: AttentionSpec, d_model: int,
 def init_cache(spec: AttentionSpec, batch: int, cache_len: int,
                dtype=torch.float32, device=None):
     """Decode-time KV cache of one layer, zeroed, in the JAX package's
-    decode layouts: k (B, KV, dh, S) and v (B, KV, S, dh); None for a
+    decode layouts: k (B, KV, dh, S) and v (B, KV, S, dh), or an MLA
+    layer's latent ckv (B, S, kv_lora) and krope (B, S, rope); None for a
     cross layer, whose memory does not grow."""
     if spec.cross:
         return None
+    if spec.kind == "mla":
+        return {"ckv": torch.zeros(batch, cache_len, spec.kv_lora_rank,
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros(batch, cache_len, spec.rope_head_dim,
+                                     dtype=dtype, device=device)}
     kv, dh = spec.num_kv_heads, spec.head_dim
     return {"k": torch.zeros(batch, kv, dh, cache_len, dtype=dtype,
                              device=device),
@@ -185,11 +217,104 @@ def _gqa_decode(spec: AttentionSpec, params, x, pos: int, cache, slot_pos):
     return out, {"k": k, "v": v, "slots": slots}
 
 
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+def _mla_q(spec: AttentionSpec, params, x):
+    """x (B, L, D) → (q_nope (B, L, H, nope), q_rope (B, L, H, rope)), both
+    views of one product."""
+    b, l, _ = x.shape
+    if spec.q_lora_rank:
+        q = ops.linear(L.rmsnorm(params["q_norm"],
+                                 ops.linear(x, params["wq_a"])),
+                       params["wq_b"])
+    else:
+        q = ops.linear(x, params["wq"])
+    q = q.reshape(b, l, spec.num_heads,
+                  spec.nope_head_dim + spec.rope_head_dim)
+    return q[..., :spec.nope_head_dim], q[..., spec.nope_head_dim:]
+
+
+def _mla_latent(spec: AttentionSpec, params, x, angles):
+    """x (B, L, D) → (ckv (B, L, kv_lora) after ``kv_norm``, krope (B, L,
+    rope) rotated by ``angles``), both contiguous."""
+    kv = ops.linear(x, params["wkv_a"])
+    ckv = L.rmsnorm(params["kv_norm"], kv[..., :spec.kv_lora_rank])
+    krope = L.apply_rope(kv[..., None, spec.kv_lora_rank:], None,
+                         angles=angles)[..., 0, :]
+    return ckv, krope
+
+
+def _mla_full(spec: AttentionSpec, params, x, positions=None):
+    """The latent expanded to per-head keys and values, attention through
+    the kernel: q = [q_nope | q_rope] and k = [k_nope | krope] (the one
+    rotated krope shared by every head), each (B, L, H, nope + rope), over
+    v (B, L, H, v_head_dim), causal, at scale 1/√(nope + rope) — the JAX
+    package's two score einsums summed, as one product.  Returns ``(out,
+    (ckv, krope))``, the prefill cache."""
+    b, l, _ = x.shape
+    h, nope = spec.num_heads, spec.nope_head_dim
+    if positions is None:
+        positions = torch.arange(l, device=x.device)[None, :]
+    angles = L.rope_angles(positions, spec.rope_head_dim, spec.rope_theta)
+    qn, qr = _mla_q(spec, params, x)
+    qr = L.apply_rope(qr, positions, angles=angles)
+    ckv, krope = _mla_latent(spec, params, x, angles)
+    kvb = ops.linear(ckv, params["wkv_b"]).reshape(
+        b, l, h, nope + spec.v_head_dim)
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kvb[..., :nope],
+                   krope[:, :, None, :].expand(b, l, h, spec.rope_head_dim)],
+                  dim=-1)
+    out = ops.flash_attention(q, k, kvb[..., nope:], causal=True,
+                              window=spec.window,
+                              scale=1.0 / math.sqrt(nope
+                                                    + spec.rope_head_dim))
+    out = ops.linear(out.reshape(b, l, spec.o_in_dim), params["wo"])
+    return out, (ckv, krope)
+
+
+def _mla_decode(spec: AttentionSpec, params, x, pos: int, cache, slot_pos):
+    """Absorbed decode: x (B, 1, D) at position ``pos`` attends in the
+    latent space against ckv (B, S, kv_lora) and krope (B, S, rope), with
+    ``wkv_b``'s key half folded into the query and its value half into the
+    output; slot ``min(pos, S - 1)``.  Returns ``(out, cache)``: the cache
+    with ``slots``, its leaves updated in place (as :func:`_gqa_decode`)."""
+    b = x.shape[0]
+    h, nope = spec.num_heads, spec.nope_head_dim
+    posb = torch.full((b, 1), pos, device=x.device)
+    angles = L.rope_angles(posb, spec.rope_head_dim, spec.rope_theta)
+    qn, qr = _mla_q(spec, params, x)                 # (B, 1, H, *)
+    qr = L.apply_rope(qr, posb, angles=angles)
+    ckv_new, kr_new = _mla_latent(spec, params, x, angles)
+    ckv, krope, slots = cache["ckv"], cache["krope"], slot_pos
+    slot = min(pos, ckv.shape[1] - 1)
+    ckv[:, slot] = ckv_new[:, 0].to(ckv.dtype)
+    krope[:, slot] = kr_new[:, 0].to(krope.dtype)
+    slots[slot] = pos
+    wkv_b = params["wkv_b"].reshape(spec.kv_lora_rank, h,
+                                    nope + spec.v_head_dim)
+    wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_eff = torch.einsum("bqhd,chd->bqhc", qn, wk_b)
+    scores = (torch.einsum("bqhc,bsc->bhqs", q_eff, ckv.to(q_eff.dtype))
+              + torch.einsum("bqhr,bsr->bhqs", qr, krope.to(qr.dtype))
+              ).float()
+    scores = scores / math.sqrt(nope + spec.rope_head_dim)
+    bias = _mask_bias(posb, slots[None, :], causal=True, window=spec.window,
+                      k_valid=(slots >= 0)[None, :])
+    p = torch.softmax(scores + bias[:, None, :, :], dim=-1)
+    ctx = torch.einsum("bhqs,bsc->bqhc", p.to(ckv.dtype), ckv)
+    out = torch.einsum("bqhc,chv->bqhv", ctx.to(qn.dtype), wv_b)
+    out = ops.linear(out.reshape(b, 1, spec.o_in_dim), params["wo"])
+    return out, {"ckv": ckv, "krope": krope, "slots": slots}
+
+
 def apply(spec: AttentionSpec, params, x, *, positions=None, mode="full",
           pos=None, cache=None, slot_pos=None, memory=None,
           video_shape=None):
-    """Returns ``(out, aux)``: aux is the (k, v) prefill cache in full mode
-    and the updated cache in decode mode.
+    """Returns ``(out, aux)``: aux is the (k, v) prefill cache — (ckv,
+    krope) for MLA — in full mode and the updated cache in decode mode.
 
     Full mode: attention over x (B, L, D) → (B, L, D) at ``positions``
     ((1, L) or (B, L); default ``arange(L)``), or, for a cross layer, of x
@@ -199,9 +324,16 @@ def apply(spec: AttentionSpec, params, x, *, positions=None, mode="full",
     ``arange(S)``; "temporal" within each spatial location, as (B·S, T)
     with positions ``arange(T)``.  Decode mode: x (B, 1, D) at position
     ``pos`` (an int) against ``cache`` with ``slot_pos``."""
-    if spec.kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {spec.kind!r} is not ported yet")
+    if spec.kind not in ("gqa", "mla"):
+        raise ValueError(f"unknown attention kind {spec.kind!r}")
+    if spec.kind == "mla":
+        if mode == "decode":
+            return _mla_decode(spec, params, x, pos, cache, slot_pos)
+        if mode != "full":
+            raise ValueError(f"unknown attention mode {mode!r}")
+        if spec.cross or spec.pattern is not None:
+            raise ValueError("MLA is causal self-attention over tokens")
+        return _mla_full(spec, params, x, positions)
     if mode == "decode":
         if spec.cross:
             raise NotImplementedError("cross-attention decode is not "

@@ -76,10 +76,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def token_weights(params):
     """The weights of the stack's token products (q/k/v/o of self- and
-    cross-attention, the MLP), one per product as :func:`apply_stages`
-    takes it: a block's weight as the view ``a[r]`` of its stacked leaf."""
+    cross-attention, MLA's q-LoRA, kv latent and o, the MLP), one per
+    product as :func:`apply_stages` takes it: a block's weight as the view
+    ``a[r]`` of its stacked leaf."""
     out = []
-    names = {"mixer": ("wq", "wk", "wv", "wo"),
+    names = {"mixer": ("wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
+                       "wkv_b"),
              "cross": ("wq", "wk", "wv", "wo"),
              "ffn": ("w_up", "w_gate", "w_down")}
     for stage in params["stages"]:
@@ -250,7 +252,9 @@ def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
     ``window`` of them) in the slots that step's ring indexing gives them
     (``pos % S`` under a window, else ``pos``), in the decode layouts k
     (repeat, B, KV, dh, S) and v (repeat, B, KV, S, dh), with ``slots``
-    (repeat, S) holding each slot's position (-1 empty)."""
+    (repeat, S) holding each slot's position (-1 empty).  An MLA layer's
+    (ckv, krope), (repeat, B, L, kv_lora) and (repeat, B, L, rope), keep
+    their layout, (repeat, B, S, ·)."""
     m = block_spec.mixer
     if m is None:
         return None
@@ -265,14 +269,16 @@ def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
         positions = positions[-m.window:]
     slots = (positions % clen if m.window
              else torch.clamp(positions, max=clen - 1))
+    names = ("ckv", "krope") if m.kind == "mla" else ("k", "v")
     out = {}
-    for name, arr in zip(("k", "v"), prefill_cache):
+    for name, arr in zip(names, prefill_cache):
         buf = torch.zeros(arr.shape[:2] + (clen,) + arr.shape[3:],
                           dtype=cache_dtype, device=dev)
         buf[:, :, slots] = arr[:, :, positions].to(cache_dtype)
         out[name] = buf
-    out["k"] = out["k"].permute(0, 1, 3, 4, 2).contiguous()
-    out["v"] = out["v"].permute(0, 1, 3, 2, 4).contiguous()
+    if m.kind != "mla":
+        out["k"] = out["k"].permute(0, 1, 3, 4, 2).contiguous()
+        out["v"] = out["v"].permute(0, 1, 3, 2, 4).contiguous()
     slot_pos = torch.full((clen,), -1, dtype=torch.int32, device=dev)
     slot_pos[slots] = positions.to(torch.int32)
     out["slots"] = slot_pos.expand(arr.shape[0], clen).clone()

@@ -154,6 +154,22 @@ def test_qwen3_products_get_a_built_width_that_divides_n(k, n):
         assert gemm.launch_plan(m, k, n, "tokens")["tile"] == [bm, bn]
 
 
+def test_token_widths_override_the_plan_within_the_block():
+    """``gemm.token_widths`` plans the (K, N) it is given at a built width
+    inside the ``with`` block only, and refuses a width not built."""
+    k, n = 5120, 17408
+    before = gemm.plan(k, n)
+    assert before["tile"][1] == 128
+    with gemm.token_widths({(k, n): 64}):
+        assert gemm.plan(k, n)["tile"][1] == 64
+        assert gemm.plan(5120, 5120)["tile"][1] == 64     # as planned
+    assert gemm.plan(k, n) == before
+    with pytest.raises(ValueError, match="not built"):
+        with gemm.token_widths({(k, n): 32}):
+            pass
+    assert gemm.plan(k, n) == before
+
+
 def test_token_k_order_names_the_promotion():
     """``plan`` reads the tile and the promotion interval from the source
     the library is built from: 4 k-tiles of 32, the interval whose error

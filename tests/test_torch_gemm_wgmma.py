@@ -227,6 +227,9 @@ def test_request_kernel_refuses_a_k_past_its_shared_memory():
 
 @pytest.mark.parametrize("argv", [["baseline.cu"], ["--tiles"],
                                   ["--tiles", "--model", "qwen3"],
+                                  ["--tiles", "--model", "minicpm3"],
+                                  ["--tiles", "--model", "gemma2",
+                                   "--generate"],
                                   ["--accuracy", "baseline.cu"]])
 def test_gemm_ab_needs_a_card(monkeypatch, tmp_path, argv):
     from repro_torch.kernels import gemm_ab
