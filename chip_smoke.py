@@ -44,11 +44,11 @@ exits non-zero:
    attention + 2 per computed MLP) per step, segmented ≡ eager bitwise;
    the q/k/v that the model's
    attention makes take 3xTF32 with ``cp.async`` loads;
-7. a full-width Mamba-2-1.3B prefill of one 200-token prompt on the card
-   (kernel scan) against the same prefill on the CPU (plain scan): logits
-   and final states;
+7. a Mamba-2-1.3B prefill (full width, ``MAMBA2_BLOCKS`` = 24 of its 48
+   blocks) of one 200-token prompt on the card (kernel scan) against the
+   same prefill on the CPU (plain scan): logits and final states;
 8. the LM slice: ``launch.serve.generate`` on 4 prompts × 1024 tokens, 32
-   new tokens, greedy — 48 SSD launches in the prefill and none in the
+   new tokens, greedy — 24 SSD launches in the prefill and none in the
    decode loop; then a card forward over prompt + the first 31 new tokens
    whose logits must match the recurrent decode step's;
 9. a ``torch.profiler`` trace of one prefill and of 4 decode steps: device
@@ -210,9 +210,10 @@ exits non-zero:
    traced prefill and 4 decode steps (``gemma2_profile``).
 21. the MLA slice (``minicpm3``, budget ~120 s, after ``gemma2`` and
    before the video phase, on weights of its own drawn on the card):
-   MiniCPM3-4B at its published widths and depth (62 blocks, d 2560, 40
-   heads, q-LoRA 768, a kv latent of 256 and a shared RoPE key of 32,
-   nope 64, v 64, gated SiLU MLP d_ff 6400, tied embeddings of 73448).
+   MiniCPM3-4B at its published widths, ``MINICPM3_BLOCKS`` = 16 of its
+   62 blocks (d 2560, 40 heads, q-LoRA 768, a kv latent of 256 and a
+   shared RoPE key of 32, nope 64, v 64, gated SiLU MLP d_ff 6400, tied
+   embeddings of 73448).
    The attention kernel's (96, 64) instance — q and k 96 wide, v 64 — at
    the prefill's shape (4, 1024, 40), causal, against its plain version,
    bitwise twice, timed beside its bound, its plain version and SDPA (a
@@ -221,18 +222,41 @@ exits non-zero:
    and 4 rows (kv_b in the prefill only) against cuBLAS and f64, rows
    bitwise, timed; a 2-block prefill card against CPU (logits and every
    ckv / krope cache ≤ 1e-4); ``generate`` on 4 prompts × 1024 tokens, 32
-   new, greedy, cache_len 1056 — attention 62 launches in the prefill and
-   none in the decode (absorbed einsums over the latent cache), linear 496
-   in the prefill and 434 a decode step; the latent cache's bytes;
+   new, greedy, cache_len 1056 — attention 16 launches in the prefill and
+   none in the decode (absorbed einsums over the latent cache), linear 128
+   in the prefill and 112 a decode step; the latent cache's bytes;
    teacher-forced decode vs one forward (≤ 1e-4); a traced prefill and 4
    decode steps (``minicpm3_profile``).
+22. the MoE slice (``deepseek3``, budget ~120 s, after ``minicpm3`` and
+   before the video phase, on weights of its own drawn on the card):
+   DeepSeek-V3 at its published widths (d 7168, 128 MLA heads at (192,
+   128): q-LoRA 1536, kv latent 512 + RoPE 64, nope 128, v 128; dense
+   MLP d_ff 18432; MoE blocks with a sigmoid router, a selection bias,
+   top-8, ``norm_topk``, scale 2.5, routed and shared experts d_ff 2048;
+   untied head of 129280), cut to 32 of 256 routed experts and 1 dense +
+   2 MoE blocks, no MTP head.  The attention kernel's (192, 128) instance
+   at the prefill's shape against its plain version, bitwise twice, timed
+   beside its bound, its plain version, SDPA (the backend named) and the
+   same inputs on V padded to 192; a wide (D, Dv) sweep, f32 and bf16,
+   causal and not; every MLA, dense-MLP and router product at 4096 and 4
+   rows against cuBLAS and f64; one MoE block's expert products at 8 and
+   4096 rows an expert, the linear kernel against cuBLAS's ``bmm``, and
+   one MoE FFN under ``dense`` and ``gshard``; a 2-block (dense + MoE)
+   prefill card against CPU (logits, ckv / krope, the selected experts;
+   a differing selection reported with its margin, ≤ 1e-5 to pass);
+   ``generate`` on 4 prompts × 1024 tokens, 32 new, greedy, cache_len 1056
+   (``dense`` prefill, ``gshard`` decode) — attention 3 / 0, linear 218
+   in the prefill and 215 a decode step; teacher-forced decode vs one
+   forward with the same rule for selections; a traced prefill and 4
+   decode steps (``deepseek3_profile``).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's,
-Mamba-2-1.3B's, OpenSora-v1.2's, Stable-Audio-Open's and MiniCPM3-4B's
-(the fault, telemetry and durability phases at 7 of DiT-XL/2's 28
-blocks); Qwen3-14B's widths at 8 of its 40 blocks and Gemma-2-9B's at 12
-of its 42.
+OpenSora-v1.2's and Stable-Audio-Open's (the fault, telemetry and
+durability phases at 7 of DiT-XL/2's 28 blocks); Mamba-2-1.3B's widths at
+24 of its 48 blocks, Qwen3-14B's at 8 of 40, Gemma-2-9B's at 12 of 42,
+MiniCPM3-4B's at 16 of 62 and DeepSeek-V3's at 3 of 61 with 32 of its 256
+experts (the two cuts of depth pay for the ``deepseek3`` phase).
 """
 import gc
 import json
@@ -250,6 +274,9 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 REQUEST_LABELS = [207, 360, 387, 974]
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
+# Mamba-2-1.3B's depth on the card, of 48: all 48 until the deepseek3
+# phase came, which this cut pays for
+MAMBA2_BLOCKS = 24
 # the linear kernels' error against an f64 product, of the output's scale:
 # about 1e-6 at every K with the token kernel's promoted accumulation, and
 # 1.2e-4 at K 17408 without it
@@ -1335,19 +1362,22 @@ def qwen3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
                                   LM_PROMPT, "qwen3")
 
 
-def lm_product_phase(gemm, ref, peaks, cfg, rand, batch, prompt, tag):
+def lm_product_phase(gemm, ref, peaks, cfg, rand, batch, prompt, tag,
+                     exclude=()):
     """Every product of an attention LM's blocks (``products.lm_products``)
-    at the prefill's ``batch · prompt`` rows and a decode step's ``batch``
-    against cuBLAS f32 (≤ 5e-5 of the output's scale) and an f64 product
-    (≤ ``F64_LIMIT``), each row bitwise against fewer rows, timed beside
-    its bound and cuBLAS's; inputs from ``rand(*shape)``.  Emits
-    ``<tag>_products``."""
+    but those named in ``exclude``, at the prefill's ``batch · prompt``
+    rows and a decode step's ``batch`` against cuBLAS f32 (≤ 5e-5 of the
+    output's scale) and an f64 product (≤ ``F64_LIMIT``), each row bitwise
+    against fewer rows, timed beside its bound and cuBLAS's; inputs from
+    ``rand(*shape)``.  Emits ``<tag>_products``."""
     from repro_torch.kernels.products import lm_products
     t_phase = time.perf_counter()
     sweep, rows_ok, times = [], {}, {}
     for phase, m in (("prefill", batch * prompt), ("decode", batch)):
         for name, _, kk, n, calls in lm_products(
                 cfg, m, decode=phase == "decode"):
+            if name in exclude:
+                continue
             x, w = rand(m, kk), rand(kk, n) / kk ** 0.5
             y = gemm.linear_cuda(x, w)
             want = ref.linear_ref(x, w, None)
@@ -1496,7 +1526,8 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
     return prompts, toks, launches, row
 
 
-def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag):
+def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag,
+                          prefill_kw=None):
     """Where the attention LM's time goes: one prefill and 4 decode steps
     (after one untraced step), each traced — device ms by kernel, the
     shares of the linear kernel, the attention kernel, cuBLAS (the LM head
@@ -1504,11 +1535,14 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag):
     einsums) and the rest (elementwise), and the device's idle share of
     the wall time.  The calls each run made are counted by
     ``ops.LAUNCHES``; the trace's own kernel counts are reported beside
-    them (a trace has dropped a few kernel records).  Emits
-    ``<tag>_profile``."""
+    them (a trace has dropped a few kernel records).  ``prefill_kw`` goes
+    to ``T.prefill`` (a MoE model prefills as ``generate`` does, ``dense``).
+    Emits ``<tag>_profile``."""
     plen = prompts.shape[1]
     cache_len = plen + toks.shape[1]
-    _, caches = T.prefill(cfg, params, prompts, cache_len=cache_len)
+    prefill_kw = prefill_kw or {}
+    _, caches = T.prefill(cfg, params, prompts, cache_len=cache_len,
+                          **prefill_kw)
     _, caches = T.decode_step(cfg, params, toks[:, :1], caches, pos=plen)
 
     def decode4():
@@ -1519,7 +1553,8 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag):
 
     rows = {}
     for name, fn in (("prefill", lambda: T.prefill(cfg, params, prompts,
-                                                   cache_len=cache_len)),
+                                                   cache_len=cache_len,
+                                                   **prefill_kw)),
                      ("decode_4_steps", decode4)):
         before = dict(ops.LAUNCHES)
         wall_us, kern = _traced(fn)
@@ -1647,7 +1682,7 @@ def gemma2_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
 
     cases, rows = attn_lm_attention_phase(
         fa, ref, peaks, cfg, rand, (GEMMA2_BATCH, GEMMA2_PROMPT), sass,
-        "attn_fwd_wideIf")
+        "attn_fwd_wideIfLi256E")
     attn = {"cases": cases, "sass": rows}
     emit({"phase": "gemma2_attention", "limit": 5e-5, **attn})
     check(len(attn["sass"]) == 1, f"the f32 D 256 instance in the SASS: "
@@ -1706,7 +1741,8 @@ def gemma2_phase(peaks, kernels, sass):
           f"the gemma2 phase took {seconds} s of its {GEMMA2_BUDGET_S}")
 
 
-MINICPM3_BLOCKS = 62      # of 62: weights 16.3 GB, prepared halves 31.1 GB
+# of 62: all 62 until the deepseek3 phase came, which this cut pays for
+MINICPM3_BLOCKS = 16
 MINICPM3_CHECK_BLOCKS = 2
 MINICPM3_BUDGET_S = 120
 # (D, Dv) pairs of the value-head-dim sweep: MLA's own (the (96, 64)
@@ -1714,6 +1750,30 @@ MINICPM3_BUDGET_S = 120
 # V's extra columns zero), and Dv = D on the instance MLA's D would take
 # without its own
 MLA_PAIRS = ((96, 64), (48, 32), (128, 64), (72, 72))
+
+
+def dv_sweep(fa, ref, rand, pairs):
+    """The attention kernel with a value head dim of its own against its
+    plain version at each (D, Dv) of ``pairs``: q (2, 100, 4, D) over k
+    (2, 100, 2, D) and v (2, 100, 2, Dv), f32 (≤ 5e-5) and bf16 (≤ 5e-2),
+    causal and not."""
+    sweep = []
+    for d, dv in pairs:
+        for dtype, tol in ((torch.float32, 5e-5), (torch.bfloat16, 5e-2)):
+            q, k = rand(2, 100, 4, d).to(dtype), rand(2, 100, 2, d).to(dtype)
+            v = rand(2, 100, 2, dv).to(dtype)
+            for causal in (True, False):
+                out = fa.flash_attention_cuda(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = float((out.float() - want.float()).abs().max())
+                sweep.append({"d": d, "dv": dv, "dtype": str(dtype)[6:],
+                              "causal": causal, **fa.plan(q, k, v),
+                              "max_abs_err": err})
+                check(tuple(out.shape) == (2, 100, 4, dv) and bool(
+                    torch.allclose(out.float(), want.float(), atol=tol,
+                                   rtol=tol)), f"(D, Dv) sweep {sweep[-1]}")
+    return sweep
 
 
 def minicpm3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
@@ -1729,22 +1789,7 @@ def minicpm3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
     def rand(*shape):
         return torch.randn(shape, generator=gen).cuda()
 
-    sweep = []
-    for d, dv in MLA_PAIRS:
-        for dtype, tol in ((torch.float32, 5e-5), (torch.bfloat16, 5e-2)):
-            q, k = rand(2, 100, 4, d).to(dtype), rand(2, 100, 2, d).to(dtype)
-            v = rand(2, 100, 2, dv).to(dtype)
-            for causal in (True, False):
-                out = fa.flash_attention_cuda(q, k, v, causal=causal)
-                want = ref.flash_attention_ref(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                err = float((out.float() - want.float()).abs().max())
-                sweep.append({"d": d, "dv": dv, "dtype": str(dtype)[6:],
-                              "causal": causal, **fa.plan(q, k, v),
-                              "max_abs_err": err})
-                check(tuple(out.shape) == (2, 100, 4, dv) and bool(
-                    torch.allclose(out.float(), want.float(), atol=tol,
-                                   rtol=tol)), f"(D, Dv) sweep {sweep[-1]}")
+    sweep = dv_sweep(fa, ref, rand, MLA_PAIRS)
     cases, rows = attn_lm_attention_phase(
         fa, ref, peaks, cfg, rand, (LM_BATCH, LM_PROMPT), sass,
         "attn_fwdIfLi96ELi")
@@ -1757,13 +1802,13 @@ def minicpm3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
 
 
 def minicpm3_phase(peaks, kernels, sass):
-    """The MLA serving path at MiniCPM3-4B's published widths and depth
-    (62 blocks, d 2560, 40 heads, q_lora 768, kv_lora 256, nope 64, rope
+    """The MLA serving path at MiniCPM3-4B's published widths, 16 of its
+    62 blocks (d 2560, 40 heads, q_lora 768, kv_lora 256, nope 64, rope
     32, v 64, gated SiLU MLP d_ff 6400, tied embeddings of 73448), after
     the gemma2 phase and before the video phase: the prefill's attention
     through the kernel's (96, 64) instance, the decode's absorbed einsums
     over the (ckv, krope) latent cache.  Budget ``MINICPM3_BUDGET_S``; the
-    weights (4.07 B values) are drawn on the card."""
+    weights are drawn on the card."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
     from repro_torch.kernels.products import lm_cut
@@ -1804,6 +1849,380 @@ def minicpm3_phase(peaks, kernels, sass):
           "peak_device_bytes": row["peak_device_bytes"]})
     check(seconds <= MINICPM3_BUDGET_S,
           f"the minicpm3 phase took {seconds} s of its {MINICPM3_BUDGET_S}")
+
+
+DEEPSEEK3_BLOCKS = (1, 2)   # of (3, 58): the first dense block, 2 MoE blocks
+DEEPSEEK3_EXPERTS = 32      # of 256 routed experts: 19.7 GB a MoE block
+DEEPSEEK3_CHECK_BLOCKS = (1, 1)
+DEEPSEEK3_BUDGET_S = 120
+# (D, Dv) pairs of the wide value-head-dim sweep: DeepSeek-V3's MLA and a
+# narrower pair (f32: the instance with 16 output n-tiles; bf16: the D 256
+# instance with V's columns past Dv zero)
+WIDE_PAIRS = ((192, 128), (160, 96))
+
+
+def deepseek3_cut(cfg):
+    """DeepSeek-V3 at every published width, cut to ``DEEPSEEK3_BLOCKS``
+    blocks and ``DEEPSEEK3_EXPERTS`` routed experts (top-8, the router,
+    its bias, ``norm_topk``, the scale and the shared expert kept), with no
+    MTP head (serving never reads it)."""
+    import dataclasses
+    from repro_torch.config import MoESpec
+    from repro_torch.kernels.products import lm_cut
+    cut = lm_cut(cfg, DEEPSEEK3_BLOCKS)
+    stages = tuple(dataclasses.replace(st, unit=tuple(
+        dataclasses.replace(b, ffn=dataclasses.replace(
+            b.ffn, num_experts=DEEPSEEK3_EXPERTS))
+        if isinstance(b.ffn, MoESpec) else b for b in st.unit))
+        for st in cut.stages)
+    return cut.replace(stages=stages, mtp_depth=0)
+
+
+def deepseek3_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
+    """The attention kernel's (192, 128) instance at the prefill's shape —
+    q and k (4, 1024, 128, 192), v (4, 1024, 128, 128), f32, causal, as
+    ``_mla_full`` expands the latent — with SDPA as the library call
+    (:func:`attn_lm_attention_phase`), and the same inputs on V zero-padded
+    to 192 (the D 256 instance's 32 output n-tiles: the design without a
+    value head dim of its own); the wide (D, Dv) sweep; then every MLA,
+    dense-MLP and router product (:func:`lm_product_phase`; the experts'
+    are :func:`deepseek3_experts_phase`'s).  The inputs are drawn on the
+    card (a CPU draw of DeepSeek-V3's widths takes seconds)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.timing import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 111)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    sweep = dv_sweep(fa, ref, rand, WIDE_PAIRS)
+    cases, rows = attn_lm_attention_phase(
+        fa, ref, peaks, cfg, rand, (LM_BATCH, LM_PROMPT), sass,
+        "attn_fwd_wideIfLi128E")
+    attn = {**cases["global"], "sass": rows, "dv_sweep": sweep}
+    m = cfg.stages[0].unit[0].mixer
+    d, dv = m.nope_head_dim + m.rope_head_dim, m.v_head_dim
+    q, k = (rand(LM_BATCH, LM_PROMPT, m.num_heads, d) for _ in range(2))
+    v = rand(LM_BATCH, LM_PROMPT, m.num_heads, dv)
+    vp = F.pad(v, (0, d - dv))
+    out = fa.flash_attention_cuda(q, k, v)
+    padded = fa.flash_attention_cuda(q, k, vp)[..., :dv]
+    attn.update(
+        padded_v_ms=device_ms(lambda: fa.flash_attention_cuda(q, k, vp),
+                              iters=10),
+        padded_v_max_abs_diff=float((padded - out).abs().max()))
+    attn["padded_v_over_own"] = attn["padded_v_ms"] / attn["ms"]
+    del q, k, v, vp, out, padded
+    emit({"phase": "deepseek3_attention", "limit": 5e-5, **attn})
+    check(len(rows) == 1, f"the f32 (192, 128) instance in the SASS: "
+          f"{list(rows)}")
+    check(attn["padded_v_max_abs_diff"] <= 5e-5,
+          f"(192, 128) against V padded to 192: "
+          f"{attn['padded_v_max_abs_diff']}")
+    return attn, lm_product_phase(
+        gemm, ref, peaks, cfg, rand, LM_BATCH, LM_PROMPT, "deepseek3",
+        exclude=("expert_up_gate", "expert_down", "shared_up_gate",
+                 "shared_down"))
+
+
+def deepseek3_experts_phase(gemm, ref, moe, peaks, cfg, params):
+    """One MoE block's expert products — the 32 routed experts' up, gate
+    and down and the shared expert's, on the block's own weights and their
+    prepared halves — at the decode's capacity rows (8 an expert) and at
+    the dense prefill's (4096 an expert), both ways on the same inputs:
+    the linear kernel product by product (99 launches, as ``moe._expert``
+    makes them), its plain version (``x @ w`` per product), and cuBLAS's
+    batched f32 product (``torch.bmm`` over
+    the stacked (E, rows, d) × (E, d, f), TF32 off, with ``torch.mm`` for
+    the shared expert), beside the bound of the same work (3xTF32 on the
+    tensor cores, or the bytes).  Then one MoE FFN (router, experts,
+    combine, shared expert) at 4096 tokens under ``dense`` (every expert on
+    every token, as ``generate`` prefills) and ``gshard`` (2 groups of
+    2048, capacity 640).  Emits ``deepseek3_experts``."""
+    from repro_torch.kernels.timing import device_ms
+    from repro_torch.models.transformer import tree_map
+    t_phase = time.perf_counter()
+    spec = cfg.stages[1].unit[0].ffn
+    ffn = tree_map(lambda a: a[0], params["stages"][1][0]["ffn"])
+    sh = ffn["shared"]
+    e_n, d, f, fs = spec.num_experts, cfg.d_model, spec.d_ff, spec.d_ff_shared
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 114)
+    cases = {}
+    for case, rows in (("decode_capacity", 8), ("prefill_dense", 4096)):
+        x = torch.randn(e_n + 1, rows, d, generator=gen, device="cuda")
+        h = torch.randn(e_n, rows, f, generator=gen, device="cuda")
+        hs = torch.randn(rows, fs, generator=gen, device="cuda")
+        ws = ([(x[e], ffn[n][e]) for e in range(e_n)
+               for n in ("w_up", "w_gate")]
+              + [(h[e], ffn["w_down"][e]) for e in range(e_n)]
+              + [(x[e_n], sh["w_up"]), (x[e_n], sh["w_gate"]),
+                 (hs, sh["w_down"])])
+
+        def loop():
+            return [gemm.linear_cuda(a, w) for a, w in ws]
+
+        def library():
+            return [torch.bmm(x[:e_n], ffn["w_up"]),
+                    torch.bmm(x[:e_n], ffn["w_gate"]),
+                    torch.bmm(h, ffn["w_down"]),
+                    torch.mm(x[e_n], sh["w_up"]),
+                    torch.mm(x[e_n], sh["w_gate"]), torch.mm(hs, sh["w_down"])]
+
+        got = loop()
+        up, gate, down, *shared = library()
+        want = ([t for e in range(e_n) for t in (up[e], gate[e])]
+                + list(down) + shared)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, want))
+        del got, want, up, gate, down, shared
+        flops = sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w in ws)
+        nbytes = 4 * sum(a.numel() + w.numel() + a.shape[0] * w.shape[1]
+                         for a, w in ws)
+        t_ops = 3 * flops / peaks["tf32"] * 1e3
+        t_bytes = nbytes / peaks["hbm"] * 1e3
+        iters = 20 if rows <= 8 else 2
+        row = {"rows_per_expert": rows, "experts": e_n, "shared": 1,
+               "products": len(ws), "rel_max_err": err,
+               "ms": device_ms(loop, iters=iters, reps=3, warmup=2),
+               "plain_ms": device_ms(
+                   lambda: [ref.linear_ref(a, w, None) for a, w in ws],
+                   iters=iters, reps=3, warmup=2),
+               "library": "torch.bmm (f32, TF32 off) + torch.mm",
+               "library_ms": device_ms(library, iters=iters, reps=3,
+                                       warmup=2),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes,
+               "plan": {"up_gate": gemm.launch_plan(rows, d, f),
+                        "down": gemm.launch_plan(rows, f, d)}}
+        row["kernel_over_library"] = row["ms"] / row["library_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        cases[case] = row
+        check(err <= 5e-5, f"expert products against cuBLAS: {row}")
+        del x, h, hs, ws
+    x = torch.randn(LM_BATCH, LM_PROMPT, d, generator=gen, device="cuda")
+    ffn_ms = {s: device_ms(lambda s=s: moe.apply(spec, ffn, x, strategy=s,
+                                                 group_size=2048),
+                           iters=2, reps=2, warmup=1)
+              for s in ("dense", "gshard")}
+    row = {"phase": "deepseek3_experts", "limit": 5e-5, "cases": cases,
+           "moe_ffn_tokens": LM_BATCH * LM_PROMPT, "moe_ffn_ms": ffn_ms,
+           "gshard_capacity": moe.capacity(spec, 2048),
+           "dense_over_gshard": ffn_ms["dense"] / ffn_ms["gshard"],
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
+def _recorded_routes(moe, fn):
+    """Run ``fn`` with ``moe.route`` recording, per call, the selected
+    experts and the selection scores (on the CPU).  Returns (fn's result,
+    the records)."""
+    records, real = [], moe.route
+
+    def route(spec, params, x):
+        w, idx, probs = real(spec, params, x)
+        records.append((idx.cpu(), moe.selection_scores(
+            spec, params, probs).cpu()))
+        return w, idx, probs
+
+    moe.route = route
+    try:
+        return fn(), records
+    finally:
+        moe.route = real
+
+
+def _selection_diff(a, b, k):
+    """Where two runs' top-k selections differ as sets of experts: ``a``,
+    ``b`` = (idx (..., k), scores (..., E)).  Returns (a bool mask (...,)
+    of the differing tokens, their margins: the k-th minus the (k+1)-th
+    selection score, the larger of the two runs')."""
+    diff = (torch.sort(a[0], dim=-1).values
+            != torch.sort(b[0], dim=-1).values).any(-1)
+
+    def margin(scores):
+        top = torch.topk(scores[diff], k + 1, dim=-1).values
+        return top[:, k - 1] - top[:, k]
+    if not diff.any():
+        return diff, []
+    return diff, torch.maximum(margin(a[1]), margin(b[1])).tolist()
+
+
+def deepseek3_cross_check_phase(cfg, T, moe, params, seed):
+    """A prefill of one 200-token prompt (``dense``, as ``generate``) at
+    ``DEEPSEEK3_CHECK_BLOCKS`` (the dense block and one MoE block), card
+    against CPU on the card's own weights copied over: logits and each
+    block's ckv / krope caches (≤ 1e-4 relative), and the experts each
+    token selects.  A token whose selection differs is reported with the
+    margin between the k-th and (k+1)-th selection scores; it passes only
+    where that margin is ≤ 1e-5, and its logits are left out of the
+    comparison (the MoE block is the cut's last: no other token reads its
+    output).  Emits ``deepseek3_cross_check``."""
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.models.transformer import tree_map
+    cut = lm_cut(cfg, DEEPSEEK3_CHECK_BLOCKS)
+    gpu = {**params, "stages": [
+        tuple(tree_map(lambda a, r=st.repeat: a[:r], u) for u in sp)
+        for st, sp in zip(cut.stages, params["stages"])]}
+    cpu = tree_map(lambda a: a.cpu(), gpu)
+    toks = torch.randint(0, cfg.vocab_size, (1, 200),
+                         generator=torch.Generator().manual_seed(seed))
+    ((lg_gpu, c_gpu), r_gpu), gpu_s = _timed(lambda: _recorded_routes(
+        moe, lambda: T.prefill(cut, gpu, toks.cuda(), cache_len=200,
+                               moe_strategy="dense")))
+    t0 = time.perf_counter()
+    (lg_cpu, c_cpu), r_cpu = _recorded_routes(moe, lambda: T.prefill(
+        cut, cpu, toks, cache_len=200, moe_strategy="dense"))
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    check(bool(torch.isfinite(lg_cpu).all()), "CPU logits not finite")
+    check(len(r_gpu) == len(r_cpu) == 1, f"{len(r_gpu)} routes recorded")
+    diff, margins = _selection_diff(r_gpu[0], r_cpu[0],
+                                    cfg.stages[1].unit[0].ffn.top_k)
+    keep = ~diff[0]
+    errs = {"logits": rel_err(lg_gpu[0][keep.cuda()], lg_cpu[0][keep])}
+    for si in range(len(cut.stages)):
+        for name in ("ckv", "krope"):
+            errs[f"{name}{si}"] = rel_err(c_gpu[si][0][name],
+                                          c_cpu[si][0][name])
+    emit({"phase": "deepseek3_cross_check", "blocks": cut.num_layers,
+          "prompt": 200, "rel_max_err": errs, "limit": 1e-4,
+          "selections": int(diff.numel()),
+          "selections_differing": int(diff.sum()),
+          "differing_positions": diff[0].nonzero().flatten().tolist(),
+          "differing_margins": margins, "margin_limit": 1e-5,
+          "gpu_s": gpu_s, "cpu_s": cpu_s})
+    check(all(mg <= 1e-5 for mg in margins),
+          f"card and CPU select other experts at margins {margins}")
+    for name, err in errs.items():
+        check(err <= 1e-4, f"deepseek3 card vs CPU prefill {name}: relative "
+              f"error {err}")
+
+
+def deepseek3_decode_consistency_phase(cfg, T, moe, params, prompts, toks):
+    """Teacher-forced decode (gshard, 8 capacity rows an expert) of the
+    generated tokens against one ``dense`` card forward over prompt + all
+    but the last of them (≤ 1e-4 relative), and each decode step's expert
+    selections against the forward's at the same positions.  A differing
+    selection passes only at a margin ≤ 1e-5 (as in the cross check), and
+    the logits are compared at the steps before the first one (a MoE
+    block's output reaches later positions through the next block's
+    attention).  Greedy agreement is reported."""
+    plen, steps = prompts.shape[1], toks.shape[1] - 1
+    logits, caches = T.prefill(cfg, params, prompts,
+                               cache_len=plen + toks.shape[1],
+                               moe_strategy="dense")
+    last = logits[:, -1].clone()
+    del logits
+
+    def decode():
+        c, out = caches, []
+        for i in range(steps):
+            lg, c = T.decode_step(cfg, params, toks[:, i:i + 1], c,
+                                  pos=plen + i)
+            out.append(lg)
+        check(all(bool(torch.isfinite(c_[n].float()).all())
+                  for st in c for c_ in st for n in c_),
+              "decode states not finite")
+        return torch.cat(out, dim=1)
+
+    dec, r_dec = _recorded_routes(moe, decode)
+    del caches
+    (full, _), r_full = _recorded_routes(moe, lambda: T.forward(
+        cfg, params, torch.cat([prompts, toks[:, :steps]], 1),
+        moe_strategy="dense"))
+    moe_blocks = len(r_full)
+    check(len(r_dec) == moe_blocks * steps, f"{len(r_dec)} decode routes")
+    first_diff, margins, differing = steps, [], 0
+    for i in range(steps):
+        for j in range(moe_blocks):
+            # a decode step routes its B tokens as one gshard group
+            idx_d, sc_d = (a.reshape(prompts.shape[0], -1)
+                           for a in r_dec[i * moe_blocks + j])
+            idx_f, sc_f = r_full[j]
+            diff, mg = _selection_diff(
+                (idx_d, sc_d), (idx_f[:, plen + i], sc_f[:, plen + i]),
+                cfg.stages[1].unit[0].ffn.top_k)
+            if diff.any():
+                first_diff = min(first_diff, i)
+                margins += mg
+                differing += int(diff.sum())
+    err = (rel_err(dec[:, :first_diff], full[:, plen:plen + first_diff])
+           if first_diff else 0.0)
+    first = rel_err(last, full[:, plen - 1])
+    agree = float((dec.argmax(-1) == toks[:, 1:]).float().mean())
+    emit({"phase": "deepseek3_decode_consistency", "length": plen + steps,
+          "rel_max_err": err, "prefill_last_rel_err": first,
+          "limit": 1e-4, "greedy_agreement": agree,
+          "selections": prompts.shape[0] * steps * moe_blocks,
+          "selections_differing": differing,
+          "steps_compared": first_diff, "differing_margins": margins,
+          "margin_limit": 1e-5})
+    check(all(mg <= 1e-5 for mg in margins),
+          f"decode and forward select other experts at margins {margins}")
+    check(err <= 1e-4 and first <= 1e-4,
+          f"decode vs forward logits: relative error {err}, {first}")
+
+
+def deepseek3_phase(peaks, kernels, sass):
+    """The MoE serving path at DeepSeek-V3's published widths (d 7168, 128
+    MLA heads, q-LoRA 1536, a kv latent of 512 and a shared RoPE key of
+    64, nope 128, v 128, dense MLP d_ff 18432, routed and shared experts
+    d_ff 2048, an untied head of 129280, a sigmoid router with a selection
+    bias, top-8, ``norm_topk``, scale 2.5, one shared expert), after the
+    minicpm3 phase and before the video phase.  Cut for the card's memory
+    (a MoE block's 256 routed experts are 45.1 GB of f32, and their
+    prepared halves twice that): 32 of the 256 routed experts, 1 dense + 2
+    MoE blocks of 3 + 58, no MTP head (serving never reads it) — 22.9 GB
+    of weights and 30.9 GB of halves.  The prefill's attention runs the
+    kernel's (192, 128) instance; the MoE FFN dispatches ``dense`` in the
+    prefill and ``gshard`` in the decode, as the JAX package's
+    ``generate``.  Budget ``DEEPSEEK3_BUDGET_S``; the weights (5.72 B
+    values) are drawn on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer as T
+    t_phase = time.perf_counter()
+    cfg = deepseek3_cut(configs.get("deepseek-v3-671b"))
+    attn, products = deepseek3_kernel_phase(fa, ref, gemm, peaks, cfg, sass)
+    params, weight_bytes, prepared = lm_params_phase(cfg, serve, T,
+                                                     SEED + 110)
+    experts = deepseek3_experts_phase(gemm, ref, moe, peaks, cfg, params)
+    deepseek3_cross_check_phase(cfg, T, moe, params, SEED + 112)
+    m = cfg.stages[0].unit[0].mixer
+    cache_len = LM_PROMPT + LM_GEN
+    prompts, toks, launches, row = attn_lm_generate_phase(
+        cfg, serve, params, ops, (LM_BATCH, LM_PROMPT, LM_GEN), SEED + 113,
+        "deepseek3", weight_bytes=weight_bytes, prepared_bytes=prepared,
+        mla_cache_bytes=4 * cfg.num_layers * LM_BATCH * cache_len * (
+            m.kv_lora_rank + m.rope_head_dim),
+        blocks_per_stage=list(DEEPSEEK3_BLOCKS),
+        routed_experts=DEEPSEEK3_EXPERTS)
+    deepseek3_decode_consistency_phase(cfg, T, moe, params, prompts, toks)
+    profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
+                                    "deepseek3",
+                                    prefill_kw={"moe_strategy": "dense"})
+    kernels["flash_attention"]["deepseek3"] = attn
+    kernels["flash_attention"]["deepseek3_launches"] = launches[
+        "flash_attention"]
+    kernels["linear"]["deepseek3"] = {
+        **products, "experts": experts["cases"],
+        "moe_ffn_ms": experts["moe_ffn_ms"],
+        "profile_prefill_linear_ms": profile["prefill"]["ms"]["linear"]}
+    kernels["linear"]["deepseek3_launches"] = launches["linear"]
+    del params, prompts, toks
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "deepseek3", "seconds": seconds,
+          "budget_s": DEEPSEEK3_BUDGET_S, "launches": launches,
+          "peak_device_bytes": row["peak_device_bytes"]})
+    check(seconds <= DEEPSEEK3_BUDGET_S,
+          f"the deepseek3 phase took {seconds} s of its {DEEPSEEK3_BUDGET_S}")
 
 
 SERVE_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.18),tau=0.3"
@@ -4234,6 +4653,7 @@ def main():
     from repro_torch import configs
     from repro_torch.core import cuda_graphs, diffusion
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref, ssd
+    from repro_torch.kernels.products import lm_cut
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import tree_map
@@ -4320,13 +4740,16 @@ def main():
     gemm.release()            # the prepared halves hold the DiT weights
     gc.collect()              # the DiT weights go before the Mamba phases
 
-    cfg = configs.get("mamba2-1.3b")
+    cfg = lm_cut(configs.get("mamba2-1.3b"), MAMBA2_BLOCKS)
     t0 = time.perf_counter()
-    params_cpu = serve.init_params(torch.Generator().manual_seed(SEED), cfg,
-                                   device="cpu")
-    params_gpu = tree_map(lambda a: a.cuda(), params_cpu)
+    # drawn on the card (a CPU draw was the slow part of this set-up),
+    # copied to the CPU for the cross check
+    params_gpu = serve.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    params_cpu = tree_map(lambda a: a.cpu(), params_gpu)
     emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
-          "d_model": cfg.d_model, "seconds": time.perf_counter() - t0,
+          "d_model": cfg.d_model, "drawn_on": "cuda",
+          "seconds": time.perf_counter() - t0,
           "count": sum(a.numel() for a in tree_leaves(params_cpu))})
     lm_cross_check_phase(cfg, T, params_cpu, params_gpu)
     del params_cpu
@@ -4342,6 +4765,7 @@ def main():
     qwen3_phase(peaks, kernels, sass)
     gemma2_phase(peaks, kernels, sass)
     minicpm3_phase(peaks, kernels, sass)
+    deepseek3_phase(peaks, kernels, sass)
     video_phase(peaks, kernels)
     torch.cuda.empty_cache()  # the video weights go before the audio phase
     audio_phase(peaks, kernels)

@@ -1,5 +1,5 @@
-"""Configuration schema: the spec dataclasses of the DiT, Mamba-2 and
-attention-LM families.
+"""Configuration schema: the spec dataclasses of the DiT, Mamba-2,
+attention-LM and mixture-of-experts families.
 
 A copy of the JAX package's schema, cut to the specs the port runs: a
 `ModelConfig` is a sequence of *stages*, each a repeated *unit* of block
@@ -75,6 +75,28 @@ class MLPSpec:
 
 
 @dataclass(frozen=True)
+class MoESpec:
+    """Routed mixture-of-experts FFN with optional shared experts."""
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff: int = 2048                     # per routed expert
+    num_shared: int = 0
+    d_ff_shared: int = 0
+    activation: str = "silu"
+    gated: bool = True
+    router: str = "softmax"              # "softmax" | "sigmoid" (dsv3)
+    router_scale: float = 1.0            # dsv3 routed_scaling_factor 2.5
+    aux_loss_weight: float = 0.0
+    norm_topk: bool = True               # renormalize top-k weights
+    # expert capacity factor of gshard dispatch; 0 reads as 1.25
+    # (``moe.capacity``).  The strategy is ``moe.apply``'s argument.
+    capacity_factor: float = 0.0
+
+
+FFNSpec = Union[MLPSpec, MoESpec]
+
+
+@dataclass(frozen=True)
 class BlockSpec:
     """One residual block: (norm → mixer → +res) [→ (norm → cross → +res)]
     [→ (norm → ffn → +res)].  ``ffn=None`` is used for Mamba-2 blocks,
@@ -82,7 +104,7 @@ class BlockSpec:
     conditioning memory (OpenSora's text)."""
     mixer: Optional[MixerSpec] = None
     cross: Optional[AttentionSpec] = None
-    ffn: Optional[MLPSpec] = None
+    ffn: Optional[FFNSpec] = None
     norm: str = "rmsnorm"                # "rmsnorm" | "layernorm"
     post_norm: bool = False              # gemma2: extra norm after branch
     adaln: bool = False                  # DiT-style adaLN-zero conditioning
@@ -135,6 +157,9 @@ class ModelConfig:
     max_seq_len: int = 8192
     logit_softcap: Optional[float] = None   # final logit soft-capping
     embed_scale: bool = False            # scale embeddings by sqrt(d)
+    # DeepSeek-style multi-token prediction depth (an extra training head;
+    # serving never reads it)
+    mtp_depth: int = 0
     task: str = "lm"                     # "lm" | "diffusion"
     latent_shape: Tuple[int, ...] = ()   # diffusion: per-sample latent shape
     patch: int = 1                       # diffusion image patch size

@@ -6,6 +6,7 @@ from __future__ import annotations
 import importlib
 
 REGISTRY = {
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "dit-xl-256": "repro_torch.configs.dit_xl",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",

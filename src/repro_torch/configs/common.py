@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import AttentionSpec, ModelConfig, SSMSpec, Stage
+from repro_torch.config import (AttentionSpec, ModelConfig, MoESpec, SSMSpec,
+                                Stage)
 
 
 def _shrink_mixer(m, d_model: int):
@@ -28,6 +29,11 @@ def _shrink_mixer(m, d_model: int):
 def _shrink_ffn(f, d_model: int):
     if f is None:
         return None
+    if isinstance(f, MoESpec):
+        return dataclasses.replace(
+            f, num_experts=min(4, f.num_experts), top_k=min(2, f.top_k),
+            d_ff=max(32, d_model), num_shared=min(1, f.num_shared),
+            d_ff_shared=(max(32, d_model) if f.num_shared else 0))
     return dataclasses.replace(f, d_ff=2 * d_model)
 
 
@@ -44,8 +50,8 @@ def _shrink_latent(shape):
 def smoke_variant(cfg: ModelConfig, d_model: int = 128,
                   unit_repeats: int = 1) -> ModelConfig:
     """Reduced same-family variant: one unit per stage repeated at most
-    ``unit_repeats`` times, d_model ≤ 512, 8×8 image latents, a memory of
-    at most 64 wide."""
+    ``unit_repeats`` times, d_model ≤ 512, ≤ 4 experts with top-k ≤ 2, 8×8
+    image latents, a memory of at most 64 wide."""
     if d_model > 512:
         raise ValueError(f"smoke d_model must be <= 512, got {d_model}")
     stages = []

@@ -25,6 +25,13 @@ rate: 3xTF32 in f32, bf16 as it is), its plain version, ``flex_attention``
 (the one PyTorch call with a softcap, compiled: ~30 s of compile a case;
 Inductor and Triton cache under ``build/``) and SDPA without the softcap
 (another function).  Each kernel is held against its plain version first.
+It also times DeepSeek-V3's MLA prefill — q and k (4, 1024, 128, 192), v
+(4, 1024, 128, 128), f32, causal — on the instance with a value head dim
+of its own (``attn_fwd_wide<float, 128>``: 16 output n-tiles) against the
+design without one, the same inputs on V zero-padded to 192 through the
+D 256 instance (32 output n-tiles, half of them on zeros), in the order
+own, padded, padded, own, with both instances' registers and stack
+(``cuobjdump -res-usage``).
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ WIDE_SHAPE, WIDE_WINDOW, WIDE_SOFTCAP = (2, 4352, 16, 8, 256), 4096, 50.0
 # (NVIDIA's data sheet): 3xTF32 runs at the TF32 rate, bf16 at its own
 PEAK = {torch.float32: 495e12, torch.bfloat16: 989e12}
 HBM = 3.35e12
+# DeepSeek-V3's MLA prefill in chip_smoke.py: (B, L, H, D, Dv), causal
+MLA_SHAPE = (4, 1024, 128, 192, 128)
 METHODS = ("per_call_ms", "device_ms")
 TOLS = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 
@@ -211,13 +220,65 @@ def wide(dtype, gen: torch.Generator) -> dict:
     return out
 
 
+def _resources(path: str, fragment: str) -> dict:
+    """Registers, stack and shared memory of each kernel in the library at
+    ``path`` whose name holds ``fragment`` (``cuobjdump -res-usage``)."""
+    import re
+    import subprocess
+    from torch.utils.cpp_extension import CUDA_HOME
+    res = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"),
+                          "-res-usage", path], capture_output=True,
+                         text=True, check=True).stdout
+    return {name: {k.lower(): int(v) for k, v in re.findall(
+        r"(REG|STACK|SHARED|LOCAL):(\d+)", usage)}
+        for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)",
+                                      res) if fragment in name}
+
+
+def mla(gen: torch.Generator, path: str) -> dict:
+    """The (192, 128) instance at ``MLA_SHAPE`` against the same inputs on
+    V zero-padded to D (the D 256 instance), each held against the plain
+    version, timed in turns (``timing.device_ms``) beside the bound."""
+    import torch.nn.functional as F
+    b, l, h, d, dv = MLA_SHAPE
+    q, k = (torch.randn(b, l, h, d, generator=gen).cuda() for _ in range(2))
+    v = torch.randn(b, l, h, dv, generator=gen).cuda()
+    vp = F.pad(v, (0, d - dv))
+    calls = {"own": lambda: fa.flash_attention_cuda(q, k, v),
+             "padded_v": lambda: fa.flash_attention_cuda(q, k, vp)}
+    want = ref.flash_attention_ref(q, k, v)
+    row = {}
+    for name, fn in calls.items():
+        got = fn()[..., :dv]
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=5e-5, rtol=5e-5):
+            raise RuntimeError(f"(192, 128) {name} vs plain: max abs err "
+                               f"{err}")
+        row[name] = {"max_abs_err": err, "ms": []}
+    del want, got
+    for name in ("own", "padded_v", "padded_v", "own"):
+        row[name]["ms"].append(timing.device_ms(calls[name], iters=10))
+    pairs = l * (l + 1) // 2
+    flops = 2 * b * h * (d + dv) * pairs
+    nbytes = 4 * b * l * h * (2 * d + 2 * dv)
+    t_ops, t_bytes = 3 * flops / PEAK[torch.float32], nbytes / HBM
+    row.update(shape=list(MLA_SHAPE), flops=flops, bytes=nbytes,
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               padded_over_own=statistics.mean(row["padded_v"]["ms"])
+               / statistics.mean(row["own"]["ms"]),
+               instances=_resources(path, "attn_fwd_wideIf"))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("baseline", nargs="?",
                     help="the earlier flash_attention.cu")
     ap.add_argument("--wide", action="store_true",
                     help="time the head-dim-256 instance at Gemma-2's "
-                         "prefill beside flex_attention")
+                         "prefill beside flex_attention, and the (192, 128) "
+                         "instance against V padded to 192")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("attention_ab needs a CUDA card")
@@ -228,10 +289,12 @@ def main(argv=None) -> int:
     card = timing.card()
     print(card, flush=True)
     if args.wide:
-        fa.build()
+        path = fa.build()["path"]
         gen = torch.Generator().manual_seed(0)
         result = {"card": card, "shape": list(WIDE_SHAPE),
-                  "softcap": WIDE_SOFTCAP, "causal": True}
+                  "softcap": WIDE_SOFTCAP, "causal": True,
+                  "mla": mla(gen, path)}
+        print(json.dumps(result), flush=True)
         for dtype in TOLS:
             result[str(dtype)[6:]] = wide(dtype, gen)
             print(json.dumps(result), flush=True)

@@ -533,6 +533,17 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
 // - Everything else is attn_fwd's: the 3xTF32 split, the masks and the
 //   tiles they skip, the online softmax in base 2, P straight from the
 //   score registers, a fixed order of every sum (bitwise repeatable).
+// - V may have a head dim Dv of its own, Dv <= D (DeepSeek-V3's MLA: q and
+//   k carry nope + rope = 192 columns, v 128).  V is staged at Dv columns
+//   (its columns Dv..DKW-1 are cleared once with Q and the stages and
+//   never written: K and V keep their halves of each stage) and O written
+//   at Dv.  An instance's DVW (n-tiles of the output) defaults to DKW; the
+//   f32 instance with DVW 128 takes any Dv <= 128 and keeps 16 output
+//   n-tiles where the DKW one would run 32, 16 of them on zeros, and half
+//   the output accumulator.  At DeepSeek-V3's prefill (B 4, L 1024, H
+//   128, causal) the band is 1.72e11 flops, 5.16e11 as 3xTF32, 1.04 ms
+//   at 495 TFLOP/s, against 0.40 ms for q/k/v/o's bytes: bound by
+//   operations.
 constexpr int BQW = 128;                      // query rows per block
 constexpr int BKW = 16;                       // keys per K/V tile
 constexpr int THREADS_W = 32 * (BQW / 16);
@@ -573,12 +584,14 @@ __device__ __forceinline__ void stage_wide(T* dst, const T* src, long long rs,
   }
 }
 
-template <typename T>
+// DVW: the output's n-tiles (DVW / 8), at least V's head dim Dv.
+template <typename T, int DVW = DKW>
 __global__ void __launch_bounds__(THREADS_W, 1) attn_fwd_wide(const Args a) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int STR = DKW + (F32 ? 4 : 8);     // shared row stride
   constexpr int KS = F32 ? DKW / 8 : DKW / 16;  // k-steps of Q·Kᵀ
-  constexpr int NO = DKW / 8;                   // n-tiles of the output
+  constexpr int NO = DVW / 8;                   // n-tiles of the output
+  static_assert(DVW <= DKW && DVW % (F32 ? 8 : 16) == 0, "DVW");
   constexpr int NS = BKW / 8;                   // n-tiles of a score tile
   constexpr int QSZ = BQW * STR;                // the Q tile
   constexpr int TILE = 2 * BKW * STR;           // one K/V stage
@@ -597,7 +610,8 @@ __global__ void __launch_bounds__(THREADS_W, 1) attn_fwd_wide(const Args a) {
   const T* kp = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
   const T* vp = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
 
-  // Zero Q and both stages once: the padding columns are never written.
+  // Zero Q and both stages once: the padding columns (D..DKW-1 of Q and K,
+  // Dv..DKW-1 of V) are never written.
   for (int i = threadIdx.x; i < (QSZ + 2 * TILE) * (int)sizeof(T) / 16;
        i += THREADS_W)
     reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
@@ -615,7 +629,7 @@ __global__ void __launch_bounds__(THREADS_W, 1) attn_fwd_wide(const Args a) {
   stage_wide<T, STR>(sq, qp, a.sql, q0, a.Lq, BQW, a.D, vec);
   if (ntiles > 0) {
     stage_wide<T, STR>(skv, kp, a.skl, k_begin, a.Lk, BKW, a.D, vec);
-    stage_wide<T, STR>(skv + BKW * STR, vp, a.svl, k_begin, a.Lk, BKW, a.D,
+    stage_wide<T, STR>(skv + BKW * STR, vp, a.svl, k_begin, a.Lk, BKW, a.Dv,
                        vec);
   }
   cp_commit();
@@ -637,7 +651,7 @@ __global__ void __launch_bounds__(THREADS_W, 1) attn_fwd_wide(const Args a) {
       T* nxt = skv + ((it + 1) & 1) * TILE;
       stage_wide<T, STR>(nxt, kp, a.skl, kt + BKW, a.Lk, BKW, a.D, vec);
       stage_wide<T, STR>(nxt + BKW * STR, vp, a.svl, kt + BKW, a.Lk, BKW,
-                         a.D, vec);
+                         a.Dv, vec);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -801,22 +815,22 @@ __global__ void __launch_bounds__(THREADS_W, 1) attn_fwd_wide(const Args a) {
     const int c = n * 8 + 2 * t;
     if (row0 < a.Lq) {
       T* p = ob + row0 * a.sol + c;
-      if (c < a.D) store(p, o[n][0] / d0);
-      if (c + 1 < a.D) store(p + 1, o[n][1] / d0);
+      if (c < a.Dv) store(p, o[n][0] / d0);
+      if (c + 1 < a.Dv) store(p + 1, o[n][1] / d0);
     }
     if (row1 < a.Lq) {
       T* p = ob + row1 * a.sol + c;
-      if (c < a.D) store(p, o[n][2] / d1);
-      if (c + 1 < a.D) store(p + 1, o[n][3] / d1);
+      if (c < a.Dv) store(p, o[n][2] / d1);
+      if (c + 1 < a.Dv) store(p + 1, o[n][3] / d1);
     }
   }
 }
 
-template <typename T>
+template <typename T, int DVW = DKW>
 cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
   constexpr int STR = DKW + (std::is_same<T, float>::value ? 4 : 8);
   const int smem = (int)((BQW + 2 * 2 * BKW) * STR * sizeof(T));
-  const auto kernel = attn_fwd_wide<T>;
+  const auto kernel = attn_fwd_wide<T, DVW>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -843,15 +857,18 @@ extern "C" int flash_attention_fwd(
     long long svl, long long svh, long long sob, long long sol, long long soh,
     float scale, int causal, int window, float softcap, int vec,
     void* stream) {
-  // the wide instance takes one head dim: Dv = D above 128
-  if (D < 1 || D > DKW || Dv < 1 || Dv > D || (D > 128 && Dv != D) ||
-      KV < 1 || H % KV != 0 || (long long)B * H > 2147483647LL ||
-      (Lq + BQ - 1) / BQ > 65535)
+  if (D < 1 || D > DKW || Dv < 1 || Dv > D || KV < 1 || H % KV != 0 ||
+      (long long)B * H > 2147483647LL || (Lq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q,   k,   v,   o,   B,   Lq,  Lk,    H,      KV,     D,
                Dv,  sqb, sql, sqh, skb, skl, skh,   svb,    svl,    svh,
                sob, sol, soh, scale, causal, window, softcap, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // f32 with Dv <= 128 (DeepSeek-V3's MLA: 192, 128) takes the instance
+  // whose output has 16 n-tiles; any other Dv < D above 128 the DKW one,
+  // with V's columns Dv..DKW-1 zero
+  if (D > 128 && dtype == 0 && Dv <= 128)
+    return (int)launch_wide<float, 128>(a, s);
   if (D > 128 && dtype == 0) return (int)launch_wide<float>(a, s);
   if (D > 128 && dtype == 1) return (int)launch_wide<__nv_bfloat16>(a, s);
   if (dtype == 0) return (int)launch_f32(a, s);

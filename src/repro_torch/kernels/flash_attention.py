@@ -14,8 +14,9 @@ every row is 16-byte aligned, and with plain loads otherwise (``plan``).
 Head dims up to 128 take ``attn_fwd`` (Q fragments in registers, 64 query
 rows a block); 129..256 take ``attn_fwd_wide`` (Q in shared memory, 128
 query rows a block).  V may have a head dim of its own, Dv ≤ D (MLA: q and
-k at nope + rope = 96, v at 64), in ``attn_fwd`` only: an instance built
-for (96, 64), else the (D, D) instance with V's columns past Dv zero.
+k at nope + rope, v narrower): MiniCPM3's (96, 64) and DeepSeek-V3's (192,
+128) each have an f32 instance whose output n-tiles follow Dv; any other
+pair takes the instance for D with V's columns past Dv zero.
 """
 from __future__ import annotations
 
@@ -111,9 +112,6 @@ def _check(q, k, v, window, softcap, scale):
                          f"1..{MAX_HEAD_DIM}")
     if not 1 <= dv <= d:
         raise ValueError(f"value head dim {dv} outside 1..{d}, the key's")
-    if dv != d and d > 128:
-        raise ValueError(f"value head dim {dv} != head dim {d}: the wide "
-                         "instance (head dims 129..256) takes one head dim")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads are not a multiple of {kv} KV "
                          "heads")
@@ -146,7 +144,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          softcap: Optional[float] = None,
                          scale: Optional[float] = None):
     """q: (B, Lq, H, D), k: (B, Lk, KV, D), v: (B, Lk, KV, Dv) with Dv ≤ D
-    (Dv = D above 128) CUDA tensors of one dtype (float32 or bfloat16), any
+    CUDA tensors of one dtype (float32 or bfloat16), any
     strides with a unit last-dim stride → (B, Lq, H, Dv) in q's dtype,
     computed in f32; ``scale`` defaults to 1/√D."""
     _check(q, k, v, window, softcap, scale)

@@ -32,7 +32,8 @@ and M = 4 (a decode step of 4 sequences), and sums each width over one
 ``generate`` of 32 tokens: one prefill and 31 decode steps.
 ``--model gemma2`` does the same for Gemma-2-9B's (12 blocks; M = 8704,
 2 × 4352 tokens, and M = 2) and ``--model minicpm3`` for MiniCPM3-4B's
-(62 blocks; M = 4096 and 4; kv_b in the prefill only).  Each (K, N) also
+(16 of 62 blocks, as ``chip_smoke.py`` runs it since the deepseek3
+phase; M = 4096 and 4; kv_b in the prefill only).  Each (K, N) also
 names the width its plan takes now and the built width (``gemm.TOKEN_BN``)
 that wins the sum.
 
@@ -103,7 +104,7 @@ Q_BLOCKS, Q_PREFILL, Q_DECODE, Q_STEPS = 8, 4 * 1024, 4, 31
 # (tests/test_torch_mla.py holds them to chip_smoke.py's constants)
 LM_TILES = {"qwen3": ("qwen3-14b", Q_BLOCKS, Q_PREFILL, Q_DECODE),
             "gemma2": ("gemma2-9b", 12, 2 * 4352, 2),
-            "minicpm3": ("minicpm3-4b", 62, 4 * 1024, 4)}
+            "minicpm3": ("minicpm3-4b", 16, 4 * 1024, 4)}
 # OpenSora-v1.2's text memory, in tokens
 V_MEM = 300
 K_SWEEP = (1152, 1536, 4608, 6144, 17408)

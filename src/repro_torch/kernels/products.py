@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, MoESpec
+from repro_torch.models import moe
 
 
 def gemms(cfg: ModelConfig, batch: int, mem_len: int = 0) -> list:
@@ -35,16 +36,30 @@ def gemms(cfg: ModelConfig, batch: int, mem_len: int = 0) -> list:
             (rows, d, 2 * d, True, 1, r), (toks, d, tok_dim, True, 1, t)]
 
 
-def lm_cut(cfg: ModelConfig, blocks: int) -> ModelConfig:
-    """``cfg`` at its published widths with its one stage cut to
-    ``blocks`` blocks, a whole number of its unit (Gemma-2's unit is a
+def lm_cut(cfg: ModelConfig, blocks) -> ModelConfig:
+    """``cfg`` at its published widths with its stages cut to ``blocks``
+    blocks: one count for a one-stage config, else a count per stage (for
+    example ``(1, 2)``: DeepSeek-V3's first dense block and two MoE
+    blocks), each a whole number of its stage's unit (Gemma-2's unit is a
     local and a global block)."""
-    (st,) = cfg.stages
-    if blocks < 1 or blocks % len(st.unit):
-        raise ValueError(f"{blocks} blocks is not a whole number of "
-                         f"{cfg.name}'s {len(st.unit)}-block unit")
-    return cfg.replace(stages=(dataclasses.replace(
-        st, repeat=blocks // len(st.unit)),))
+    counts = (blocks,) if isinstance(blocks, int) else tuple(blocks)
+    if len(counts) != len(cfg.stages):
+        raise ValueError(f"{len(counts)} block counts for {cfg.name}'s "
+                         f"{len(cfg.stages)} stages")
+    stages = []
+    for n, st in zip(counts, cfg.stages):
+        if n < 1 or n % len(st.unit):
+            raise ValueError(f"{n} blocks is not a whole number of "
+                             f"{cfg.name}'s {len(st.unit)}-block unit")
+        stages.append(dataclasses.replace(st, repeat=n // len(st.unit)))
+    return cfg.replace(stages=tuple(stages))
+
+
+def _one(cfg: ModelConfig, what: str, widths: set):
+    if len(widths) != 1:
+        raise ValueError(f"{cfg.name}'s blocks differ in width ({what}): "
+                         f"{widths}")
+    return next(iter(widths))
 
 
 def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
@@ -55,16 +70,38 @@ def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
     q_lora) and q_b (q_lora → H · (nope + rope)), or a full-rank q, kv_a
     (d → kv_lora + rope), kv_b (kv_lora → H · (nope + v)) in a prefill
     only (a ``decode`` step folds it into the attention einsums), o (H · v
-    → d) and the MLP.  Every block of the stage has the same widths
-    (Gemma-2's differ only in the window)."""
-    (st,) = cfg.stages
-    widths = {(dataclasses.replace(b.mixer, window=None), b.ffn.d_ff)
-              for b in st.unit}
-    if len(widths) != 1:
-        raise ValueError(f"{cfg.name}'s blocks differ in width: {widths}")
-    ((m, ff),) = widths
+    → d) and the MLP.  Every block has the same mixer widths (Gemma-2's
+    differ only in the window), and the MLP blocks one d_ff.  The MoE
+    blocks (DeepSeek-V3) add the router (d → E), every routed expert's
+    up and gate (d → f) and down over each expert's rows as ``generate``
+    hands them over — all ``rows`` in a prefill (``dense`` dispatch), its
+    gshard capacity rows in a ``decode`` step — and the shared expert's
+    over ``rows``."""
+    specs = [b for _, _, _, b in cfg.blocks()]
+    m = _one(cfg, "mixer", {dataclasses.replace(b.mixer, window=None)
+                                  for b in specs})
+    mlps = [b.ffn for b in specs if not isinstance(b.ffn, MoESpec)]
+    moes = [b.ffn for b in specs if isinstance(b.ffn, MoESpec)]
     d, blocks = cfg.d_model, cfg.num_layers
-    mlp = [("up_gate", rows, d, ff, 2 * blocks), ("down", rows, ff, d, blocks)]
+    mlp = []
+    if mlps:
+        ff = _one(cfg, "d_ff", {f.d_ff for f in mlps})
+        mlp = [("up_gate", rows, d, ff, 2 * len(mlps)),
+               ("down", rows, ff, d, len(mlps))]
+    if moes:
+        e = _one(cfg, "experts", set(moes))
+        group = min(2048, rows)
+        expert_rows = (rows // group * moe.capacity(e, group) if decode
+                       else rows)
+        fs = e.d_ff_shared or e.d_ff * e.num_shared
+        n = len(moes)
+        mlp += [("router", rows, d, e.num_experts, n),
+                ("expert_up_gate", expert_rows, d, e.d_ff,
+                 2 * e.num_experts * n),
+                ("expert_down", expert_rows, e.d_ff, d, e.num_experts * n)]
+        if e.num_shared:
+            mlp += [("shared_up_gate", rows, d, fs, 2 * n),
+                    ("shared_down", rows, fs, d, n)]
     if m.kind == "mla":
         q = ([("q_a", rows, d, m.q_lora_rank, blocks),
               ("q_b", rows, m.q_lora_rank, m.q_dim, blocks)]

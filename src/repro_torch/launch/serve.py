@@ -8,6 +8,8 @@
         --device cpu --prompt-len 24
     python -m repro_torch.launch.serve --arch minicpm3-4b --variant smoke \
         --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+        --variant smoke --device cpu
 
 The weights are random, drawn from ``--seed``; the prompts are uniform
 random tokens from the same seed.  Runs on ``cuda`` unless ``--device cpu``.
@@ -58,7 +60,9 @@ def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
     model has none).  Sampling (``temperature > 0``) needs an explicit
     ``torch.Generator``.  ``on_phase``, if given, is called with
     ``"prefill"`` once the prompts are prefilled and the first token is
-    picked, and with ``"decode"`` at the end."""
+    picked, and with ``"decode"`` at the end.  As in the JAX package, a
+    mixture-of-experts FFN prefills with ``dense`` dispatch (no token
+    dropped) and decodes with ``gshard`` (``decode_step``'s default)."""
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"parameters are on {params['embed'].device}, "
@@ -68,7 +72,8 @@ def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
     prompts = prompts.to(params["embed"].device)
     plen = prompts.shape[1]
     logits, caches = T.prefill(cfg, params, prompts,
-                               cache_len=cache_len or plen + gen_len)
+                               cache_len=cache_len or plen + gen_len,
+                               moe_strategy="dense")
     tok = _pick(logits[:, -1:], temperature, generator)
     if on_phase is not None:
         on_phase("prefill")

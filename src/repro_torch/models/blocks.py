@@ -5,7 +5,9 @@ The post-norms (Gemma-2) come before the branch output is recorded, so a
 cached branch is the post-normed one.  The mixer is self-attention (DiT,
 OpenSora's spatial / temporal attention, the attention LMs) or a Mamba-2
 SSD mixer; an LM's mixer carries a cache from a full-sequence pass into the
-one-token decode (a KV cache, or the SSD state).
+one-token decode (a KV cache, or the SSD state).  The FFN is an MLP or a
+mixture of experts (``moe_strategy``, ``moe_group_size``; its load-balance
+loss comes back with ``with_aux=True``).
 The cross branch (OpenSora) attends to a conditioning memory, with no
 adaLN modulation and no gate.
 
@@ -22,9 +24,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import BlockSpec, SSMSpec
+from repro_torch.config import BlockSpec, MoESpec, SSMSpec
 from repro_torch.kernels import ops
-from repro_torch.models import attention, layers as L, mlp, ssm
+from repro_torch.models import attention, layers as L, mlp, moe, ssm
 
 
 def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
@@ -44,7 +46,10 @@ def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
                                     cond_dim=cond_dim)
     if spec.ffn is not None:
         p["norm2"] = L.norm_init(spec.norm, d_model, dtype)
-        p["ffn"] = mlp.init(gen, spec.ffn, d_model, dtype)
+        if isinstance(spec.ffn, MoESpec):
+            p["ffn"] = moe.init(gen, spec.ffn, d_model, dtype)
+        else:
+            p["ffn"] = mlp.init(gen, spec.ffn, d_model, dtype)
         if spec.post_norm:
             p["post_norm2"] = L.norm_init(spec.norm, d_model, dtype)
     if spec.adaln:
@@ -91,20 +96,26 @@ def _mod_norm(x_norm, shift, scale):
 
 def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
           pos=None, cache=None, cond=None, skip=None, branch_cache=None,
-          memory=None, video_shape=None):
-    """Returns ``(x, branch_out, new_cache)``.
+          memory=None, video_shape=None, moe_strategy: str = "gshard",
+          moe_group_size: int = 2048, with_aux: bool = False):
+    """Returns ``(x, branch_out, new_cache)``, and the MoE load-balance loss
+    (an f32 scalar, 0 without a computed MoE FFN) as a fourth item when
+    ``with_aux``.
 
     branch_out holds the pre-residual, pre-gate outputs of the computed
     branches (the SmoothCache cache content).  new_cache is the mixer's
     cache: built by a full-sequence pass (``mode="full"``; attention's
     (k, v) at ``positions``), advanced by one token at position ``pos`` in
     ``mode="decode"`` from ``cache``.  ``memory`` (B, Lm, cond_dim) feeds
-    the cross branch; ``video_shape`` (T, S) the factorized attention."""
+    the cross branch; ``video_shape`` (T, S) the factorized attention.  A
+    MoE FFN dispatches by ``moe_strategy`` over groups of
+    ``moe_group_size`` tokens (``moe.apply``)."""
     skip = skip or {}
     branch_cache = branch_cache or {}
     mod = _modulation(spec, params, cond)
     branch_out = {}
     new_cache = None
+    aux = None
     types = dict(zip(spec.branch_names(), spec.branch_types()))
 
     if spec.mixer is not None:
@@ -154,7 +165,12 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
             h = L.apply_norm(spec.norm, params["norm2"], x)
             if mod is not None:
                 h = _mod_norm(h, mod[3], mod[4])
-            out = mlp.apply(spec.ffn, params["ffn"], h)
+            if isinstance(spec.ffn, MoESpec):
+                out, aux = moe.apply(spec.ffn, params["ffn"], h,
+                                     strategy=moe_strategy,
+                                     group_size=moe_group_size)
+            else:
+                out = mlp.apply(spec.ffn, params["ffn"], h)
             if spec.post_norm:
                 out = L.apply_norm(spec.norm, params["post_norm2"], out)
             branch_out["ffn"] = out
@@ -162,4 +178,8 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
             out = out * mod[5]
         x = x + out.to(x.dtype)
 
+    if with_aux:
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, branch_out, new_cache, aux
     return x, branch_out, new_cache

@@ -38,12 +38,13 @@ def init(gen: torch.Generator, spec: SSMSpec, d_model: int,
     lo, hi = spec.a_init_range
 
     def log_uniform(n, a, b):
-        u = torch.rand(n, generator=gen, dtype=torch.float32)
+        u = torch.rand(n, generator=gen, dtype=torch.float32,
+                       device=gen.device)
         return torch.exp(math.log(a) + u * (math.log(b) - math.log(a)))
 
     in_proj = L.dense_init(gen, d_model, in_dim, dtype)
     conv_w = (torch.randn(spec.d_conv, conv_ch, generator=gen,
-                          dtype=torch.float32)
+                          dtype=torch.float32, device=gen.device)
               / math.sqrt(spec.d_conv)).to(dtype)
     a = log_uniform(n_heads, lo, hi)
     # dt bias ~ softplus^{-1}(dt) for dt in [1e-3, 1e-1]

@@ -15,7 +15,10 @@ Entry points
 
 A state-cache (SSM) model decodes without positions; an attention model's
 KV caches need the cache length (``cache_len``) and each decode step its
-position (``pos``).
+position (``pos``).  A mixture-of-experts FFN dispatches by
+``moe_strategy`` (``"gshard"`` over groups of ``moe_group_size`` tokens,
+the default, or ``"dense"``); ``decode_step`` takes the default, as the
+JAX package's does.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import AttentionSpec, BlockSpec, ModelConfig
+from repro_torch.config import AttentionSpec, BlockSpec, ModelConfig, MoESpec
 from repro_torch.kernels import gemm
 from repro_torch.models import blocks, layers as L
 
@@ -71,26 +74,45 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                             for i in range(len(st.unit))))
     p["stages"] = stages
     p["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype)
+    if cfg.mtp_depth > 0 and cfg.task == "lm":
+        # DeepSeek-V3's multi-token prediction head, the JAX package's
+        # leaves: norm(h_t) ⊕ norm(emb_{t+1}) → proj → one block of the
+        # last spec.  Training reads it; serving never does.
+        d = cfg.d_model
+        p["mtp"] = {"h_norm": L.norm_init(cfg.norm, d, dtype),
+                    "e_norm": L.norm_init(cfg.norm, d, dtype),
+                    "proj": L.dense_init(gen, 2 * d, d, dtype),
+                    "block": blocks.init(gen, cfg.stages[-1].unit[-1], d,
+                                         dtype, cond_dim=cfg.cond_dim)}
     return p
 
 
 def token_weights(params):
     """The weights of the stack's token products (q/k/v/o of self- and
-    cross-attention, MLA's q-LoRA, kv latent and o, the MLP), one per
-    product as :func:`apply_stages` takes it: a block's weight as the view
-    ``a[r]`` of its stacked leaf."""
+    cross-attention, MLA's q-LoRA, kv latent and o, the MLP; a MoE FFN's
+    router, every routed expert's up, gate and down and the shared
+    expert's), one per product as :func:`apply_stages` takes it: a block's
+    weight as the view ``a[r]`` of its stacked leaf, a routed expert's as
+    ``a[r][e]``.  The MTP head, which serving never reads, is not among
+    them."""
     out = []
     names = {"mixer": ("wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
                        "wkv_b"),
              "cross": ("wq", "wk", "wv", "wo"),
-             "ffn": ("w_up", "w_gate", "w_down")}
+             "ffn": ("router", "w_up", "w_gate", "w_down"),
+             "shared": ("w_up", "w_gate", "w_down")}
     for stage in params["stages"]:
         for unit in stage:
+            groups = dict(unit)
+            groups["shared"] = unit.get("ffn", {}).get("shared", {})
             for group, keys in names.items():
                 for key in keys:
-                    a = unit.get(group, {}).get(key)
-                    if a is not None:
-                        out.extend(a[r] for r in range(a.shape[0]))
+                    a = groups.get(group, {}).get(key)
+                    if a is None:
+                        continue
+                    for r in range(a.shape[0]):
+                        # routed experts: a stacked (repeat, E, K, N) leaf
+                        out.extend(a[r] if a.dim() == 4 else [a[r]])
     return out
 
 
@@ -161,9 +183,13 @@ def _normalize_collect(collect_branches):
 def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
                  pos=None, caches=None, cond=None, skip=None,
                  branch_caches=None, collect_branches=False,
-                 collect_caches=False, memory=None, video_shape=None):
-    """Run all stages.  Returns ``(x, branch, new_caches)``.  ``positions``
-    (full mode) and ``pos`` (decode mode) reach every attention mixer.
+                 collect_caches=False, memory=None, video_shape=None,
+                 moe_strategy="gshard", moe_group_size=2048):
+    """Run all stages.  Returns ``(x, branch, new_caches, aux)``.
+    ``positions`` (full mode) and ``pos`` (decode mode) reach every
+    attention mixer, ``moe_strategy`` and ``moe_group_size`` every MoE FFN;
+    aux is the sum of their load-balance losses (a CPU zero without
+    one).
 
     branch: per stage, a tuple per unit block of ``{branch_name: (repeat,
     B, N, d)}`` (None for a block that collected nothing), or None when
@@ -175,6 +201,7 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
     collect_any = collect is None or len(collect) > 0
     keep_caches = collect_caches or mode == "decode"
     all_branch, all_caches = [], []
+    aux_total = None
     for si, st in enumerate(cfg.stages):
         sp = params["stages"][si]
         sbc = branch_caches[si] if branch_caches is not None else None
@@ -187,11 +214,16 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
                       if sbc is not None and sbc[i] else None)
                 cache = (tree_map(lambda a: a[r], scache[i])
                          if scache is not None else None)
-                x, bo, nc = blocks.apply(
+                is_moe = isinstance(b.ffn, MoESpec)
+                x, bo, nc, *aux = blocks.apply(
                     b, tree_map(lambda a: a[r], sp[i]), x, mode=mode,
                     positions=positions, pos=pos, cache=cache, cond=cond,
                     skip=skip, branch_cache=bc, memory=memory,
-                    video_shape=video_shape)
+                    video_shape=video_shape, moe_strategy=moe_strategy,
+                    moe_group_size=moe_group_size, with_aux=is_moe)
+                if is_moe:
+                    aux_total = (aux[0] if aux_total is None
+                                 else aux_total + aux[0])
                 if collect is not None:
                     types = dict(zip(b.branch_names(), b.branch_types()))
                     bo = {n: v for n, v in bo.items() if types[n] in collect}
@@ -213,7 +245,9 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
             None if per_rep[0][i] is None
             else _stack([outs[i] for outs in per_rep])
             for i in range(len(st.unit))))
-    return x, all_branch, all_caches
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32)
+    return x, all_branch, all_caches, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -223,24 +257,25 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None, cond=None,
             skip=None, branch_caches=None, collect_branches=False,
             collect_caches=False, memory=None, video_shape=None,
-            positions=None):
+            positions=None, moe_strategy="gshard", moe_group_size=2048):
     """Full-sequence forward.  For an LM: tokens (B, L) → logits.  For a
     diffusion backbone: embeddings ``embeds`` (B, L, d) → hidden states
     after ``final_norm`` (the diffusion wrapper owns patchify and head).
     ``memory`` (B, Lm, cond_dim), ``video_shape`` (T, S) and
     ``positions`` ((1, L) or (B, L); attention takes ``arange(L)`` when
-    None) reach every block.
-    Returns ``(out, {"branch", "caches", "hidden"})`` (see
+    None), ``moe_strategy`` and ``moe_group_size`` reach every block.
+    Returns ``(out, {"branch", "caches", "aux", "hidden"})`` (see
     :func:`apply_stages`)."""
     x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
-    x, branch, caches = apply_stages(
+    x, branch, caches, aux = apply_stages(
         cfg, params, x, mode="full", positions=positions, cond=cond,
         skip=skip, branch_caches=branch_caches,
         collect_branches=collect_branches, collect_caches=collect_caches,
-        memory=memory, video_shape=video_shape)
+        memory=memory, video_shape=video_shape, moe_strategy=moe_strategy,
+        moe_group_size=moe_group_size)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     out = logits_from_hidden(cfg, params, x) if cfg.task == "lm" else x
-    return out, {"branch": branch, "caches": caches, "hidden": x}
+    return out, {"branch": branch, "caches": caches, "aux": aux, "hidden": x}
 
 
 def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
@@ -286,12 +321,16 @@ def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
 
 
 def prefill(cfg: ModelConfig, params, tokens, *,
-            cache_len: Optional[int] = None, cache_dtype=torch.float32):
+            cache_len: Optional[int] = None, cache_dtype=torch.float32,
+            moe_strategy="gshard", moe_group_size=2048):
     """Full forward that also builds the decode caches.  Returns (logits,
     caches).  State caches keep the dtypes the forward made them in; KV
     caches hold ``cache_len`` slots (an attention model needs it) in
-    ``cache_dtype``."""
-    out, aux = forward(cfg, params, tokens, collect_caches=True)
+    ``cache_dtype``.  A MoE FFN dispatches by ``moe_strategy``
+    (``generate`` prefills with ``"dense"``)."""
+    out, aux = forward(cfg, params, tokens, collect_caches=True,
+                       moe_strategy=moe_strategy,
+                       moe_group_size=moe_group_size)
     caches = [tuple(_to_decode_cache(b, aux["caches"][si][bi], cache_len,
                                      tokens.shape[1], cache_dtype)
                     for bi, b in enumerate(st.unit))
@@ -308,7 +347,7 @@ def decode_step(cfg: ModelConfig, params, token, caches, *,
                            for _, _, _, b in cfg.blocks()):
         raise ValueError("an attention model's decode step needs pos=")
     x = embed_tokens(cfg, params, token)
-    x, _, new_caches = apply_stages(cfg, params, x, mode="decode", pos=pos,
-                                    caches=caches)
+    x, _, new_caches, _ = apply_stages(cfg, params, x, mode="decode",
+                                       pos=pos, caches=caches)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), new_caches

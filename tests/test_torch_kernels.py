@@ -229,6 +229,26 @@ def test_cuda_kernel_matches_plain(cuda, case):
     close(out.cpu(), ref.flash_attention_ref(q, k, v, **kw).cpu(), **tol)
 
 
+@pytest.mark.parametrize("d,dv", [(192, 128), (160, 96), (256, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cuda_wide_kernel_takes_a_value_head_dim(cuda, d, dv, causal, dtype):
+    """The wide instance with V narrower than q and k (DeepSeek-V3's MLA:
+    192, 128): V as a strided view of a wider row, as ``_mla_full`` hands
+    it over; out (B, L, H, Dv), two launches bitwise."""
+    _, tdt, tol = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(cuda, tdt)
+               for a in _qkv(2, 100, 4, 2, d))
+    v = v[..., d - dv:]
+    out = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    again = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, 100, 4, dv)
+    assert torch.equal(out, again)
+    close(out.cpu(), ref.flash_attention_ref(q, k, v, causal=causal).cpu(),
+          **tol)
+
+
 def test_cuda_dispatch_launches_kernel_and_counts(cuda):
     q, k, v = (torch.from_numpy(a).to(cuda) for a in _qkv(2, 40, 4, 2, 16))
     # a strided view: the kernel reads (B, L, H, D) through strides

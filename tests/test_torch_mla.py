@@ -312,10 +312,12 @@ def test_lm_products_book_mla_products():
 
 
 @pytest.mark.parametrize("d,dv", [(96, 64), (48, 32), (128, 64), (96, 96),
-                                  (256, 256), (1, 1)])
+                                  (256, 256), (1, 1), (192, 128), (256, 128),
+                                  (160, 96)])
 def test_kernel_wrapper_takes_a_value_head_dim_up_to_the_keys(d, dv):
-    """1 ≤ Dv ≤ D (Dv = D above 128) passes every check but the device's
-    (so these CPU tensors are refused for their device alone)."""
+    """1 ≤ Dv ≤ D, in the wide instance too (D 129..256), passes every check
+    but the device's (so these CPU tensors are refused for their device
+    alone)."""
     q = torch.zeros(2, 16, 4, d)
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.flash_attention_cuda(q, q[:, :, :2], torch.zeros(2, 16, 2, dv))
@@ -324,7 +326,8 @@ def test_kernel_wrapper_takes_a_value_head_dim_up_to_the_keys(d, dv):
 @pytest.mark.parametrize("d,dv,match", [
     (64, 96, "value head dim 96 outside 1..64"),
     (96, 97, "value head dim 97"),
-    (256, 128, "wide instance"), (192, 128, "wide instance"),
+    (256, 257, "value head dim 257 outside 1..256"),
+    (192, 0, "value head dim 0 outside 1..192"),
     (64, 0, "value head dim 0")])
 def test_kernel_wrapper_refuses_other_value_head_dims(d, dv, match):
     q = torch.zeros(2, 16, 4, d)
