@@ -7,13 +7,13 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the three CUDA sources (flash attention, SSD scan, the
-   batch-invariant linear layer's two kernels) and of the CUDA graph
-   IF-node helper (``core/cuda_graphs.cu``) from the checkout's sources,
-   in parallel, and the kernels' SASS: tensor-core instructions
-   (``mma.sync`` HMMA, ``wgmma`` HGMMA), FFMA, registers and local memory
-   per flash-attention template instance, per SSD pass and per linear
-   kernel (``cuobjdump``);
+2. build of the four CUDA sources (flash attention, SSD scan, the
+   batch-invariant linear layer's two kernels, the RG-LRU scan) and of
+   the CUDA graph IF-node helper (``core/cuda_graphs.cu``) from the
+   checkout's sources, in parallel, and the kernels' SASS: tensor-core
+   instructions (``mma.sync`` HMMA, ``wgmma`` HGMMA), FFMA, registers and
+   local memory per flash-attention template instance, per SSD pass, per
+   linear kernel and of the RG-LRU scan (``cuobjdump``);
 3. the flash-attention kernel against its plain PyTorch version over the
    kernel test sweep (each case with its arithmetic and load path) and at
    the DiT-XL/2 shape, where two launches must agree bitwise, with device
@@ -249,6 +249,30 @@ exits non-zero:
    in the prefill and 215 a decode step; teacher-forced decode vs one
    forward with the same rule for selections; a traced prefill and 4
    decode steps (``deepseek3_profile``).
+23. the hybrid slice (``recurrentgemma``, budget ~120 s, after
+   ``deepseek3`` and before the video phase, on weights of its own drawn
+   on the card): RecurrentGemma-2B at its published widths and all 26
+   blocks, (rec, rec, local MQA) × 8 + (rec, rec) (d 2560, the RG-LRU
+   2560 wide with 10 gate heads of 256 and a conv of 4, attention 10 ×
+   256 over 1 KV head with a window of 2048, gated GELU-tanh MLP d_ff
+   7680, tied embeddings of 256000 scaled by √d).  The RG-LRU scan kernel
+   against its plain version at the prefill's (2, 3072, 2560) and the
+   decode's (2, 1, 2560) shapes, L 1, 7 and 300, W 200, on the model's
+   strided gate views and contiguous (≤ 5e-5 of max |y| and |hT|),
+   bitwise twice and row by row, timed beside its bytes bound and plain
+   version (``recurrentgemma_scan``); the attention kernel's D 256
+   instance as MQA at (2, 3072, 10 over 1, 256), window 2048, against its
+   plain version, bitwise twice, timed beside its bound, SDPA (k and v
+   expanded to the 10 heads) and compiled ``flex_attention``; every
+   product at 6144 and 2 rows, the gate heads' (256, 256) among them,
+   against cuBLAS and f64; a one-unit (rec, rec, attn) prefill card
+   against CPU (logits, k / v, conv / h ≤ 1e-4); ``generate`` on 2
+   prompts × 3072 tokens (past the window), 32 new, greedy, cache_len
+   3104 — attention 8 launches in the prefill and none in the decode,
+   the RG-LRU scan 18 and 18 a step, linear 524 and 524 a step;
+   teacher-forced decode vs one forward over 3103 tokens (≤ 1e-4); a
+   traced prefill and 4 decode steps with the scan's and, timed apart,
+   the conv's share (``recurrentgemma_profile``).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's,
@@ -256,7 +280,8 @@ OpenSora-v1.2's and Stable-Audio-Open's (the fault, telemetry and
 durability phases at 7 of DiT-XL/2's 28 blocks); Mamba-2-1.3B's widths at
 24 of its 48 blocks, Qwen3-14B's at 8 of 40, Gemma-2-9B's at 12 of 42,
 MiniCPM3-4B's at 16 of 62 and DeepSeek-V3's at 3 of 61 with 32 of its 256
-experts (the two cuts of depth pay for the ``deepseek3`` phase).
+experts (the two cuts of depth pay for the ``deepseek3`` phase);
+RecurrentGemma-2B's at all 26 of its blocks.
 """
 import gc
 import json
@@ -428,12 +453,13 @@ def kernel_phase(fa, ref, peaks):
 
 
 # name fragments of the kernels in each library's SASS; every one of them
-# runs a product on the tensor cores but the request-row linear kernel,
-# which is bound by bytes and runs f32 FMAs
+# runs a product on the tensor cores but the request-row linear kernel and
+# the RG-LRU scan, which are bound by bytes and run f32 FMAs
 SASS_KERNELS = {"flash_attention": ("attn_fwd",),
                 "ssd": ("ssd_cb", "ssd_state", "ssd_out"),
-                "gemm": ("gemm_tokens_wgmma", "gemm_requests_ffma")}
-FFMA_KERNELS = ("gemm_requests_ffma",)
+                "gemm": ("gemm_tokens_wgmma", "gemm_requests_ffma"),
+                "rglru": ("rglru_scan",)}
+FFMA_KERNELS = ("gemm_requests_ffma", "rglru_scan")
 # the port's linear kernels, as a profiler trace names them
 LINEAR_KERNELS = {"tokens": "gemm_tokens_wgmma",
                   "requests": "gemm_requests_ffma"}
@@ -1189,13 +1215,18 @@ def _band_pairs(l, window):
 
 def flex_library(qt, kt, vt, window, softcap):
     """``flex_attention``: the one PyTorch call that computes the kernel's
-    function with a softcap (``score_mod``) under a causal or banded
-    ``block_mask``, on (B, H, L, D) inputs with ``enable_gqa``.  Tried
+    function with a softcap (``score_mod``; none when ``softcap`` is None)
+    under a causal or banded ``block_mask``, on (B, H, L, D) inputs with
+    ``enable_gqa``.  Tried
     compiled (the library's fused Triton kernel), then compiled with 32-row
     blocks (f32 at D 256 may overflow the default's shared memory), then
     eager (the scores materialized).  Inductor and Triton cache under
-    ``build/`` and compile in this process.  Returns (route, the call, the
-    failed routes' errors)."""
+    ``build/`` and compile in this process, each call from a reset
+    compiler with static shapes, so that what an earlier call compiled at
+    other shapes does not shape it (without the reset, RecurrentGemma-2B's
+    call after Gemma-2-9B's two timed a kernel several times slower than
+    in a process of its own).  Returns (route, the call, the failed
+    routes' errors)."""
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                           str(ROOT / "build" / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
@@ -1211,10 +1242,14 @@ def flex_library(qt, kt, vt, window, softcap):
         keep = ki <= qi
         return keep if window is None else keep & (ki > qi - window)
 
+    if softcap is None:
+        score_mod = None
     l = qt.shape[2]
     mask = create_block_mask(mask_mod, None, None, l, l, device=qt.device)
-    routes = (("compiled", torch.compile(flex_attention), {}),
-              ("compiled_block_32", torch.compile(flex_attention),
+    torch._dynamo.reset()
+    routes = (("compiled", torch.compile(flex_attention, dynamic=False), {}),
+              ("compiled_block_32", torch.compile(flex_attention,
+                                                  dynamic=False),
                {"kernel_options": {"BLOCK_M": 32, "BLOCK_N": 32}}),
               ("eager", flex_attention, {}))
     errors = {}
@@ -1232,7 +1267,8 @@ def flex_library(qt, kt, vt, window, softcap):
 
 
 def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
-                            sass_key, noncausal=False):
+                            sass_key, noncausal=False, expand_kv=False,
+                            flex=False):
     """The attention kernel at an attention LM's prefill, ``shape`` =
     (prompts, length): q (B, L, H, D), k (B, L, KV, D), v (B, L, KV, Dv)
     from ``rand(*shape)`` — GQA: D = Dv = the head dim; MLA: KV = H, D =
@@ -1247,15 +1283,21 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
     <flex_library>`, with SDPA beside it as ``library_no_softcap_ms``
     (another function: no softcap).
     ``noncausal`` adds the same shape non-causal: how far the
-    early-finishing query tiles leave the grid unbalanced.  Returns
-    ({case: row}, the instance's SASS rows: names with ``sass_key``)."""
+    early-finishing query tiles leave the grid unbalanced.  ``expand_kv``:
+    SDPA takes k and v expanded to the query heads (MQA: the backends that
+    take no ``enable_gqa``); ``flex``: compiled ``flex_attention`` is
+    timed beside SDPA where there is no softcap.  The unit's blocks
+    without attention (RG-LRU) are passed over.  Returns ({case: row},
+    the instance's SASS rows: names with ``sass_key``)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.config import AttentionSpec
     specs = {}
     for blk in cfg.stages[0].unit:
-        specs.setdefault("global" if blk.mixer.window is None else "local",
-                         blk.mixer)
+        if isinstance(blk.mixer, AttentionSpec):
+            specs.setdefault("global" if blk.mixer.window is None
+                             else "local", blk.mixer)
     first = next(iter(specs.values()))
     (b, l), h = shape, first.num_heads
     if first.kind == "mla":
@@ -1266,6 +1308,9 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
         dv = d
     q, k, v = rand(b, l, h, d), rand(b, l, kv, d), rand(b, l, kv, dv)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    kte, vte = ((a.repeat_interleave(h // kv, dim=1) for a in (kt, vt))
+                if expand_kv else (kt, vt))
+    gqa = {} if expand_kv else {"enable_gqa": True}
     i = torch.arange(l, device=q.device)
     cases = {}
     for name, spec in specs.items():
@@ -1288,13 +1333,13 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
         t_ops = 3 * flops / peaks["tf32"] * 1e3
         t_bytes = nbytes / peaks["hbm"] * 1e3
         if spec.window is None:
-            sdpa_kw = dict(is_causal=True, enable_gqa=True)
+            sdpa_kw = dict(is_causal=True, **gqa)
         else:
             sdpa_kw = dict(attn_mask=(i[None, :] <= i[:, None]) & (
-                i[None, :] > i[:, None] - spec.window), enable_gqa=True)
+                i[None, :] > i[:, None] - spec.window), **gqa)
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+            return F.scaled_dot_product_attention(qt, kte, vte, **sdpa_kw)
         sdpa_ms = device_ms(sdpa, iters=10)
         row = {"shape": [b, l, h, kv, d], "dv": dv, "causal": True,
                "window": spec.window, "softcap": spec.logit_softcap,
@@ -1304,7 +1349,8 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
                    q, k, v, **kw), iters=3, reps=3),
                "sdpa_backend": SDPBackend(torch._fused_sdp_choice(
-                   qt, kt, vt, **sdpa_kw)).name.lower(),
+                   qt, kte, vte, **sdpa_kw)).name.lower(),
+               "sdpa_kv_expanded": expand_kv,
                "sdpa_kernel": _top_kernel(sdpa)}
         if noncausal:
             row["noncausal_ms"] = device_ms(lambda: fa.flash_attention_cuda(
@@ -1312,6 +1358,15 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
         if spec.logit_softcap is None:
             row.update(library="scaled_dot_product_attention",
                        library_ms=sdpa_ms)
+            if flex:
+                route, fn, errors = flex_library(qt, kt, vt, spec.window,
+                                                 None)
+                got = fn()
+                row.update(flex_route=route, flex_errors=errors,
+                           flex_max_abs_diff=float(
+                               (got.transpose(1, 2) - out).abs().max()),
+                           flex_ms=device_ms(fn, iters=5, reps=3))
+                del got, fn
         else:
             route, flex, errors = flex_library(qt, kt, vt, spec.window,
                                                spec.logit_softcap)
@@ -1337,7 +1392,7 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
             row["noncausal_over_causal"] = row["noncausal_ms"] / row["ms"]
         cases[name] = row
         del out
-    del q, k, v, qt, kt, vt
+    del q, k, v, qt, kt, vt, kte, vte
     return cases, {name: r for name, r in sass["flash_attention"].items()
                    if sass_key in name}
 
@@ -1423,12 +1478,13 @@ def lm_product_phase(gemm, ref, peaks, cfg, rand, batch, prompt, tag,
 
 def attn_lm_cross_check_phase(cfg, T, params, blocks, seed, tag):
     """A prefill of one 200-token prompt (a ragged last query tile) at
-    ``blocks`` blocks (whole units), card against CPU on the card's own
-    weights copied over: logits and each block's k / v (MLA: ckv / krope)
-    caches.  Emits ``<tag>_cross_check``."""
+    ``blocks`` blocks (whole units of the first stage), card against CPU on
+    the card's own weights copied over: logits and each block's k / v (MLA:
+    ckv / krope; RG-LRU: conv / h) caches.  Emits
+    ``<tag>_cross_check``."""
     from repro_torch.kernels.products import lm_cut
     from repro_torch.models.transformer import tree_map
-    cut = lm_cut(cfg, blocks)
+    cut = lm_cut(cfg.replace(stages=cfg.stages[:1]), blocks)
     reps = cut.stages[0].repeat
     gpu = {**params, "stages": [tuple(
         tree_map(lambda a: a[:reps], u) for u in params["stages"][0])]}
@@ -1456,6 +1512,13 @@ def attn_lm_cross_check_phase(cfg, T, params, blocks, seed, tag):
               f"error {err}")
 
 
+def mixer_blocks(cfg):
+    """(attention blocks, RG-LRU blocks) of an LM config."""
+    from repro_torch.config import AttentionSpec, RGLRUSpec
+    kinds = [type(b.mixer) for _, _, _, b in cfg.blocks()]
+    return kinds.count(AttentionSpec), kinds.count(RGLRUSpec)
+
+
 def lm_linear_calls(cfg):
     """The linear kernel's calls in an attention LM's prefill and in one
     decode step: its products' calls per forward (``lm_products``; 7 a
@@ -1469,10 +1532,11 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
                            **row):
     """The attention-LM main path: ``generate`` on ``shape`` = (prompts,
     prompt length, new tokens), greedy, cache_len prompt + new, after a
-    cold run of 2 tokens — the attention kernel once a block in the
-    prefill and never in the decode, the linear kernel once per product
-    (:func:`lm_linear_calls`) in the prefill and in every decode step.
-    Emits ``<tag>_generate`` with ``row`` added."""
+    cold run of 2 tokens — the attention kernel once an attention block in
+    the prefill and never in the decode, the RG-LRU scan once an RG-LRU
+    block in the prefill and in every decode step, the linear kernel once
+    per product (:func:`lm_linear_calls`) in the prefill and in every
+    decode step.  Emits ``<tag>_generate`` with ``row`` added."""
     batch, plen, gen_len = shape
     cache_len = plen + gen_len
     prompts = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1512,7 +1576,9 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
            "launches_prefill": pre, "launches_decode": dec, "cold": cold,
            "peak_device_bytes": torch.cuda.max_memory_allocated(), **row}
     emit(row)
-    want = {"flash_attention": (cfg.num_layers, 0),
+    n_attn, n_rec = mixer_blocks(cfg)
+    want = {"flash_attention": (n_attn, 0),
+            "rglru_scan": (n_rec, n_rec * steps),
             "linear": (lin_pre, lin_step * steps),
             "linear_tokens": (lin_pre, lin_step * steps),
             "linear_requests": (0, 0), "ssd": (0, 0)}
@@ -1530,14 +1596,14 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag,
                           prefill_kw=None):
     """Where the attention LM's time goes: one prefill and 4 decode steps
     (after one untraced step), each traced — device ms by kernel, the
-    shares of the linear kernel, the attention kernel, cuBLAS (the LM head
-    ``x @ lm_head`` or ``x @ embed.T``, and in the decode the attention
-    einsums) and the rest (elementwise), and the device's idle share of
-    the wall time.  The calls each run made are counted by
-    ``ops.LAUNCHES``; the trace's own kernel counts are reported beside
-    them (a trace has dropped a few kernel records).  ``prefill_kw`` goes
-    to ``T.prefill`` (a MoE model prefills as ``generate`` does, ``dense``).
-    Emits ``<tag>_profile``."""
+    shares of the linear kernel, the attention kernel, the RG-LRU scan,
+    cuBLAS (the LM head ``x @ lm_head`` or ``x @ embed.T``, and in the
+    decode the attention einsums) and the rest (elementwise), and the
+    device's idle share of the wall time.  The calls each run made are
+    counted by ``ops.LAUNCHES``; the trace's own kernel counts are reported
+    beside them (a trace has dropped a few kernel records).  ``prefill_kw``
+    goes to ``T.prefill`` (a MoE model prefills as ``generate`` does,
+    ``dense``).  Emits ``<tag>_profile``."""
     plen = prompts.shape[1]
     cache_len = plen + toks.shape[1]
     prefill_kw = prefill_kw or {}
@@ -1559,10 +1625,10 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag,
         before = dict(ops.LAUNCHES)
         wall_us, kern = _traced(fn)
         launched = {k: ops.LAUNCHES[k] - before[k]
-                    for k in ("flash_attention", "linear")}
+                    for k in ("flash_attention", "linear", "rglru_scan")}
         busy = sum(us for us, _ in kern.values())
         parts = {"linear": [LINEAR_KERNELS["tokens"]],
-                 "attention": ["attn_fwd"],
+                 "attention": ["attn_fwd"], "rglru_scan": ["rglru_scan"],
                  "cublas": ["gemm", "gemv", "cutlass", "xmma", "cublas"]}
         share = {}
         for part, frags in parts.items():
@@ -1586,10 +1652,12 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag,
     emit({"phase": f"{tag}_profile", **rows})
     pre, dec = rows["prefill"], rows["decode_4_steps"]
     lin_pre, lin_step = lm_linear_calls(cfg)
-    check(pre["launched"] == {"flash_attention": cfg.num_layers,
-                              "linear": lin_pre}
+    n_attn, n_rec = mixer_blocks(cfg)
+    check(pre["launched"] == {"flash_attention": n_attn,
+                              "linear": lin_pre, "rglru_scan": n_rec}
           and dec["launched"] == {"flash_attention": 0,
-                                  "linear": 4 * lin_step},
+                                  "linear": 4 * lin_step,
+                                  "rglru_scan": 4 * n_rec},
           f"traced runs launched {pre['launched']}, {dec['launched']}")
     check(pre["ms"]["linear"] > 0 and pre["ms"]["attention"] > 0,
           f"the prefill trace lacks a kernel of the path: {pre['ms']}")
@@ -2223,6 +2291,240 @@ def deepseek3_phase(peaks, kernels, sass):
           "peak_device_bytes": row["peak_device_bytes"]})
     check(seconds <= DEEPSEEK3_BUDGET_S,
           f"the deepseek3 phase took {seconds} s of its {DEEPSEEK3_BUDGET_S}")
+
+
+RECURRENTGEMMA_CHECK_BLOCKS = 3   # one (rec, rec, attn) unit
+RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT = 2, 3072   # prompts > window
+RECURRENTGEMMA_GEN = 32
+RECURRENTGEMMA_BUDGET_S = 120
+
+
+def _scan_inputs(gen, b, l, w):
+    """RG-LRU scan inputs drawn on the card: xr, gate and one (B, L, 2W)
+    product whose halves are ga and gx (the views ``models/rglru.py``
+    hands over), and Λ as the model's init draws it (a ∈ [0.9, 0.999] at
+    r = 1)."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    xr, gate, g = rand(b, l, w), rand(b, l, w), rand(b, l, 2 * w)
+    u = 0.81 + (0.998001 - 0.81) * torch.rand(w, generator=gen,
+                                              device="cuda")
+    a = torch.log(torch.expm1(-torch.log(u) / 16.0))
+    return [xr, g[..., :w], g[..., w:], gate, a]
+
+
+def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
+    """The RG-LRU scan kernel against its plain version on the card: the
+    prefill's (2, 3072, 2560) from h0 = 0 and the decode's (2, 1, 2560)
+    from a random h0, L 1, 7 and 300, W 200 (not a multiple of the
+    block), each with ga and gx strided views of one product as the model
+    hands them over, and the prefill's shape with every input contiguous
+    (≤ 5e-5 of max |y| and of max |hT|); two launches and row b against
+    row b alone bitwise; device ms at the prefill and decode shapes beside
+    the bytes bound and the plain version's.  Returns the ``kernels``
+    entry (launches filled in by the generate)."""
+    from repro_torch.kernels.timing import device_ms
+    m = next(b.mixer for _, _, _, b in cfg.blocks()
+             if not hasattr(b.mixer, "num_kv_heads"))
+    c, w = m.c_constant, m.expand * cfg.d_model
+    bsz, l = RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 121)
+    cases, timed = [], {}
+    for name, (b, steps, width, with_h0, contiguous) in {
+            "prefill": (bsz, l, w, False, False),
+            "prefill_contiguous": (bsz, l, w, False, True),
+            "decode": (bsz, 1, w, True, False),
+            "l1": (bsz, 1, w, False, False), "l7": (bsz, 7, w, True, False),
+            "l300": (bsz, 300, w, True, False),
+            "w200": (3, 50, 200, True, False)}.items():
+        t = _scan_inputs(gen, b, steps, width)
+        if contiguous:
+            t = [a.contiguous() for a in t]
+        h0 = torch.randn(b, width, generator=gen, device="cuda") \
+            if with_h0 else None
+        y, hT = rglru.rglru_scan_cuda(*t, c, h0)
+        y2, hT2 = rglru.rglru_scan_cuda(*t, c, h0)
+        one = rglru.rglru_scan_cuda(*(a[-1:] for a in t[:4]), t[4], c,
+                                    None if h0 is None else h0[-1:])
+        yr, hr = ref.rglru_scan_ref(*t, c, h0)
+        torch.cuda.synchronize()
+        row = {"case": name, "shape": [b, steps, width], "h0": with_h0,
+               "strided_gates": not t[1].is_contiguous(),
+               "max_abs_err": float((y - yr).abs().max()),
+               "max_abs_y": float(yr.abs().max()),
+               "state_max_abs_err": float((hT - hr).abs().max()),
+               "max_abs_state": float(hr.abs().max()),
+               "bitwise_repeat": bool(torch.equal(y, y2)
+                                      and torch.equal(hT, hT2)),
+               "bitwise_row_alone": bool(torch.equal(one[0], y[-1:])
+                                         and torch.equal(one[1], hT[-1:]))}
+        cases.append(row)
+        check(row["max_abs_err"] <= 5e-5 * row["max_abs_y"]
+              and row["state_max_abs_err"] <= 5e-5 * row["max_abs_state"],
+              f"rglru scan vs plain {row}")
+        check(row["bitwise_repeat"] and row["bitwise_row_alone"],
+              f"rglru scan not bitwise {row}")
+        if name in ("prefill", "decode"):
+            n = b * steps * width
+            # xr, ga, gx, gate read and y written once; Λ, h0 and hT
+            nbytes = 4 * (5 * n + width + (2 if with_h0 else 1) * b * width)
+            ops_count = 20 * n
+            t_bytes = nbytes / peaks["hbm"] * 1e3
+            t_ops = ops_count / peaks["fp32"] * 1e3
+            timed[name] = {
+                "shape": [b, steps, width], "bytes": nbytes,
+                "operations": ops_count,
+                "max_abs_err": row["max_abs_err"],
+                "ms": device_ms(lambda: rglru.rglru_scan_cuda(*t, c, h0),
+                                iters=20 if steps > 1 else 50),
+                "plain_ms": device_ms(lambda: ref.rglru_scan_ref(*t, c, h0),
+                                      iters=3, reps=3),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None}
+            timed[name]["bound_share"] = (timed[name]["bound_ms"]
+                                          / timed[name]["ms"])
+        del t, y, y2, hT, hT2, one, yr, hr
+    emit({"phase": "recurrentgemma_scan", "limit": 5e-5, "cases": cases,
+          "times": timed,
+          "library": "none: no single PyTorch call computes a gated "
+                     "linear recurrence"})
+    pre = timed["prefill"]
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/rglru.cu",
+            "replaces": "no TPU kernel: jax.lax.associative_scan, which "
+                        "XLA fuses into the layer on the TPU "
+                        "(src/repro/models/rglru.py:98); added so the "
+                        "recurrence reads its inputs once",
+            "shape": pre["shape"], "dtype": "float32",
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "library_ms": None, "decode": timed["decode"],
+            "bytes": pre["bytes"], "operations": pre["operations"]}
+
+
+def recurrentgemma_kernel_phase(fa, ref, gemm, peaks, cfg, sass):
+    """The attention kernel's D 256 instance as MQA at the prefill's shape
+    — q (2, 3072, 10, 256), k = v (2, 3072, 1, 256), f32, causal, window
+    2048 (it binds on query rows 2048…3071) — against its plain version,
+    with SDPA (the band as a boolean mask, k and v expanded to the 10
+    heads) and compiled ``flex_attention`` (the band as a ``block_mask``)
+    beside it
+    (:func:`attn_lm_attention_phase`); then every product at 6144 and 2
+    rows, the gate heads' (256, 256) among them (:func:`lm_product_phase`).
+    The inputs are drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 122)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases, rows = attn_lm_attention_phase(
+        fa, ref, peaks, cfg, rand,
+        (RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT), sass,
+        "attn_fwd_wideIfLi256E", expand_kv=True, flex=True)
+    attn = {**cases["local"], "sass": rows}
+    emit({"phase": "recurrentgemma_attention", "limit": 5e-5, **attn})
+    check(len(rows) == 1, f"the f32 D 256 instance in the SASS: "
+          f"{list(rows)}")
+    return attn, lm_product_phase(gemm, ref, peaks, cfg, rand,
+                                  RECURRENTGEMMA_BATCH,
+                                  RECURRENTGEMMA_PROMPT, "recurrentgemma")
+
+
+def recurrentgemma_conv_ms(cfg, params):
+    """Device ms of the RG-LRU blocks' causal conv (plain PyTorch
+    elementwise kernels, which a trace does not tell from the others) in
+    one prefill and in one decode step: one block's conv at the prefill's
+    and the decode's shapes, on its own weights, times the RG-LRU
+    blocks."""
+    from repro_torch.kernels.timing import device_ms
+    from repro_torch.models import rglru
+    from repro_torch.models.transformer import tree_map
+    unit = cfg.stages[0].unit
+    i = next(j for j, b in enumerate(unit)
+             if not hasattr(b.mixer, "num_kv_heads"))
+    p = tree_map(lambda a: a[0], params["stages"][0][i]["mixer"])
+    k, w = p["conv_w"].shape
+    b, l = RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT
+    x = torch.randn(b, l, w, device="cuda")
+    win = torch.randn(b, k, w, device="cuda")
+    n = mixer_blocks(cfg)[1]
+    return {"prefill": n * device_ms(lambda: rglru._causal_conv(p, x),
+                                     iters=10),
+            "decode_step": n * device_ms(lambda: rglru._conv(p, win, 1))}
+
+
+def recurrentgemma_phase(peaks, kernels, sass):
+    """The hybrid serving path at RecurrentGemma-2B's published widths and
+    all 26 blocks — (rec, rec, local MQA) × 8 + (rec, rec): d 2560, the
+    RG-LRU 2560 wide with 10 gate heads of 256 and a conv of 4, attention
+    10 × 256 over 1 KV head with a window of 2048, gated GELU-tanh MLP
+    d_ff 7680, tied embeddings of 256000 scaled by √d — after the deepseek3
+    phase and before the video phase.  The prompts (3072 tokens) pass the
+    window: the mask binds on query rows 2048…3071 in the prefill's
+    kernel, the ring cache keeps 2048 slots and every decode step
+    overwrites one.  Budget ``RECURRENTGEMMA_BUDGET_S``; the weights
+    (2.68 B values) are drawn on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.kernels import rglru
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = configs.get("recurrentgemma-2b")
+    scan = recurrentgemma_scan_phase(rglru, ref, peaks, cfg)
+    attn, products = recurrentgemma_kernel_phase(fa, ref, gemm, peaks, cfg,
+                                                 sass)
+    params, weight_bytes, prepared = lm_params_phase(cfg, serve, T,
+                                                     SEED + 120)
+    attn_lm_cross_check_phase(cfg, T, params, RECURRENTGEMMA_CHECK_BLOCKS,
+                              SEED + 123, "recurrentgemma")
+    b, plen = RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT
+    n_attn, n_rec = mixer_blocks(cfg)
+    m = next(blk.mixer for _, _, _, blk in cfg.blocks()
+             if hasattr(blk.mixer, "num_kv_heads"))
+    width = cfg.d_model
+    prompts, toks, launches, row = attn_lm_generate_phase(
+        cfg, serve, params, ops, (b, plen, RECURRENTGEMMA_GEN), SEED + 124,
+        "recurrentgemma", weight_bytes=weight_bytes, prepared_bytes=prepared,
+        # per RG-LRU block: the conv tail (3 steps) and h, f32; per
+        # attention block: k and v over the window's 2048 slots
+        state_cache_bytes=4 * n_rec * b * 4 * width,
+        kv_cache_bytes=4 * n_attn * b * 2 * m.window * m.num_kv_heads
+        * m.head_dim)
+    lm_decode_consistency_phase(cfg, T, params, prompts, toks,
+                                name="recurrentgemma_decode_consistency")
+    profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
+                                    "recurrentgemma")
+    conv = recurrentgemma_conv_ms(cfg, params)
+    emit({"phase": "recurrentgemma_profile_conv", "conv_ms": conv,
+          "prefill_elementwise_ms": profile["prefill"]["ms"]["elementwise"],
+          "decode_4_steps_elementwise_ms":
+          profile["decode_4_steps"]["ms"]["elementwise"],
+          "note": "the conv timed apart on one block's weights, times the "
+                  "RG-LRU blocks: a part of the trace's elementwise ms"})
+    scan["launches"] = launches["rglru_scan"]
+    scan["profile_prefill_ms"] = profile["prefill"]["ms"]["rglru_scan"]
+    kernels["rglru_scan"] = scan
+    kernels["flash_attention"]["recurrentgemma"] = attn
+    kernels["flash_attention"]["recurrentgemma_launches"] = launches[
+        "flash_attention"]
+    kernels["linear"]["recurrentgemma"] = {
+        **products, "profile_prefill_linear_ms":
+        profile["prefill"]["ms"]["linear"]}
+    kernels["linear"]["recurrentgemma_launches"] = launches["linear"]
+    del params, prompts, toks
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "recurrentgemma", "seconds": seconds,
+          "budget_s": RECURRENTGEMMA_BUDGET_S, "launches": launches,
+          "peak_device_bytes": row["peak_device_bytes"]})
+    check(seconds <= RECURRENTGEMMA_BUDGET_S,
+          f"the recurrentgemma phase took {seconds} s of its "
+          f"{RECURRENTGEMMA_BUDGET_S}")
 
 
 SERVE_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.18),tau=0.3"
@@ -4044,14 +4346,14 @@ def video_phase(peaks, kernels):
     from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
     from repro_torch.launch.serve_diffusion import random_params
-    from repro_torch.models.transformer import tree_map
     t_phase = time.perf_counter()
     cfg = configs.get("opensora-v12")
     attn_shapes, products = video_kernel_phase(fa, ref, gemm, peaks, cfg)
     video_cross_check_phase(cfg, diffusion, gemm, random_params)
     t0 = time.perf_counter()
-    params = tree_map(lambda a: a.cuda(), random_params(
-        torch.Generator().manual_seed(SEED + 47), cfg, device="cpu"))
+    # drawn on the card (a CPU draw of these widths took ~10-30 s)
+    params = random_params(torch.Generator(device="cuda").manual_seed(
+        SEED + 47), cfg, device="cuda")
     prepared = diffusion.prepare_linear(params)
     torch.cuda.synchronize()
     emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
@@ -4597,14 +4899,14 @@ def audio_phase(peaks, kernels):
     from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
     from repro_torch.launch.serve_diffusion import random_params
-    from repro_torch.models.transformer import tree_map
     t_phase = time.perf_counter()
     cfg = configs.get("stable-audio-open")
     attn_shapes, products = audio_kernel_phase(fa, ref, gemm, peaks, cfg)
     audio_cross_check_phase(cfg, diffusion, gemm, random_params)
     t0 = time.perf_counter()
-    params = tree_map(lambda a: a.cuda(), random_params(
-        torch.Generator().manual_seed(SEED + 69), cfg, device="cpu"))
+    # drawn on the card (a CPU draw of these widths took ~10-30 s)
+    params = random_params(torch.Generator(device="cuda").manual_seed(
+        SEED + 69), cfg, device="cuda")
     prepared = diffusion.prepare_linear(params)
     torch.cuda.synchronize()
     emit({"phase": "params", "arch": cfg.name, "blocks": cfg.num_layers,
@@ -4652,7 +4954,8 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.core import cuda_graphs, diffusion
-    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref, ssd
+    from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.kernels import rglru, ssd
     from repro_torch.kernels.products import lm_cut
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -4662,9 +4965,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     peaks = card()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {m.__name__.rsplit(".", 1)[-1]: pool.submit(m.build)
-                  for m in (fa, ssd, gemm, cuda_graphs)}
+                  for m in (fa, ssd, gemm, rglru, cuda_graphs)}
         builds = {k: f.result() for k, f in builds.items()}
     emit({"phase": "build",
           "seconds": {k: r["seconds"] for k, r in builds.items()},
@@ -4766,6 +5069,7 @@ def main():
     gemma2_phase(peaks, kernels, sass)
     minicpm3_phase(peaks, kernels, sass)
     deepseek3_phase(peaks, kernels, sass)
+    recurrentgemma_phase(peaks, kernels, sass)
     video_phase(peaks, kernels)
     torch.cuda.empty_cache()  # the video weights go before the audio phase
     audio_phase(peaks, kernels)

@@ -1,5 +1,5 @@
 """Configuration schema: the spec dataclasses of the DiT, Mamba-2,
-attention-LM and mixture-of-experts families.
+RG-LRU, attention-LM and mixture-of-experts families.
 
 A copy of the JAX package's schema, cut to the specs the port runs: a
 `ModelConfig` is a sequence of *stages*, each a repeated *unit* of block
@@ -64,7 +64,17 @@ class SSMSpec:
     a_init_range: Tuple[float, float] = (1.0, 16.0)
 
 
-MixerSpec = Union[AttentionSpec, SSMSpec]
+@dataclass(frozen=True)
+class RGLRUSpec:
+    """RG-LRU recurrent mixer from Griffin / RecurrentGemma
+    [arXiv:2402.19427]."""
+    num_heads: int = 8                   # block-diagonal gate projections
+    conv_width: int = 4
+    expand: int = 1                      # lru width = expand * d_model
+    c_constant: float = 8.0
+
+
+MixerSpec = Union[AttentionSpec, SSMSpec, RGLRUSpec]
 
 
 @dataclass(frozen=True)
@@ -127,6 +137,8 @@ class BlockSpec:
             out.append(self.type_tag + "attn")
         elif isinstance(self.mixer, SSMSpec):
             out.append(self.type_tag + "ssm")
+        elif self.mixer is not None:
+            out.append(self.type_tag + "rglru")
         if self.cross is not None:
             out.append(self.type_tag + "xattn")
         if self.ffn is not None:

@@ -14,6 +14,7 @@ REGISTRY = {
     "opensora-v12": "repro_torch.configs.opensora_v12",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "stable-audio-open": "repro_torch.configs.stable_audio_open",
 }
 

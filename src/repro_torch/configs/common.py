@@ -3,8 +3,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import (AttentionSpec, ModelConfig, MoESpec, SSMSpec,
-                                Stage)
+from repro_torch.config import (AttentionSpec, ModelConfig, MoESpec,
+                                RGLRUSpec, SSMSpec, Stage)
 
 
 def _shrink_mixer(m, d_model: int):
@@ -12,6 +12,8 @@ def _shrink_mixer(m, d_model: int):
         return None
     if isinstance(m, SSMSpec):
         return dataclasses.replace(m, d_state=16, head_dim=16, chunk=8)
+    if isinstance(m, RGLRUSpec):
+        return dataclasses.replace(m, num_heads=2)
     if not isinstance(m, AttentionSpec):
         raise NotImplementedError(f"mixer {type(m).__name__} is not ported")
     heads = 4 if m.num_heads >= 4 else m.num_heads

@@ -7,12 +7,12 @@ no fallback: a kernel that fails to build or launch raises.
 ``LAUNCHES`` counts the calls that went to a kernel, so that a run can
 show that it went through the kernels; callers reset it by assigning 0 to
 an entry.  It counts calls of the function, not CUDA launches: one
-``ssd`` call is three launches (``ssd.cu``'s passes), a ``linear`` or
-``flash_attention`` call one.  ``linear_tokens`` and ``linear_requests``
-count the ``linear`` calls by variant.  A
-call made while the stream captures a CUDA graph launches nothing: it
-records the launch into the graph, and counts in ``CAPTURED`` instead.  A
-graph's replays make no call at all.
+``ssd`` call is three launches (``ssd.cu``'s passes), a ``linear``,
+``flash_attention`` or ``rglru_scan`` call one.  ``linear_tokens`` and
+``linear_requests`` count the ``linear`` calls by variant.  A call made
+while the stream captures a CUDA graph launches nothing: it records the
+launch into the graph, and counts in ``CAPTURED`` instead.  A graph's
+replays make no call at all.
 """
 from __future__ import annotations
 
@@ -23,10 +23,11 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import ssd as _ssd
 
 LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0, "linear_tokens": 0,
-            "linear_requests": 0}
+            "linear_requests": 0, "rglru_scan": 0}
 CAPTURED = dict(LAUNCHES)
 
 
@@ -83,3 +84,16 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128):
     if x.device.type == "cpu":
         return ref.ssd_ref(x, dt, a, b, c, chunk=chunk)
     raise ValueError(f"no ssd for device {x.device}")
+
+
+def rglru_scan(xr, ga, gx, gate, a_param, c: float, h0=None):
+    """xr, ga, gx, gate: (B, L, W); a_param: (W,); h0: optional (B, W) f32
+    → (y (B, L, W) f32, hT (B, W) f32): the RG-LRU recurrence
+    (``ref.rglru_scan_ref``)."""
+    if xr.device.type == "cuda":
+        out = _rglru.rglru_scan_cuda(xr, ga, gx, gate, a_param, c, h0)
+        _count("rglru_scan")
+        return out
+    if xr.device.type == "cpu":
+        return ref.rglru_scan_ref(xr, ga, gx, gate, a_param, c, h0)
+    raise ValueError(f"no rglru_scan for device {xr.device}")

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import ModelConfig, MoESpec
+from repro_torch.config import AttentionSpec, ModelConfig, MoESpec, RGLRUSpec
 from repro_torch.models import moe
 
 
@@ -63,26 +63,32 @@ def _one(cfg: ModelConfig, what: str, widths: set):
 
 
 def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
-    """An attention LM's products over ``rows`` token rows as ``(name, M,
-    K, N, calls per forward)``.  GQA: q (d → H · dh), k and v (N = KV ·
-    dh), o (H · dh → d), the gated MLP's up and gate, and down; where H ·
-    dh = d, q and o are one shape, ``"q_o"``.  MLA: the q-LoRA's q_a (d →
-    q_lora) and q_b (q_lora → H · (nope + rope)), or a full-rank q, kv_a
-    (d → kv_lora + rope), kv_b (kv_lora → H · (nope + v)) in a prefill
-    only (a ``decode`` step folds it into the attention einsums), o (H · v
-    → d) and the MLP.  Every block has the same mixer widths (Gemma-2's
-    differ only in the window), and the MLP blocks one d_ff.  The MoE
-    blocks (DeepSeek-V3) add the router (d → E), every routed expert's
-    up and gate (d → f) and down over each expert's rows as ``generate``
-    hands them over — all ``rows`` in a prefill (``dense`` dispatch), its
-    gshard capacity rows in a ``decode`` step — and the shared expert's
-    over ``rows``."""
+    """An LM's products over ``rows`` token rows as ``(name, M, K, N, calls
+    per forward)``, the calls of each kind of block counted over the blocks
+    of that kind.  GQA: q (d → H · dh), k and v (N = KV · dh), o (H · dh →
+    d), the gated MLP's up and gate, and down; where H · dh = d, q and o
+    are one shape, ``"q_o"``.  MLA: the q-LoRA's q_a (d → q_lora) and q_b
+    (q_lora → H · (nope + rope)), or a full-rank q, kv_a (d → kv_lora +
+    rope), kv_b (kv_lora → H · (nope + v)) in a prefill only (a ``decode``
+    step folds it into the attention einsums), o (H · v → d) and the MLP.
+    RG-LRU (RecurrentGemma's recurrent blocks): in_x and in_gate (d → W),
+    the two gate products of every head (hd → hd, ``"gate_heads"``) and out
+    (W → d).  The attention blocks have one set of mixer widths (Gemma-2's
+    differ only in the window), the RG-LRU blocks one, and the MLP blocks
+    one d_ff.  The MoE blocks (DeepSeek-V3) add the router (d → E), every
+    routed expert's up and gate (d → f) and down over each expert's rows as
+    ``generate`` hands them over — all ``rows`` in a prefill (``dense``
+    dispatch), its gshard capacity rows in a ``decode`` step — and the
+    shared expert's over ``rows``."""
     specs = [b for _, _, _, b in cfg.blocks()]
-    m = _one(cfg, "mixer", {dataclasses.replace(b.mixer, window=None)
-                                  for b in specs})
+    attn = [b.mixer for b in specs if isinstance(b.mixer, AttentionSpec)]
+    rec = [b.mixer for b in specs if isinstance(b.mixer, RGLRUSpec)]
+    if len(attn) + len(rec) != len(specs):
+        raise ValueError(f"{cfg.name} has blocks that are neither "
+                         "attention nor RG-LRU")
     mlps = [b.ffn for b in specs if not isinstance(b.ffn, MoESpec)]
     moes = [b.ffn for b in specs if isinstance(b.ffn, MoESpec)]
-    d, blocks = cfg.d_model, cfg.num_layers
+    d = cfg.d_model
     mlp = []
     if mlps:
         ff = _one(cfg, "d_ff", {f.d_ff for f in mlps})
@@ -102,6 +108,23 @@ def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
         if e.num_shared:
             mlp += [("shared_up_gate", rows, d, fs, 2 * n),
                     ("shared_down", rows, fs, d, n)]
+    out = []
+    if rec:
+        r, n = _one(cfg, "RG-LRU mixer", set(rec)), len(rec)
+        w = r.expand * d
+        hd = w // r.num_heads
+        out += [("in_x", rows, d, w, n), ("in_gate", rows, d, w, n),
+                ("gate_heads", rows, hd, hd, 2 * r.num_heads * n),
+                ("out", rows, w, d, n)]
+    if attn:
+        out += _attention_products(
+            _one(cfg, "mixer", {dataclasses.replace(m, window=None)
+                                for m in attn}), d, rows, len(attn), decode)
+    return out + mlp
+
+
+def _attention_products(m: AttentionSpec, d: int, rows: int, blocks: int,
+                        decode: bool) -> list:
     if m.kind == "mla":
         q = ([("q_a", rows, d, m.q_lora_rank, blocks),
               ("q_b", rows, m.q_lora_rank, m.q_dim, blocks)]
@@ -111,8 +134,8 @@ def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
              m.num_heads * (m.nope_head_dim + m.v_head_dim), blocks)]
         return [*q, ("kv_a", rows, d, m.kv_lora_rank + m.rope_head_dim,
                      blocks), *kv_b,
-                ("o", rows, m.o_in_dim, d, blocks), *mlp]
+                ("o", rows, m.o_in_dim, d, blocks)]
     hd, kv = m.q_dim, m.num_kv_heads * m.head_dim
     q_o = ([("q_o", rows, d, hd, 2 * blocks)] if hd == d else
            [("q", rows, d, hd, blocks), ("o", rows, hd, d, blocks)])
-    return [*q_o[:1], ("k_v", rows, d, kv, 2 * blocks), *q_o[1:], *mlp]
+    return [*q_o[:1], ("k_v", rows, d, kv, 2 * blocks), *q_o[1:]]

@@ -192,3 +192,49 @@ def ssd_sequential_ref(x, dt, a, b, c):
             "bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t], bh[:, t])
         ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def softplus(x):
+    """``log(1 + exp(x))`` as ``jnp.logaddexp(x, 0)`` computes it (no
+    linear branch)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def rglru_gates(xr, ga, gx, a_param, c: float):
+    """The RG-LRU's per-step decay and input, in f32: ``log_a = −c ·
+    softplus(Λ) · σ(ga)`` and ``gated = √max(1 − exp(2·log_a), 1e−12) ·
+    σ(gx) · xr``, with ga and gx the gate products with their biases."""
+    r = torch.sigmoid(ga.float())
+    i = torch.sigmoid(gx.float())
+    log_a = -c * softplus(a_param.float()) * r
+    a2 = torch.exp(2.0 * log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * i * xr.float()
+    return log_a, gated
+
+
+def rglru_scan_ref(xr, ga, gx, gate, a_param, c: float, h0=None):
+    """The RG-LRU scan kernel's function in plain PyTorch.  xr, ga, gx,
+    gate: (B, L, W) — the conv output, the two gate products with their
+    biases, the GELU branch; a_param: (W,) Λ; h0: optional (B, W) f32
+    state.  ``h_t = a_t·h_{t−1} + gated_t`` from ``h0`` (zero when None),
+    ``a_t = exp(log_a_t)`` (:func:`rglru_gates`).  Returns (y = h ⊙ gate
+    (B, L, W) f32, hT (B, W) f32).  The recurrence runs as a doubling scan
+    (log₂ L passes of the combine ``(a₁a₂, b₁a₂ + b₂)``), so that L 3072
+    takes 12 passes and not 3072 steps."""
+    log_a, h = rglru_gates(xr, ga, gx, a_param, c)
+    a = torch.exp(log_a)
+    if h0 is not None:
+        h = h.clone()
+        h[:, 0] = a[:, 0] * h0.float() + h[:, 0]
+    d, l = 1, h.shape[1]
+    while d < l:
+        nh, na = h.clone(), a.clone()
+        nh[:, d:] = h[:, :-d] * a[:, d:] + h[:, d:]
+        na[:, d:] = a[:, :-d] * a[:, d:]
+        h, a = nh, na
+        d *= 2
+    return h * gate.float(), h[:, -1]

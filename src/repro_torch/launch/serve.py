@@ -10,6 +10,8 @@
         --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v3-671b \
         --variant smoke --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --variant smoke --device cpu
 
 The weights are random, drawn from ``--seed``; the prompts are uniform
 random tokens from the same seed.  Runs on ``cuda`` unless ``--device cpu``.

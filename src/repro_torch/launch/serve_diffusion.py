@@ -45,17 +45,19 @@ CFG_SCALE = 1.5
 
 def random_params(gen: torch.Generator, cfg, *, device=None):
     """Seeded DiT parameters on ``device`` (default ``cuda``), drawn on the
-    CPU.  The adaLN-zero init zeroes the modulation and output layers,
-    which would make every prediction 0: each zero-initialized leaf gets
-    N(0,1)/√fan_in, so all blocks contribute and activations stay
-    finite."""
+    generator's device (a CPU generator gives the same parameters on every
+    device; a CUDA generator draws on the card).  The adaLN-zero init
+    zeroes the modulation and output layers, which would make every
+    prediction 0: each zero-initialized leaf gets N(0,1)/√fan_in, so all
+    blocks contribute and activations stay finite."""
     dev = resolve_device(device)
-    params = diffusion.init_params(gen, cfg, device="cpu")
+    params = diffusion.init_params(gen, cfg, device=gen.device)
 
     def perturb(a):
         if bool((a == 0).all()):
             fan_in = a.shape[-2] if a.dim() >= 2 else cfg.d_model
-            a = a + torch.randn(a.shape, generator=gen) / math.sqrt(fan_in)
+            a = a.to(gen.device) + torch.randn(
+                a.shape, generator=gen, device=gen.device) / math.sqrt(fan_in)
         return a.to(dev)
 
     return tree_map(perturb, params)

@@ -3,9 +3,10 @@
 adaLN-zero (DiT) conditioning and the SmoothCache branch-caching contract.
 The post-norms (Gemma-2) come before the branch output is recorded, so a
 cached branch is the post-normed one.  The mixer is self-attention (DiT,
-OpenSora's spatial / temporal attention, the attention LMs) or a Mamba-2
-SSD mixer; an LM's mixer carries a cache from a full-sequence pass into the
-one-token decode (a KV cache, or the SSD state).  The FFN is an MLP or a
+OpenSora's spatial / temporal attention, the attention LMs), a Mamba-2
+SSD mixer or an RG-LRU (RecurrentGemma); an LM's mixer carries a cache
+from a full-sequence pass into the one-token decode (a KV cache, the SSD
+state, or the RG-LRU's conv tail and state).  The FFN is an MLP or a
 mixture of experts (``moe_strategy``, ``moe_group_size``; its load-balance
 loss comes back with ``with_aux=True``).
 The cross branch (OpenSora) attends to a conditioning memory, with no
@@ -24,9 +25,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import BlockSpec, MoESpec, SSMSpec
+from repro_torch.config import BlockSpec, MoESpec, RGLRUSpec, SSMSpec
 from repro_torch.kernels import ops
-from repro_torch.models import attention, layers as L, mlp, moe, ssm
+from repro_torch.models import attention, layers as L, mlp, moe, rglru, ssm
 
 
 def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
@@ -36,6 +37,8 @@ def init(gen: torch.Generator, spec: BlockSpec, d_model: int,
         p["norm1"] = L.norm_init(spec.norm, d_model, dtype)
         if isinstance(spec.mixer, SSMSpec):
             p["mixer"] = ssm.init(gen, spec.mixer, d_model, dtype)
+        elif isinstance(spec.mixer, RGLRUSpec):
+            p["mixer"] = rglru.init(gen, spec.mixer, d_model, dtype)
         else:
             p["mixer"] = attention.init(gen, spec.mixer, d_model, dtype)
         if spec.post_norm:
@@ -63,8 +66,8 @@ def init_cache(spec: BlockSpec, d_model: int, batch: int,
                cache_len: Optional[int] = None, dtype=torch.float32,
                device=None):
     """Decode-time cache of this block (None for a block without a mixer):
-    an SSD state, or a KV cache of ``cache_len`` slots (at most the
-    window) whose ``slots`` (S,) hold each slot's position, -1 when
+    an SSD or RG-LRU state, or a KV cache of ``cache_len`` slots (at most
+    the window) whose ``slots`` (S,) hold each slot's position, -1 when
     empty."""
     m = spec.mixer
     if m is None:
@@ -72,6 +75,9 @@ def init_cache(spec: BlockSpec, d_model: int, batch: int,
     if isinstance(m, SSMSpec):
         return ssm.init_cache(m, d_model, batch, torch.float32,
                               device=device)
+    if isinstance(m, RGLRUSpec):
+        return rglru.init_cache(m, d_model, batch, torch.float32,
+                                device=device)
     if cache_len is None:
         raise ValueError("an attention block's cache needs cache_len")
     clen = min(cache_len, m.window) if m.window else cache_len
@@ -132,6 +138,12 @@ def apply(spec: BlockSpec, params, x, *, mode: str = "full", positions=None,
             elif isinstance(m, SSMSpec):
                 out, new_cache = ssm.apply_decode(m, params["mixer"], h,
                                                   cache, d_model)
+            elif isinstance(m, RGLRUSpec) and mode == "full":
+                out, new_cache = rglru.apply_full(m, params["mixer"], h,
+                                                  d_model)
+            elif isinstance(m, RGLRUSpec):
+                out, new_cache = rglru.apply_decode(m, params["mixer"], h,
+                                                    cache, d_model)
             elif mode == "full":
                 out, new_cache = attention.apply(
                     m, params["mixer"], h, positions=positions,

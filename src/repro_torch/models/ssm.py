@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import SSMSpec
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import softplus
 from repro_torch.models import layers as L
 
 
@@ -24,11 +25,6 @@ def dims(spec: SSMSpec, d_model: int):
     n_heads = d_inner // spec.head_dim
     conv_ch = d_inner + 2 * spec.n_groups * spec.d_state
     return d_inner, n_heads, conv_ch
-
-
-def softplus(x):
-    """``log(1 + exp(x))`` written as JAX writes it (no linear branch)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def init(gen: torch.Generator, spec: SSMSpec, d_model: int,

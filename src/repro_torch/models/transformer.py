@@ -89,15 +89,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def token_weights(params):
     """The weights of the stack's token products (q/k/v/o of self- and
-    cross-attention, MLA's q-LoRA, kv latent and o, the MLP; a MoE FFN's
-    router, every routed expert's up, gate and down and the shared
+    cross-attention, MLA's q-LoRA, kv latent and o, the RG-LRU's in_x,
+    in_gate and out and every head of its gates wa and wx, the MLP; a MoE
+    FFN's router, every routed expert's up, gate and down and the shared
     expert's), one per product as :func:`apply_stages` takes it: a block's
-    weight as the view ``a[r]`` of its stacked leaf, a routed expert's as
-    ``a[r][e]``.  The MTP head, which serving never reads, is not among
-    them."""
+    weight as the view ``a[r]`` of its stacked leaf, a routed expert's or
+    a gate head's as ``a[r][e]``.  The MTP head, which serving never reads,
+    is not among them."""
     out = []
     names = {"mixer": ("wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
-                       "wkv_b"),
+                       "wkv_b", "in_x", "in_gate", "out", "wa", "wx"),
              "cross": ("wq", "wk", "wv", "wo"),
              "ffn": ("router", "w_up", "w_gate", "w_down"),
              "shared": ("w_up", "w_gate", "w_down")}
@@ -111,7 +112,8 @@ def token_weights(params):
                     if a is None:
                         continue
                     for r in range(a.shape[0]):
-                        # routed experts: a stacked (repeat, E, K, N) leaf
+                        # routed experts, gate heads: a stacked (repeat,
+                        # E, K, N) leaf
                         out.extend(a[r] if a.dim() == 4 else [a[r]])
     return out
 
@@ -281,15 +283,15 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None, cond=None,
 def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
                      prefill_len: int, cache_dtype):
     """One block's stacked prefill cache → its decode cache.  A state cache
-    (SSM) already has the decode layout, with the leading ``(repeat,)``
-    axis on each leaf.  An attention layer's (k, v), each (repeat, B, L,
-    KV, dh), keeps the positions the decode step can still see (the last
-    ``window`` of them) in the slots that step's ring indexing gives them
-    (``pos % S`` under a window, else ``pos``), in the decode layouts k
-    (repeat, B, KV, dh, S) and v (repeat, B, KV, S, dh), with ``slots``
-    (repeat, S) holding each slot's position (-1 empty).  An MLA layer's
-    (ckv, krope), (repeat, B, L, kv_lora) and (repeat, B, L, rope), keep
-    their layout, (repeat, B, S, ·)."""
+    (SSM, RG-LRU) already has the decode layout, with the leading
+    ``(repeat,)`` axis on each leaf.  An attention layer's (k, v), each
+    (repeat, B, L, KV, dh), keeps the positions the decode step can still
+    see (the last ``window`` of them) in the slots that step's ring
+    indexing gives them (``pos % S`` under a window, else ``pos``), in the
+    decode layouts k (repeat, B, KV, dh, S) and v (repeat, B, KV, S, dh),
+    with ``slots`` (repeat, S) holding each slot's position (-1 empty).  An
+    MLA layer's (ckv, krope), (repeat, B, L, kv_lora) and (repeat, B, L,
+    rope), keep their layout, (repeat, B, S, ·)."""
     m = block_spec.mixer
     if m is None:
         return None

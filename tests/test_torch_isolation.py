@@ -37,7 +37,8 @@ need = {"repro_torch.launch.serve", "repro_torch.kernels.ssd",
         "repro_torch.configs.opensora_v12", "repro_torch.data.synthetic",
         "repro_torch.core.solvers", "repro_torch.configs.qwen3_14b",
         "repro_torch.kernels.products", "repro_torch.configs.gemma2_9b",
-        "repro_torch.configs.minicpm3_4b"}
+        "repro_torch.configs.minicpm3_4b", "repro_torch.models.rglru",
+        "repro_torch.kernels.rglru", "repro_torch.configs.recurrentgemma_2b"}
 print("MISSING", sorted(need - set(sys.modules)))
 """
 

@@ -1,4 +1,5 @@
-"""The port's flash attention against the JAX package's.
+"""The port's flash attention against the JAX package's, and on a card
+the RG-LRU scan kernel against its plain version.
 
 On the CPU: the port's plain ``flash_attention_ref`` against the Pallas
 kernel (interpret mode) and against the JAX oracle, over the sweep of
@@ -275,3 +276,45 @@ def test_cuda_kernel_is_deterministic_at_dit_shape(cuda):
     first = tfa.flash_attention_cuda(q, k, v, causal=False)
     second = tfa.flash_attention_cuda(q, k, v, causal=False)
     assert torch.equal(first, second)
+
+
+def _scan_inputs(b, l, w, with_h0, device, strided=False):
+    """Seeded RG-LRU scan inputs; ``strided``: ga and gx views of one (B,
+    L, 2W), as ``models/rglru.py`` hands them over."""
+    rng = np.random.default_rng(l + w)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    xr, gate = f(b, l, w), f(b, l, w)
+    g = f(b, l, 2 * w)
+    ga, gx = (g[..., :w], g[..., w:]) if strided else (
+        g[..., :w].contiguous(), g[..., w:].contiguous())
+    a = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.5, 0.999, w)) / 8.0)).to(device)
+    return xr, ga, gx, gate, a, (f(b, w) if with_h0 else None)
+
+
+@pytest.mark.parametrize("b,l,w,with_h0,strided", [
+    (2, 1, 2560, True, False), (2, 7, 200, False, True),
+    (1, 300, 64, True, True), (3, 1000, 96, False, False)])
+def test_cuda_rglru_scan_matches_plain(cuda, b, l, w, with_h0, strided):
+    from repro_torch.kernels import rglru
+    t = _scan_inputs(b, l, w, with_h0, cuda, strided)
+    y, h = rglru.rglru_scan_cuda(*t[:5], 8.0, t[5])
+    again = rglru.rglru_scan_cuda(*t[:5], 8.0, t[5])
+    yr, hr = ref.rglru_scan_ref(*t[:5], 8.0, t[5])
+    torch.cuda.synchronize()
+    assert torch.equal(y, again[0]) and torch.equal(h, again[1])
+    assert float((y - yr).abs().max()) <= 5e-5 * float(yr.abs().max())
+    assert float((h - hr).abs().max()) <= 5e-5 * float(hr.abs().max())
+    # a row alone gives the same bits as inside the batch
+    one = rglru.rglru_scan_cuda(*(a[-1:] for a in t[:4]), t[4], 8.0,
+                                None if t[5] is None else t[5][-1:])
+    assert torch.equal(one[0], y[-1:]) and torch.equal(one[1], h[-1:])
+
+
+def test_cuda_rglru_dispatch_launches_kernel_and_counts(cuda):
+    t = _scan_inputs(2, 5, 32, True, cuda)
+    before = ops.LAUNCHES["rglru_scan"]
+    y, _ = ops.rglru_scan(*t[:5], 8.0, t[5])
+    assert ops.LAUNCHES["rglru_scan"] == before + 1
+    close(y.cpu(), ref.rglru_scan_ref(*t[:5], 8.0, t[5])[0].cpu())
