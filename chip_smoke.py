@@ -454,12 +454,12 @@ def kernel_phase(fa, ref, peaks):
 
 # name fragments of the kernels in each library's SASS; every one of them
 # runs a product on the tensor cores but the request-row linear kernel and
-# the RG-LRU scan, which are bound by bytes and run f32 FMAs
+# the RG-LRU scan's three passes, which are bound by bytes and run f32 FMAs
 SASS_KERNELS = {"flash_attention": ("attn_fwd",),
                 "ssd": ("ssd_cb", "ssd_state", "ssd_out"),
                 "gemm": ("gemm_tokens_wgmma", "gemm_requests_ffma"),
-                "rglru": ("rglru_scan",)}
-FFMA_KERNELS = ("gemm_requests_ffma", "rglru_scan")
+                "rglru": ("rglru_summary", "rglru_carry", "rglru_output")}
+FFMA_KERNELS = ("gemm_requests_ffma",) + SASS_KERNELS["rglru"]
 # the port's linear kernels, as a profiler trace names them
 LINEAR_KERNELS = {"tokens": "gemm_tokens_wgmma",
                   "requests": "gemm_requests_ffma"}
@@ -1529,14 +1529,17 @@ def lm_linear_calls(cfg):
 
 
 def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
-                           **row):
+                           passes=None, **row):
     """The attention-LM main path: ``generate`` on ``shape`` = (prompts,
     prompt length, new tokens), greedy, cache_len prompt + new, after a
     cold run of 2 tokens — the attention kernel once an attention block in
     the prefill and never in the decode, the RG-LRU scan once an RG-LRU
     block in the prefill and in every decode step, the linear kernel once
     per product (:func:`lm_linear_calls`) in the prefill and in every
-    decode step.  Emits ``<tag>_generate`` with ``row`` added."""
+    decode step.  ``passes``, where given, reads a kernel library's own
+    launch counts by pass ({pass: launches}); the timed run's prefill and
+    decode counts go into the row as ``passes_prefill`` and
+    ``passes_decode``.  Emits ``<tag>_generate`` with ``row`` added."""
     batch, plen, gen_len = shape
     cache_len = plen + gen_len
     prompts = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1546,7 +1549,8 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
 
     def mark(phase):
         torch.cuda.synchronize()
-        marks[phase] = (time.perf_counter(), dict(ops.LAUNCHES))
+        marks[phase] = (time.perf_counter(), dict(ops.LAUNCHES),
+                        passes() if passes else {})
 
     # a first, cold generate of 2 tokens at the same shapes: what the
     # first call of each kernel and library routine costs stays out of the
@@ -1562,8 +1566,8 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
     toks = serve.generate(cfg, params, prompts, gen_len, cache_len=cache_len,
                           on_phase=mark)
     launches = dict(ops.LAUNCHES)
-    (t0, _), (t1, pre), (t2, end) = (marks["start"], marks["prefill"],
-                                     marks["decode"])
+    (t0, _, p0), (t1, pre, p1), (t2, end, p2) = (
+        marks["start"], marks["prefill"], marks["decode"])
     steps = gen_len - 1
     dec = {k: end[k] - pre[k] for k in end}
     lin_pre, lin_step = lm_linear_calls(cfg)
@@ -1573,7 +1577,11 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
            "prefill_s": t1 - t0, "decode_ms_per_step": 1e3 * (t2 - t1) / steps,
            "decode_tokens_per_s": batch * steps / (t2 - t1),
            "tokens_per_s": batch * gen_len / (t2 - t0),
-           "launches_prefill": pre, "launches_decode": dec, "cold": cold,
+           "launches_prefill": pre, "launches_decode": dec,
+           **({"passes_prefill": {k: p1[k] - p0[k] for k in p1},
+               "passes_decode": {k: p2[k] - p1[k] for k in p2}}
+              if passes else {}),
+           "cold": cold,
            "peak_device_bytes": torch.cuda.max_memory_allocated(), **row}
     emit(row)
     n_attn, n_rec = mixer_blocks(cfg)
@@ -1628,7 +1636,8 @@ def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag,
                     for k in ("flash_attention", "linear", "rglru_scan")}
         busy = sum(us for us, _ in kern.values())
         parts = {"linear": [LINEAR_KERNELS["tokens"]],
-                 "attention": ["attn_fwd"], "rglru_scan": ["rglru_scan"],
+                 "attention": ["attn_fwd"],
+                 "rglru_scan": list(SASS_KERNELS["rglru"]),
                  "cublas": ["gemm", "gemv", "cutlass", "xmma", "cublas"]}
         share = {}
         for part, frags in parts.items():
@@ -2313,21 +2322,28 @@ def _scan_inputs(gen, b, l, w):
     return [xr, g[..., :w], g[..., w:], gate, a]
 
 
-def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
+def recurrentgemma_scan_phase(rglru, ref, peaks, cfg, sass):
     """The RG-LRU scan kernel against its plain version on the card: the
-    prefill's (2, 3072, 2560) from h0 = 0 and the decode's (2, 1, 2560)
-    from a random h0, L 1, 7 and 300, W 200 (not a multiple of the
-    block), each with ga and gx strided views of one product as the model
-    hands them over, and the prefill's shape with every input contiguous
-    (≤ 5e-5 of max |y| and of max |hT|); two launches and row b against
-    row b alone bitwise; device ms at the prefill and decode shapes beside
-    the bytes bound and the plain version's.  Returns the ``kernels``
-    entry (launches filled in by the generate)."""
+    prefill's (2, 3072, 2560) from h0 = 0 and from a random h0, the
+    decode's (2, 1, 2560) from a random h0, L 1, 7 and 300, either side of
+    the chunk boundaries (L = T − 1, T, T + 1, 3T + 5 for the kernel's
+    chunk T, from a random h0), W 200 (not a multiple of the block), each
+    with ga and gx strided views of one product as the model hands them
+    over, and the prefill's shape with every input contiguous (≤ 5e-5 of
+    max |y| and of max |hT|); two launches and row b against row b alone
+    bitwise; the passes each case's first call launched, read from the
+    library's counts and held to ``rglru.plan``; device ms at the prefill
+    and decode shapes beside the bytes bound and the plain version's, and
+    the launches per call of every timed call, held the same way; per
+    pass, the device ms of a launch from a trace of 10 calls (100 at L 1)
+    with the launches the trace recorded, and the registers, stack and
+    FFMA count of the ``sass`` line.  Returns the ``kernels`` entry
+    (launches filled in by the generate)."""
     from repro_torch.kernels.timing import device_ms
     m = next(b.mixer for _, _, _, b in cfg.blocks()
              if not hasattr(b.mixer, "num_kv_heads"))
     c, w = m.c_constant, m.expand * cfg.d_model
-    bsz, l = RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT
+    bsz, l, q = RECURRENTGEMMA_BATCH, RECURRENTGEMMA_PROMPT, rglru.CHUNK
     gen = torch.Generator(device="cuda").manual_seed(SEED + 121)
     cases, timed = [], {}
     for name, (b, steps, width, with_h0, contiguous) in {
@@ -2336,13 +2352,20 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
             "decode": (bsz, 1, w, True, False),
             "l1": (bsz, 1, w, False, False), "l7": (bsz, 7, w, True, False),
             "l300": (bsz, 300, w, True, False),
-            "w200": (3, 50, 200, True, False)}.items():
+            "w200": (3, 50, 200, True, False),
+            "chunk_minus_1": (bsz, q - 1, w, True, False),
+            "chunk": (bsz, q, w, True, False),
+            "chunk_plus_1": (bsz, q + 1, w, True, False),
+            "3_chunks_plus_5": (bsz, 3 * q + 5, w, True, False),
+            "prefill_h0": (bsz, l, w, True, False)}.items():
         t = _scan_inputs(gen, b, steps, width)
         if contiguous:
             t = [a.contiguous() for a in t]
         h0 = torch.randn(b, width, generator=gen, device="cuda") \
             if with_h0 else None
+        before = rglru.launched()
         y, hT = rglru.rglru_scan_cuda(*t, c, h0)
+        launched = {k: n - before[k] for k, n in rglru.launched().items()}
         y2, hT2 = rglru.rglru_scan_cuda(*t, c, h0)
         one = rglru.rglru_scan_cuda(*(a[-1:] for a in t[:4]), t[4], c,
                                     None if h0 is None else h0[-1:])
@@ -2350,6 +2373,7 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
         torch.cuda.synchronize()
         row = {"case": name, "shape": [b, steps, width], "h0": with_h0,
                "strided_gates": not t[1].is_contiguous(),
+               "launched": launched,
                "max_abs_err": float((y - yr).abs().max()),
                "max_abs_y": float(yr.abs().max()),
                "state_max_abs_err": float((hT - hr).abs().max()),
@@ -2364,6 +2388,10 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
               f"rglru scan vs plain {row}")
         check(row["bitwise_repeat"] and row["bitwise_row_alone"],
               f"rglru scan not bitwise {row}")
+        check(launched == {k: int(k in rglru.plan(steps))
+                           for k in rglru.PASSES},
+              f"rglru scan at L {steps} launched {launched}, the plan "
+              f"{rglru.plan(steps)}")
         if name in ("prefill", "decode"):
             n = b * steps * width
             # xr, ga, gx, gate read and y written once; Λ, h0 and hT
@@ -2371,22 +2399,46 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
             ops_count = 20 * n
             t_bytes = nbytes / peaks["hbm"] * 1e3
             t_ops = ops_count / peaks["fp32"] * 1e3
+            calls = [0]
+
+            def call():
+                calls[0] += 1
+                return rglru.rglru_scan_cuda(*t, c, h0)
+
+            before = rglru.launched()
+            ms = device_ms(call, iters=20 if steps > 1 else 50)
+            per_call = {k: (n - before[k]) / calls[0]
+                        for k, n in rglru.launched().items()}
+            traced_calls = 10 if steps > 1 else 100
+            _, kern = _traced(lambda: [rglru.rglru_scan_cuda(*t, c, h0)
+                                       for _ in range(traced_calls)])
+            # a short trace late in a process drops records or comes back
+            # empty: each pass's ms is the mean of the launches it recorded
+            passes = {k: {"traced_launches": n_, "traced_calls": traced_calls,
+                          "ms_per_launch": us / 1e3 / n_}
+                      for k, (us, n_) in rglru.pass_totals(kern).items()}
             timed[name] = {
                 "shape": [b, steps, width], "bytes": nbytes,
                 "operations": ops_count,
-                "max_abs_err": row["max_abs_err"],
-                "ms": device_ms(lambda: rglru.rglru_scan_cuda(*t, c, h0),
-                                iters=20 if steps > 1 else 50),
+                "max_abs_err": row["max_abs_err"], "ms": ms,
                 "plain_ms": device_ms(lambda: ref.rglru_scan_ref(*t, c, h0),
                                       iters=3, reps=3),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None}
+                "library_ms": None,
+                "timed_calls": calls[0],
+                "launches_per_call": per_call,
+                "passes": passes}
             timed[name]["bound_share"] = (timed[name]["bound_ms"]
                                           / timed[name]["ms"])
+            check(per_call == {k: float(k in rglru.plan(steps))
+                               for k in rglru.PASSES}
+                  and set(passes) <= set(rglru.plan(steps)),
+                  f"rglru scan at L {steps}: launches per call {per_call}, "
+                  f"traced {passes}; the plan {rglru.plan(steps)}")
         del t, y, y2, hT, hT2, one, yr, hr
-    emit({"phase": "recurrentgemma_scan", "limit": 5e-5, "cases": cases,
-          "times": timed,
+    emit({"phase": "recurrentgemma_scan", "limit": 5e-5, "chunk": q,
+          "cases": cases, "times": timed, "sass": sass,
           "library": "none: no single PyTorch call computes a gated "
                      "linear recurrence"})
     pre = timed["prefill"]
@@ -2395,12 +2447,13 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg):
             "replaces": "no TPU kernel: jax.lax.associative_scan, which "
                         "XLA fuses into the layer on the TPU "
                         "(src/repro/models/rglru.py:98); added so the "
-                        "recurrence reads its inputs once",
-            "shape": pre["shape"], "dtype": "float32",
+                        "recurrence runs on every SM as a chunked scan",
+            "shape": pre["shape"], "dtype": "float32", "chunk": q,
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": pre["ms"], "plain_ms": pre["plain_ms"],
             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
-            "library_ms": None, "decode": timed["decode"],
+            "library_ms": None, "passes": pre["passes"],
+            "decode": timed["decode"],
             "bytes": pre["bytes"], "operations": pre["operations"]}
 
 
@@ -2473,7 +2526,8 @@ def recurrentgemma_phase(peaks, kernels, sass):
     from repro_torch.models import transformer as T
     t_phase = time.perf_counter()
     cfg = configs.get("recurrentgemma-2b")
-    scan = recurrentgemma_scan_phase(rglru, ref, peaks, cfg)
+    scan = recurrentgemma_scan_phase(rglru, ref, peaks, cfg,
+                                     sass["rglru"])
     attn, products = recurrentgemma_kernel_phase(fa, ref, gemm, peaks, cfg,
                                                  sass)
     params, weight_bytes, prepared = lm_params_phase(cfg, serve, T,
@@ -2487,12 +2541,26 @@ def recurrentgemma_phase(peaks, kernels, sass):
     width = cfg.d_model
     prompts, toks, launches, row = attn_lm_generate_phase(
         cfg, serve, params, ops, (b, plen, RECURRENTGEMMA_GEN), SEED + 124,
-        "recurrentgemma", weight_bytes=weight_bytes, prepared_bytes=prepared,
+        "recurrentgemma", passes=rglru.launched, weight_bytes=weight_bytes,
+        prepared_bytes=prepared,
         # per RG-LRU block: the conv tail (3 steps) and h, f32; per
         # attention block: k and v over the window's 2048 slots
         state_cache_bytes=4 * n_rec * b * 4 * width,
         kv_cache_bytes=4 * n_attn * b * 2 * m.window * m.num_kv_heads
         * m.head_dim)
+    # the scan's passes as the library counted them in the generate: the
+    # plan of a prompt's length once an RG-LRU block in the prefill, a
+    # step's in every decode step
+    steps = RECURRENTGEMMA_GEN - 1
+    per_call = {"prefill": {k: v / n_rec
+                            for k, v in row["passes_prefill"].items()},
+                "decode": {k: v / (n_rec * steps)
+                           for k, v in row["passes_decode"].items()}}
+    for part, l in (("prefill", plen), ("decode", 1)):
+        check(per_call[part] == {k: float(k in rglru.plan(l))
+                                 for k in rglru.PASSES},
+              f"rglru scan in the generate's {part}: launches per call "
+              f"{per_call[part]}, the plan {rglru.plan(l)}")
     lm_decode_consistency_phase(cfg, T, params, prompts, toks,
                                 name="recurrentgemma_decode_consistency")
     profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
@@ -2505,6 +2573,16 @@ def recurrentgemma_phase(peaks, kernels, sass):
           "note": "the conv timed apart on one block's weights, times the "
                   "RG-LRU blocks: a part of the trace's elementwise ms"})
     scan["launches"] = launches["rglru_scan"]
+    scan["launches_per_call"] = {k: sum(v.values())
+                                 for k, v in per_call.items()}
+    scan["passes_launched"] = {"prefill": row["passes_prefill"],
+                               "decode": row["passes_decode"]}
+    # the profile's traced prefill and 4 decode steps, beside the calls
+    # they made (a trace may drop records: read, not held)
+    scan["traced_launches_per_call"] = {
+        part: profile[k]["kernels_in_trace"]["rglru_scan"]
+        / profile[k]["launched"]["rglru_scan"]
+        for part, k in (("prefill", "prefill"), ("decode", "decode_4_steps"))}
     scan["profile_prefill_ms"] = profile["prefill"]["ms"]["rglru_scan"]
     kernels["rglru_scan"] = scan
     kernels["flash_attention"]["recurrentgemma"] = attn

@@ -238,3 +238,37 @@ def rglru_scan_ref(xr, ga, gx, gate, a_param, c: float, h0=None):
         h, a = nh, na
         d *= 2
     return h * gate.float(), h[:, -1]
+
+
+def rglru_scan_chunked_ref(xr, ga, gx, gate, a_param, c: float, h0=None,
+                           chunk: int = 32):
+    """The RG-LRU scan as the kernel (``rglru.cu``) decomposes it, in plain
+    PyTorch; the function of :func:`rglru_scan_ref`.  L is cut into chunks
+    of ``chunk`` steps (the last padded with a = 1 and no input, which keep
+    h): each chunk's product of a and its end state from h = 0; the
+    carries in chunk order from ``h0`` (zero when None), carry₍c+1₎ =
+    prod_c · carry_c + end_c; then each chunk's steps again from its
+    carry.  Returns (y (B, L, W) f32, hT (B, W) f32)."""
+    log_a, g = rglru_gates(xr, ga, gx, a_param, c)
+    a = torch.exp(log_a)
+    bs, l, w = a.shape
+    n = -(-l // chunk)
+    pad = n * chunk - l
+    a = torch.nn.functional.pad(a, (0, 0, 0, pad), value=1.0)
+    g = torch.nn.functional.pad(g, (0, 0, 0, pad))
+    a, g = a.view(bs, n, chunk, w), g.view(bs, n, chunk, w)
+    prod = torch.ones(bs, n, w, device=a.device)
+    end = torch.zeros(bs, n, w, device=a.device)
+    for t in range(chunk):
+        end = a[:, :, t] * end + g[:, :, t]
+        prod = prod * a[:, :, t]
+    carry = [torch.zeros(bs, w, device=a.device) if h0 is None
+             else h0.float()]
+    for k in range(n - 1):
+        carry.append(prod[:, k] * carry[-1] + end[:, k])
+    h, hs = torch.stack(carry, 1), []
+    for t in range(chunk):
+        h = a[:, :, t] * h + g[:, :, t]
+        hs.append(h)
+    h = torch.stack(hs, 2).reshape(bs, n * chunk, w)[:, :l]
+    return h * gate.float(), h[:, -1]

@@ -295,11 +295,18 @@ def _scan_inputs(b, l, w, with_h0, device, strided=False):
 
 @pytest.mark.parametrize("b,l,w,with_h0,strided", [
     (2, 1, 2560, True, False), (2, 7, 200, False, True),
-    (1, 300, 64, True, True), (3, 1000, 96, False, False)])
+    (1, 300, 64, True, True), (3, 1000, 96, False, False),
+    # either side of the kernel's chunk boundaries (chunks of 32)
+    (2, 31, 2560, True, True), (2, 32, 2560, True, True),
+    (2, 33, 2560, True, True), (2, 101, 2560, True, True)])
 def test_cuda_rglru_scan_matches_plain(cuda, b, l, w, with_h0, strided):
     from repro_torch.kernels import rglru
     t = _scan_inputs(b, l, w, with_h0, cuda, strided)
+    before = rglru.launched()
     y, h = rglru.rglru_scan_cuda(*t[:5], 8.0, t[5])
+    # one launch of each pass of the plan, counted by the library
+    assert {k: n - before[k] for k, n in rglru.launched().items()} == {
+        k: int(k in rglru.plan(l)) for k in rglru.PASSES}
     again = rglru.rglru_scan_cuda(*t[:5], 8.0, t[5])
     yr, hr = ref.rglru_scan_ref(*t[:5], 8.0, t[5])
     torch.cuda.synchronize()

@@ -16,6 +16,7 @@ token for token.
 """
 import dataclasses
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from repro_torch.config import RGLRUSpec
 from repro_torch.configs.common import smoke_variant as tsmoke_variant
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import products, ref
+from repro_torch.kernels import rglru as krglru
 from repro_torch.launch import serve as tserve
 from repro_torch.models import blocks as tblocks, rglru as trglru
 from repro_torch.models import transformer as tT
@@ -133,12 +135,10 @@ def _gate_products(spec, p, xr):
             jrglru._block_diag(p["wx"], xr, nh) + p["bx"])
 
 
-@pytest.mark.parametrize("b,l,w,heads", [(2, 1, 16, 2), (2, 7, 32, 4),
-                                         (1, 40, 24, 3), (3, 64, 64, 2),
-                                         (2, 300, 40, 5)])
-@pytest.mark.parametrize("with_h0", [False, True])
-def test_scan_ref_matches_jax_gates_and_associative_scan(b, l, w, heads,
-                                                          with_h0):
+@functools.lru_cache(maxsize=None)
+def _scan_case(b, l, w, heads, with_h0):
+    """One scan case's numpy inputs, the JAX gate products and the JAX
+    package's (y, hT), computed once for every ``impl``."""
     spec, p = _numpy_mixer(heads, w, spread=True)
     pj = jax.tree.map(jnp.asarray, p)
     xr = _rand(b, l, w, seed=l)
@@ -147,9 +147,38 @@ def test_scan_ref_matches_jax_gates_and_associative_scan(b, l, w, heads,
     ga, gx = _gate_products(spec, pj, jnp.asarray(xr))
     yj, hj = _jax_scan(spec, pj, jnp.asarray(xr), jnp.asarray(gate),
                        None if h0 is None else jnp.asarray(h0))
-    yt, ht = ref.rglru_scan_ref(_t(xr), _t(ga), _t(gx), _t(gate),
-                                _t(p["a_param"]), spec.c_constant,
-                                None if h0 is None else _t(h0))
+    return spec, p, xr, gate, h0, np.asarray(ga), np.asarray(gx), yj, hj
+
+
+T = krglru.CHUNK
+# the plain scans: the doubling scan, and the kernel's chunked decomposition
+# at chunk lengths 1, 7, the kernel's, 64 and one past L
+SCAN_IMPLS = ["doubling", "chunk1", "chunk7", f"chunk{T}", "chunk64",
+              "chunk_past_l"]
+
+
+def _scan_impl(impl, l):
+    if impl == "doubling":
+        return ref.rglru_scan_ref
+    chunk = l + 1 if impl == "chunk_past_l" else int(impl[5:])
+    return functools.partial(ref.rglru_scan_chunked_ref, chunk=chunk)
+
+
+@pytest.mark.parametrize("b,l,w,heads", [
+    (2, 1, 16, 2), (2, 7, 32, 4), (1, 40, 24, 3), (3, 64, 64, 2),
+    (2, 300, 40, 5),
+    # either side of the kernel's chunk boundaries
+    (2, T - 1, 32, 2), (1, T, 24, 3), (2, T + 1, 16, 2),
+    (2, 3 * T + 5, 40, 5)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("impl", SCAN_IMPLS)
+def test_scan_ref_matches_jax_gates_and_associative_scan(b, l, w, heads,
+                                                          with_h0, impl):
+    spec, p, xr, gate, h0, ga, gx, yj, hj = _scan_case(b, l, w, heads,
+                                                       with_h0)
+    yt, ht = _scan_impl(impl, l)(_t(xr), _t(ga), _t(gx), _t(gate),
+                                 _t(p["a_param"]), spec.c_constant,
+                                 None if h0 is None else _t(h0))
     assert yt.dtype == ht.dtype == torch.float32
     assert yt.shape == (b, l, w) and ht.shape == (b, w)
     close(yj, yt)
@@ -556,11 +585,11 @@ def test_ops_rglru_scan_takes_the_plain_version_on_the_cpu():
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "stride", "shape", "h0",
-                                 "a_param"])
+                                 "a_param", "grid"])
 def test_kernel_wrapper_refuses_what_it_does_not_take(bad):
     """Every refusal but the device's shows on CPU tensors; a strided W
-    axis is refused, never copied."""
-    from repro_torch.kernels import rglru as krglru
+    axis is refused, never copied; past the grid's 2^31 - 1 blocks (stride-0
+    views, so nothing that large is allocated)."""
     t = [_t(_rand(2, 5, 8, seed=s)) for s in range(4)]
     a, h0 = _t(_rand(8, seed=4)), None
     match = "CUDA"
@@ -574,5 +603,99 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(bad):
         h0, match = _t(_rand(3, 8, seed=5)), "h0"
     elif bad == "a_param":
         a, match = a[:7], "a_param"
+    elif bad == "grid":
+        # 2^16 rows × 2^16 chunks × one tile of channels = 2^32 blocks
+        big = torch.zeros(1, 1, 8).expand(2 ** 16, 2 ** 16 * T, 8)
+        t, match = [big] * 4, "grid"
+        assert krglru.blocks(*big.shape) > krglru.MAX_GRID_X
     with pytest.raises(ValueError, match=match):
         krglru.rglru_scan_cuda(*t, a, 8.0, h0)
+
+
+@pytest.mark.parametrize("b,l,w", [(65536, 1, 8), (2, 2 ** 20, 2560),
+                                   (1, 2 ** 31 - 1, 1)])
+def test_kernel_wrapper_takes_what_its_grid_holds(b, l, w):
+    """Shapes under the grid's limit reach the device check, a batch past
+    65535 among them (stride-0 views on the CPU)."""
+    assert krglru.blocks(b, l, w) <= krglru.MAX_GRID_X
+    big = torch.zeros(1, 1, w).expand(b, l, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        krglru.rglru_scan_cuda(big, big, big, big, torch.zeros(w), 8.0)
+
+
+def test_kernel_constants_match_the_source():
+    """The wrapper's chunk and block width are the ones ``rglru.cu`` is
+    compiled with (the built library's chunk is checked again on load)."""
+    src = krglru.SOURCE.read_text()
+    for name in ("CHUNK", "THREADS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(krglru, name), name
+
+
+@pytest.mark.parametrize("l,launches,chunks", [
+    (1, 1, 1), (T - 1, 1, 1), (T, 1, 1), (T + 1, 3, 2), (3 * T + 5, 3, 4),
+    (3072, 3, -(-3072 // T))])
+def test_kernel_plan_by_length(l, launches, chunks):
+    """One launch and no scratch up to a chunk (a decode step); past it
+    three, with summaries for every chunk but the last."""
+    assert len(krglru.plan(l)) == launches
+    assert krglru.plan(l)[-1] == "rglru_output"
+    assert krglru.scratch_shape(2, l, 2560) == (2, chunks - 1, 2560)
+    assert krglru.blocks(2, l, 2560) == 2 * chunks * 20
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_rglru_ab_variant_is_the_source_at_another_chunk(chunk):
+    """``rglru_ab --chunks`` builds the current source with only its chunk
+    length changed."""
+    from repro_torch.kernels import rglru_ab
+    src = krglru.SOURCE.read_text()
+    var = rglru_ab.variant_source(chunk)
+    assert f"constexpr int CHUNK = {chunk};" in var
+    assert var.replace(f"CHUNK = {chunk};", f"CHUNK = {T};") == src
+
+
+def test_rglru_ab_needs_a_card(monkeypatch, tmp_path):
+    from repro_torch.kernels import rglru_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        rglru_ab.main([str(tmp_path / "rglru.cu")])
+
+
+def test_pass_totals_sum_a_trace_by_pass():
+    """A trace's device time and launches are summed by the scan's three
+    passes; other kernels are left out."""
+    kern = {"(anonymous namespace)::rglru_summary(Args)": [30.0, 10],
+            "(anonymous namespace)::rglru_carry(Args)": [4.0, 10],
+            "(anonymous namespace)::rglru_output(Args)": [50.0, 9],
+            "rglru_output(Args)": [5.0, 1],
+            "void at::native::elementwise_kernel<128, 2>": [7.0, 3]}
+    assert krglru.pass_totals(kern) == {"rglru_summary": [30.0, 10],
+                                        "rglru_carry": [4.0, 10],
+                                        "rglru_output": [55.0, 10]}
+    assert krglru.pass_totals({}) == {}
+
+
+def test_passes_are_the_sources_kernels_in_launch_order():
+    """``PASSES`` names ``rglru.cu``'s kernels in the order the entry point
+    launches them, and the library exports its count of each."""
+    src = krglru.SOURCE.read_text()
+    assert re.findall(r"__global__ void.*?\b(rglru_\w+)\(", src) == list(
+        krglru.PASSES)
+    entry = src[src.index('extern "C" int rglru_scan_f32'):]
+    order = [entry.index(f"{k}<<<") for k in krglru.PASSES]
+    assert order == sorted(order)
+    for i, k in enumerate(krglru.PASSES):
+        launch = entry.index(f"{k}<<<")
+        assert entry.index(f"++launched[{i}]", launch) < min(
+            [entry.index(f"{n}<<<") for n in krglru.PASSES[i + 1:]]
+            or [len(entry)])
+    assert 'extern "C" void rglru_launched(long long* out)' in src
+
+
+def test_chip_smoke_names_the_scan_passes():
+    """``chip_smoke.py`` reads the SASS of the scan's three passes and
+    holds each to f32 FMAs."""
+    import chip_smoke as cs
+    assert cs.SASS_KERNELS["rglru"] == krglru.PASSES
+    assert set(cs.SASS_KERNELS["rglru"]) <= set(cs.FFMA_KERNELS)
