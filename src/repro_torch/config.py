@@ -169,6 +169,10 @@ class ModelConfig:
     max_seq_len: int = 8192
     logit_softcap: Optional[float] = None   # final logit soft-capping
     embed_scale: bool = False            # scale embeddings by sqrt(d)
+    # multi-codebook token IO (musicgen): K codebooks share the embedding sum
+    num_codebooks: int = 1
+    # prepended continuous embeddings (VLM patches / audio frames); 0 = none
+    num_prefix_embeds: int = 0
     # DeepSeek-style multi-token prediction depth (an extra training head;
     # serving never reads it)
     mtp_depth: int = 0

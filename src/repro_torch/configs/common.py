@@ -53,7 +53,8 @@ def smoke_variant(cfg: ModelConfig, d_model: int = 128,
                   unit_repeats: int = 1) -> ModelConfig:
     """Reduced same-family variant: one unit per stage repeated at most
     ``unit_repeats`` times, d_model ≤ 512, ≤ 4 experts with top-k ≤ 2, 8×8
-    image latents, a memory of at most 64 wide."""
+    image latents, a memory of at most 64 wide, at most 8 prefix
+    embeddings; the codebooks as they are."""
     if d_model > 512:
         raise ValueError(f"smoke d_model must be <= 512, got {d_model}")
     stages = []
@@ -69,5 +70,6 @@ def smoke_variant(cfg: ModelConfig, d_model: int = 128,
         vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else cfg.vocab_size,
         stages=tuple(stages), max_seq_len=min(cfg.max_seq_len, 256),
         cond_dim=min(cfg.cond_dim, 64) if cfg.cond_dim else 0,
+        num_prefix_embeds=min(cfg.num_prefix_embeds, 8),
         latent_shape=_shrink_latent(cfg.latent_shape), swa_window=16,
         dtype="float32")

@@ -1,12 +1,14 @@
-"""Synthetic conditioning: a stub of a T5-style text memory (drawn from a
-generator, or per prompt for a serving engine's ``text_encoder``), and
-text-conditioned latents whose low-frequency content is a linear readout
-of that memory (the JAX package's ``repro.data.synthetic``).
+"""Synthetic data (the JAX package's ``repro.data.synthetic``): token
+streams for the LMs, with a planted bigram and, for MusicGen, a token per
+codebook; a stub of a T5-style text memory (drawn from a generator, or per
+prompt for a serving engine's ``text_encoder``); a stub of a ViT's patch
+embeddings, the prefix of InternVL2 and Llama-4; and text-conditioned
+latents whose low-frequency content is a linear readout of that memory.
 
 Drawn on the CPU from a ``torch.Generator``, so a seed gives the same bits
 on every device, then moved to the device (``cuda`` unless the caller
 passes ``device="cpu"``).  The bits differ from JAX's: parity tests feed
-numpy memory to both packages.
+numpy memory, prompts and prefixes to both packages.
 """
 from __future__ import annotations
 
@@ -19,6 +21,48 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+def _step_generator(seed: int, step: int) -> torch.Generator:
+    """A CPU generator for (seed, step), the same on every host."""
+    return torch.Generator().manual_seed(
+        int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """LM token batches with planted structure: with probability 0.5 a
+    token is (previous * 31 + 7) mod V, else uniform (the previous of
+    position 0 is the last, as the JAX package's ``roll`` gives)."""
+    vocab_size: int
+    seq_len: int
+    batch: int
+    num_codebooks: int = 1
+    seed: int = 0
+
+    def batch_at(self, step: int, *, device=None):
+        """(tokens, targets), each (batch, seq_len) or (batch, seq_len, K)
+        int64, targets the tokens shifted by one; the same for the same
+        (seed, step)."""
+        dev = resolve_device(device)
+        gen = _step_generator(self.seed, step)
+        shape = (self.batch, self.seq_len + 1)
+        if self.num_codebooks > 1:
+            shape = shape + (self.num_codebooks,)
+        v = self.vocab_size
+        base = torch.randint(0, v, shape, generator=gen)
+        copy = (torch.roll(base, 1, dims=1) * 31 + 7) % v
+        mask = torch.rand(shape, generator=gen) < 0.5
+        toks = torch.where(mask, copy, base).to(dev)
+        return toks[:, :-1], toks[:, 1:]
+
+
+def vit_patch_embeds(generator: torch.Generator, batch: int,
+                     num_patches: int, dim: int, *, device=None):
+    """Precomputed ViT patch embeddings (InternViT, Llama-4's early
+    fusion): N(0, 0.02²) of shape (batch, num_patches, dim)."""
+    emb = torch.randn((batch, num_patches, dim), generator=generator) * 0.02
+    return emb.to(resolve_device(device))
 
 
 def text_memory(generator: torch.Generator, batch: int, length: int,
@@ -59,9 +103,7 @@ class CondLatents:
         """(x0 (batch, *latent_shape), memory (batch, cond_len,
         cond_dim)), float32, the same for the same (seed, step)."""
         dev = resolve_device(device)
-        seed = int(np.random.SeedSequence([self.seed, step])
-                   .generate_state(1)[0])
-        gen = torch.Generator().manual_seed(seed)
+        gen = _step_generator(self.seed, step)
         memory = torch.randn((self.batch, self.cond_len, self.cond_dim),
                              generator=gen)
         n = math.prod(self.latent_shape)

@@ -62,20 +62,27 @@ def _one(cfg: ModelConfig, what: str, widths: set):
     return next(iter(widths))
 
 
-def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
+def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False,
+                memory_rows: int = 0) -> list:
     """An LM's products over ``rows`` token rows as ``(name, M, K, N, calls
     per forward)``, the calls of each kind of block counted over the blocks
     of that kind.  GQA: q (d → H · dh), k and v (N = KV · dh), o (H · dh →
-    d), the gated MLP's up and gate, and down; where H · dh = d, q and o
-    are one shape, ``"q_o"``.  MLA: the q-LoRA's q_a (d → q_lora) and q_b
-    (q_lora → H · (nope + rope)), or a full-rank q, kv_a (d → kv_lora +
-    rope), kv_b (kv_lora → H · (nope + v)) in a prefill only (a ``decode``
-    step folds it into the attention einsums), o (H · v → d) and the MLP.
+    d), the gated MLP's up and gate (an ungated one's up alone, ``"up"``),
+    and down; where H · dh = d, q and o are one shape, ``"q_o"``.  A
+    cross-attention branch (MusicGen) adds its q and o over the rows
+    (``"cross_q_o"``, or ``"cross_q"`` and ``"cross_o"``) and its k and v
+    over the memory's ``memory_rows`` rows (cond_dim → KV · dh,
+    ``"cross_k_v"``), in a prefill and in every decode step alike.  MLA:
+    the q-LoRA's q_a (d → q_lora) and q_b (q_lora → H · (nope + rope)), or
+    a full-rank q, kv_a (d → kv_lora + rope), kv_b (kv_lora → H · (nope +
+    v)) in a prefill only (a ``decode`` step folds it into the attention
+    einsums), o (H · v → d) and the MLP.
     RG-LRU (RecurrentGemma's recurrent blocks): in_x and in_gate (d → W),
     the two gate products of every head (hd → hd, ``"gate_heads"``) and out
     (W → d).  The attention blocks have one set of mixer widths (Gemma-2's
-    differ only in the window), the RG-LRU blocks one, and the MLP blocks
-    one d_ff.  The MoE blocks (DeepSeek-V3) add the router (d → E), every
+    and Llama-4's differ only in the window and the position embedding),
+    the cross branches one, the RG-LRU blocks one, and the MLP blocks one
+    d_ff.  The MoE blocks (DeepSeek-V3) add the router (d → E), every
     routed expert's up and gate (d → f) and down over each expert's rows as
     ``generate`` hands them over — all ``rows`` in a prefill (``dense``
     dispatch), its gshard capacity rows in a ``decode`` step — and the
@@ -91,8 +98,9 @@ def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
     d = cfg.d_model
     mlp = []
     if mlps:
-        ff = _one(cfg, "d_ff", {f.d_ff for f in mlps})
-        mlp = [("up_gate", rows, d, ff, 2 * len(mlps)),
+        ff, gated = _one(cfg, "d_ff", {(f.d_ff, f.gated) for f in mlps})
+        mlp = [("up_gate", rows, d, ff, 2 * len(mlps)) if gated
+               else ("up", rows, d, ff, len(mlps)),
                ("down", rows, ff, d, len(mlps))]
     if moes:
         e = _one(cfg, "experts", set(moes))
@@ -118,8 +126,20 @@ def lm_products(cfg: ModelConfig, rows: int, *, decode: bool = False) -> list:
                 ("out", rows, w, d, n)]
     if attn:
         out += _attention_products(
-            _one(cfg, "mixer", {dataclasses.replace(m, window=None)
+            _one(cfg, "mixer", {dataclasses.replace(m, window=None,
+                                                    pos_emb="none")
                                 for m in attn}), d, rows, len(attn), decode)
+    cross = [b.cross for b in specs if b.cross is not None]
+    if cross:
+        if not memory_rows:
+            raise ValueError(f"{cfg.name}'s cross-attention needs "
+                             "memory_rows")
+        c, n = _one(cfg, "cross", set(cross)), len(cross)
+        hd, kv = c.q_dim, c.num_kv_heads * c.head_dim
+        q_o = ([("cross_q_o", rows, d, hd, 2 * n)] if hd == d else
+               [("cross_q", rows, d, hd, n), ("cross_o", rows, hd, d, n)])
+        out += [*q_o[:1], ("cross_k_v", memory_rows, cfg.cond_dim or d, kv,
+                           2 * n), *q_o[1:]]
     return out + mlp
 
 

@@ -12,9 +12,18 @@
         --variant smoke --device cpu
     python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --variant smoke --device cpu
+    python -m repro_torch.launch.serve --arch musicgen-medium \
+        --variant smoke --device cpu
+    python -m repro_torch.launch.serve --arch internvl2-1b \
+        --variant smoke --device cpu
 
-The weights are random, drawn from ``--seed``; the prompts are uniform
-random tokens from the same seed.  Runs on ``cuda`` unless ``--device cpu``.
+The weights are random, drawn from ``--seed``; the prompts come from a
+``TokenStream`` of the same seed ((B, L, K) for K codebooks), and a model
+with cross-attention (``cond_dim``) gets a 16-token text-memory stub.  As
+in the JAX package, ``generate`` takes no prefix embeddings: a prefix
+model (InternVL2, Llama-4) generates from its tokens alone here, and with
+a prefix through ``launch.programs``.  Runs on ``cuda`` unless ``--device
+cpu``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.data.synthetic import TokenStream, text_memory
 from repro_torch.models import transformer as T
 
 
@@ -42,7 +52,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _pick(logits, temperature: float, generator):
-    """logits (B, 1, V) → tokens (B, 1): argmax, or a sample at
+    """logits (B, 1, V) → tokens (B, 1), or (B, 1, K, V) → (B, 1, K) for
+    K codebooks: argmax, or a sample at
     ``temperature`` by Gumbel-max with noise drawn from ``generator``."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1)
@@ -53,13 +64,16 @@ def _pick(logits, temperature: float, generator):
 
 
 def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
-             cache_len: Optional[int] = None, temperature: float = 0.0,
-             generator=None, device=None, on_phase=None):
+             memory=None, cache_len: Optional[int] = None,
+             temperature: float = 0.0, generator=None, device=None,
+             on_phase=None):
     """Greedy or temperature batched generation on ``device`` (default
-    ``cuda``), where ``params`` must lie.  prompts: (B, L) tokens.  Returns
-    (B, gen_len) new tokens; decode step i runs at position L + i against
-    KV caches of ``cache_len`` slots (default L + gen_len; a state-cache
-    model has none).  Sampling (``temperature > 0``) needs an explicit
+    ``cuda``), where ``params`` must lie.  prompts: (B, L) tokens, or (B, L,
+    K) for K codebooks.  Returns (B, gen_len[, K]) new tokens; decode step
+    i runs at position L + i against KV caches of ``cache_len`` slots
+    (default L + gen_len; a state-cache model has none).  ``memory`` (B,
+    Lm, cond_dim) feeds the cross-attention branches in the prefill and in
+    every decode step.  Sampling (``temperature > 0``) needs an explicit
     ``torch.Generator``.  ``on_phase``, if given, is called with
     ``"prefill"`` once the prompts are prefilled and the first token is
     picked, and with ``"decode"`` at the end.  As in the JAX package, a
@@ -75,13 +89,14 @@ def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
     plen = prompts.shape[1]
     logits, caches = T.prefill(cfg, params, prompts,
                                cache_len=cache_len or plen + gen_len,
-                               moe_strategy="dense")
+                               memory=memory, moe_strategy="dense")
     tok = _pick(logits[:, -1:], temperature, generator)
     if on_phase is not None:
         on_phase("prefill")
     out = [tok]
     for i in range(gen_len - 1):
-        lg, caches = T.decode_step(cfg, params, tok, caches, pos=plen + i)
+        lg, caches = T.decode_step(cfg, params, tok, caches, pos=plen + i,
+                                   memory=memory)
         tok = _pick(lg, temperature, generator)
         out.append(tok)
     if on_phase is not None:
@@ -107,8 +122,12 @@ def main(argv=None):
     params = init_params(torch.Generator().manual_seed(args.seed), cfg,
                          device=dev)
     gen = torch.Generator().manual_seed(args.seed + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen).to(dev)
+    prompts, _ = TokenStream(cfg.vocab_size, args.prompt_len, args.batch,
+                             num_codebooks=cfg.num_codebooks,
+                             seed=args.seed).batch_at(0, device=dev)
+    memory = (text_memory(torch.Generator().manual_seed(args.seed + 3),
+                          args.batch, 16, cfg.cond_dim, device=dev)
+              if cfg.cond_dim else None)
     marks = {}
 
     def mark(phase):
@@ -117,7 +136,7 @@ def main(argv=None):
         marks[phase] = time.perf_counter()
 
     mark("start")
-    toks = generate(cfg, params, prompts, args.gen,
+    toks = generate(cfg, params, prompts, args.gen, memory=memory,
                     temperature=args.temperature, generator=gen,
                     device=dev, on_phase=mark)
     prefill_s = marks["prefill"] - marks["start"]

@@ -323,7 +323,9 @@ def apply(spec: AttentionSpec, params, x, *, positions=None, mode="full",
     "spatial" attends within each frame, as (B·T, S) with positions
     ``arange(S)``; "temporal" within each spatial location, as (B·S, T)
     with positions ``arange(T)``.  Decode mode: x (B, 1, D) at position
-    ``pos`` (an int) against ``cache`` with ``slot_pos``."""
+    ``pos`` (an int) against ``cache`` with ``slot_pos``; a cross layer's
+    one row over the whole ``memory``, its cache returned as given (the
+    blocks run the cross branch in full mode, which computes the same)."""
     if spec.kind not in ("gqa", "mla"):
         raise ValueError(f"unknown attention kind {spec.kind!r}")
     if spec.kind == "mla":
@@ -334,10 +336,12 @@ def apply(spec: AttentionSpec, params, x, *, positions=None, mode="full",
         if spec.cross or spec.pattern is not None:
             raise ValueError("MLA is causal self-attention over tokens")
         return _mla_full(spec, params, x, positions)
+    if mode == "decode" and spec.cross:
+        # the new token's query over the whole memory; nothing is cached
+        if memory is None:
+            raise ValueError("a cross-attention layer needs memory=")
+        return _gqa_full(spec, params, x, memory=memory)[0], cache
     if mode == "decode":
-        if spec.cross:
-            raise NotImplementedError("cross-attention decode is not "
-                                      "ported")
         return _gqa_decode(spec, params, x, pos, cache, slot_pos)
     if mode != "full":
         raise ValueError(f"unknown attention mode {mode!r}")

@@ -82,7 +82,9 @@ def gelu_tanh(x):
 
 
 def activation(name: str):
-    return {"silu": F.silu, "gelu": F.gelu, "gelu_tanh": gelu_tanh,
+    """The JAX package's activations: its ``"gelu"`` is ``jax.nn.gelu``,
+    whose default is the tanh approximation, as ``"gelu_tanh"``."""
+    return {"silu": F.silu, "gelu": gelu_tanh, "gelu_tanh": gelu_tanh,
             "relu": F.relu}[name]
 
 

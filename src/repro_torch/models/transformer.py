@@ -13,6 +13,14 @@ Entry points
   prefill(cfg, params, tokens[, cache_len=])    # forward + decode caches
   decode_step(cfg, params, token, caches[, pos=])  # one AR token
 
+An LM's tokens are (B, L), or (B, L, K) for K codebooks (MusicGen: the
+codebooks' embeddings summed, one head each, logits (B, L, K, V)).
+``prefix_embeds`` (B, P, d) — precomputed patch embeddings (InternVL2,
+Llama-4) — go in front of the embedded tokens in ``forward`` and
+``prefill``; the prefill's length counts them.  ``memory`` (B, Lm,
+cond_dim) feeds every cross-attention branch, in the full forward and in
+each decode step.
+
 A state-cache (SSM) model decodes without positions; an attention model's
 KV caches need the cache length (``cache_len``) and each decode step its
 position (``pos``).  A mixture-of-experts FFN dispatches by
@@ -59,7 +67,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     """Seeded parameters drawn from ``gen`` in a fixed order, on the
     generator's device (the zero and one leaves on the CPU)."""
     p: Dict[str, Any] = {}
-    if cfg.task == "lm":
+    if cfg.task == "lm" and cfg.num_codebooks > 1:
+        # one embedding table (K, V, d) and one head (K, d, V) a codebook
+        k, v, d = cfg.num_codebooks, cfg.vocab_size, cfg.d_model
+        p["embed"] = torch.stack([L.embed_init(gen, v, d, dtype)
+                                  for _ in range(k)])
+        p["heads"] = torch.stack([L.dense_init(gen, d, v, dtype)
+                                  for _ in range(k)])
+    elif cfg.task == "lm":
         p["embed"] = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
         if not cfg.tie_embeddings:
             p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
@@ -95,7 +110,8 @@ def token_weights(params):
     expert's), one per product as :func:`apply_stages` takes it: a block's
     weight as the view ``a[r]`` of its stacked leaf, a routed expert's or
     a gate head's as ``a[r][e]``.  The MTP head, which serving never reads,
-    is not among them."""
+    is not among them, nor the embedding and the LM head or the codebook
+    heads, which the token kernel never takes."""
     out = []
     names = {"mixer": ("wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
                        "wkv_b", "in_x", "in_gate", "out", "wa", "wx"),
@@ -147,19 +163,43 @@ def init_caches(cfg: ModelConfig, batch: int,
 # Embedding IO
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
-    """tokens: (B, L) int → (B, L, d)."""
-    if cfg.pos_emb != "none":
-        raise NotImplementedError(
-            f"LM position embedding {cfg.pos_emb!r} is not ported yet")
-    x = params["embed"][tokens]
+def embed_tokens(cfg: ModelConfig, params, tokens, prefix_embeds=None):
+    """tokens (B, L) or (B, L, K) → (B, P + L, d): the embedding (the K
+    codebooks' summed), scaled by √d where ``embed_scale``, the prefix
+    (B, P, d) in front, then sinusoidal positions 0 … P + L − 1 where
+    ``pos_emb`` says so."""
+    if cfg.pos_emb not in ("none", "sinusoidal"):
+        raise ValueError(f"unknown LM position embedding {cfg.pos_emb!r}")
+    if cfg.num_codebooks > 1:
+        x = _codebook_embed(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + L.sinusoidal_embedding(pos, cfg.d_model)[None].to(x.dtype)
     return x
 
 
+def _codebook_embed(embed, tokens):
+    """embed (K, V, d), tokens (B, L, K) → (B, L, d): the codebooks'
+    embeddings summed in codebook order, ((e0 + e1) + e2) + e3."""
+    out = embed[0][tokens[..., 0]]
+    for i in range(1, embed.shape[0]):
+        out = out + embed[i][tokens[..., i]]
+    return out
+
+
 def logits_from_hidden(cfg: ModelConfig, params, x):
-    if cfg.tie_embeddings:
+    """x (B, L, d) → logits (B, L, V), or (B, L, K, V) for K codebooks;
+    the head's products are cuBLAS's, as the JAX package computes them
+    outside any kernel."""
+    if cfg.num_codebooks > 1:
+        out = torch.einsum("bld,kdv->blkv", x, params["heads"])
+    elif cfg.tie_embeddings:
         out = x @ params["embed"].T
     else:
         out = x @ params["lm_head"]
@@ -256,19 +296,22 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None, cond=None,
-            skip=None, branch_caches=None, collect_branches=False,
-            collect_caches=False, memory=None, video_shape=None,
-            positions=None, moe_strategy="gshard", moe_group_size=2048):
-    """Full-sequence forward.  For an LM: tokens (B, L) → logits.  For a
-    diffusion backbone: embeddings ``embeds`` (B, L, d) → hidden states
-    after ``final_norm`` (the diffusion wrapper owns patchify and head).
-    ``memory`` (B, Lm, cond_dim), ``video_shape`` (T, S) and
-    ``positions`` ((1, L) or (B, L); attention takes ``arange(L)`` when
-    None), ``moe_strategy`` and ``moe_group_size`` reach every block.
+def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
+            prefix_embeds=None, cond=None, skip=None, branch_caches=None,
+            collect_branches=False, collect_caches=False, memory=None,
+            video_shape=None, positions=None, moe_strategy="gshard",
+            moe_group_size=2048):
+    """Full-sequence forward.  For an LM: tokens (B, L[, K]) with
+    ``prefix_embeds`` (B, P, d) in front → logits over all P + L
+    positions.  For a diffusion backbone: embeddings ``embeds`` (B, L, d)
+    → hidden states after ``final_norm`` (the diffusion wrapper owns
+    patchify and head).  ``memory`` (B, Lm, cond_dim), ``video_shape`` (T,
+    S) and ``positions`` ((1, L) or (B, L); attention takes ``arange(L)``
+    when None), ``moe_strategy`` and ``moe_group_size`` reach every block.
     Returns ``(out, {"branch", "caches", "aux", "hidden"})`` (see
     :func:`apply_stages`)."""
-    x = embed_tokens(cfg, params, tokens) if embeds is None else embeds
+    x = (embed_tokens(cfg, params, tokens, prefix_embeds) if embeds is None
+         else embeds)
     x, branch, caches, aux = apply_stages(
         cfg, params, x, mode="full", positions=positions, cond=cond,
         skip=skip, branch_caches=branch_caches,
@@ -323,33 +366,50 @@ def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
 
 
 def prefill(cfg: ModelConfig, params, tokens, *,
-            cache_len: Optional[int] = None, cache_dtype=torch.float32,
-            moe_strategy="gshard", moe_group_size=2048):
+            cache_len: Optional[int] = None, prefix_embeds=None, memory=None,
+            cache_dtype=torch.float32, moe_strategy="gshard",
+            moe_group_size=2048):
     """Full forward that also builds the decode caches.  Returns (logits,
     caches).  State caches keep the dtypes the forward made them in; KV
     caches hold ``cache_len`` slots (an attention model needs it) in
-    ``cache_dtype``.  A MoE FFN dispatches by ``moe_strategy``
-    (``generate`` prefills with ``"dense"``)."""
-    out, aux = forward(cfg, params, tokens, collect_caches=True,
+    ``cache_dtype``, for the P + L positions of ``prefix_embeds`` and the
+    tokens.  A MoE FFN dispatches by ``moe_strategy`` (``generate``
+    prefills with ``"dense"``)."""
+    out, aux = forward(cfg, params, tokens, prefix_embeds=prefix_embeds,
+                       memory=memory, collect_caches=True,
                        moe_strategy=moe_strategy,
                        moe_group_size=moe_group_size)
+    plen = tokens.shape[1]
+    if prefix_embeds is not None:
+        plen += prefix_embeds.shape[1]
     caches = [tuple(_to_decode_cache(b, aux["caches"][si][bi], cache_len,
-                                     tokens.shape[1], cache_dtype)
+                                     plen, cache_dtype)
                     for bi, b in enumerate(st.unit))
               for si, st in enumerate(cfg.stages)]
     return out, caches
 
 
 def decode_step(cfg: ModelConfig, params, token, caches, *,
-                pos: Optional[int] = None):
-    """One AR decode step.  token: (B, 1) at position ``pos`` (an int; an
-    attention model needs it).  Returns (logits (B, 1, V), caches); an
-    attention model's KV caches are the given ones, updated in place."""
-    if pos is None and any(isinstance(b.mixer, AttentionSpec)
-                           for _, _, _, b in cfg.blocks()):
+                pos: Optional[int] = None, memory=None):
+    """One AR decode step.  token: (B, 1) or (B, 1, K) at position ``pos``
+    (an int; an attention model, or sinusoidal positions, need it);
+    ``memory`` feeds the cross-attention branches over the whole memory.
+    Returns (logits (B, 1, V) or (B, 1, K, V), caches); an attention
+    model's KV caches are the given ones, updated in place."""
+    attn = any(isinstance(b.mixer, AttentionSpec)
+               for _, _, _, b in cfg.blocks())
+    if pos is None and (attn or cfg.pos_emb == "sinusoidal"):
         raise ValueError("an attention model's decode step needs pos=")
     x = embed_tokens(cfg, params, token)
+    if cfg.pos_emb == "sinusoidal":
+        # embed_tokens added position 0's sinusoid: swap in pos's, in the
+        # JAX package's order (subtract, then add)
+        d, dev = cfg.d_model, x.device
+        x = x - L.sinusoidal_embedding(torch.arange(1, device=dev),
+                                       d)[None].to(x.dtype)
+        x = x + L.sinusoidal_embedding(torch.full((1,), pos, device=dev),
+                                       d)[None].to(x.dtype)
     x, _, new_caches, _ = apply_stages(cfg, params, x, mode="decode",
-                                       pos=pos, caches=caches)
+                                       pos=pos, caches=caches, memory=memory)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), new_caches
