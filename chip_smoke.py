@@ -308,6 +308,31 @@ exits non-zero:
    (``dense``, cache_len 1312) and 31 ``gshard`` serve steps — attention
    4 / 0, linear 78 / 78 a step; decode vs a dense forward with the same
    rule; a traced prefill and 4 decode steps (``llama4_profile``).
+27. DiT-XL/2 training (``train_dit``, budget ``TRAIN_DIT_BUDGET_S``, right
+   after ``durable``, on the serving phases' weights, trained in place):
+   each kernel op's gradient on the card — its forward the kernel, its
+   backward the plain version's gradient — against the plain op's
+   autograd (``train_op_grads``: linear and attention at the training
+   shapes, the SSD and RG-LRU scans small; ≤ 1e-4); the attention kernel
+   at (16, 256, 16, 72) and the token products at 4096 rows timed; a
+   2-block card-vs-CPU loss and gradient; 12 steps of the ε loss on
+   ``BlobLatents`` (B 16), AdamW lr 1e-4, no weight decay — every leaf's
+   gradient present, finite and nonzero each step, forward / backward /
+   optimizer ms, launches a step (201 linear, 28 attention), step 2
+   traced, the peak and the prepared halves flat; a checkpoint after
+   step 6 restored into fresh tensors ≡ the run's step 7 (≤ 1e-6);
+   ``generate`` after training ≡ the same on freshly prepared halves,
+   bitwise.
+28. the quickstart (``quickstart``, budget ``QUICKSTART_BUDGET_S``, after
+   the DiT weights are freed): ``launch.quickstart.run`` on the card —
+   the smoke DiT trained 150 steps, a 10-sample calibration, the policy
+   sweep against ``no_cache`` (ms a batch, speedup, Fréchet distance,
+   compute fraction): the port's quality numbers on trained weights.
+29. InternVL2-1B training (``train_lm``, budget ``TRAIN_LM_BUDGET_S``,
+   after ``internvl2``, on weights of its own): ``make_train_step`` at B
+   4 × (256 patch embeddings + 512 tokens), 5 steps — every leaf's
+   gradient finite and nonzero, a 2-block card-vs-CPU loss and gradient,
+   the peak flat, ms a step, tokens / s, step 2 traced.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
@@ -323,7 +348,9 @@ of its 128 experts.
 """
 import gc
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -344,6 +371,11 @@ MAMBA2_BLOCKS = 24
 # about 1e-6 at every K with the token kernel's promoted accumulation, and
 # 1.2e-4 at K 17408 without it
 F64_LIMIT = 1e-5
+# batches a product's time is the median of in the product sweeps of the
+# LMs, the video and the audio path: 3 (5 before the training phases
+# came), and calls a batch at an LM prefill's rows (each call milliseconds
+# long): 5 (10 before) — part of what pays for the training phases
+SWEEP_REPS, SWEEP_PREFILL_ITERS = 3, 5
 # Published peaks per card (NVIDIA H100 data sheet: FP32 outside the tensor
 # cores, dense TF32 and BF16 on the tensor cores where cited, HBM
 # bandwidth), keyed by the name nvidia-smi reports.
@@ -565,12 +597,17 @@ def attn_calls(cfg, computed):
                for t in b.branch_types() if t in computed)
 
 
-def product_times(gemm, ref, peaks, x, w, b, rows, iters=50):
+def product_times(gemm, ref, peaks, x, w, b, rows, iters=50, reps=5):
     """One product x (M, K) @ w (K, N) (+ b) through its linear kernel
     variant: device ms (batched and one call alone; ``iters`` calls a
-    batch), the plain version's and cuBLAS's (``addmm`` / ``mm``) ms, and
+    batch, the median of ``reps`` batches), the plain version's and
+    cuBLAS's (``addmm`` / ``mm``) ms, and
     its bound — 3xTF32 on the tensor cores for token rows, f32 FMAs
-    outside them for request rows, against its bytes."""
+    outside them for request rows, against its bytes.  Without a bias the
+    plain version, ``x @ w``, is cuBLAS's ``mm`` itself: it is timed once,
+    as ``library_ms``, and the row says so (``plain_same_as``); its
+    ``plain_ms`` repeats that one reading so that the sums by phase add
+    every row."""
     from repro_torch.kernels.timing import device_ms, per_call_ms
     (m, k), n = x.shape, w.shape[1]
     bias = b is not None
@@ -584,15 +621,18 @@ def product_times(gemm, ref, peaks, x, w, b, rows, iters=50):
     row = {"m": m, "k": k, "n": n, "bias": bias, "rows": rows,
            "plan": gemm.launch_plan(m, k, n, rows),
            "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows),
-                           iters=iters),
+                           iters=iters, reps=reps),
            "per_call_ms": per_call_ms(
                lambda: gemm.linear_cuda(x, w, b, rows=rows), iters=iters),
-           "plain_ms": device_ms(lambda: ref.linear_ref(x, w, b),
-                                 iters=iters),
-           "library_ms": device_ms(lib, iters=iters),
+           "library_ms": device_ms(lib, iters=iters, reps=reps),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes}
+    if bias:
+        row["plain_ms"] = device_ms(lambda: ref.linear_ref(x, w, b),
+                                    iters=iters, reps=reps)
+    else:
+        row.update(plain_ms=row["library_ms"], plain_same_as="library_ms")
     row["tflops"] = flops / row["ms"] / 1e9
     return row
 
@@ -1500,7 +1540,9 @@ def lm_product_phase(gemm, ref, peaks, cfg, rand, batch, prompt, tag,
             del want, exact, fewer, y
             times[f"{phase}:{name}"] = {
                 **product_times(gemm, ref, peaks, x, w, None, "tokens",
-                                iters=10 if phase == "prefill" else 50),
+                                iters=(SWEEP_PREFILL_ITERS
+                                       if phase == "prefill" else 50),
+                                reps=SWEEP_REPS),
                 "calls": calls}
             gemm.release()
     check(all(rows_ok.values()), f"a {tag} product's row changes with the "
@@ -4547,7 +4589,8 @@ def video_kernel_phase(fa, ref, gemm, peaks, cfg):
         worst = max(worst, rel)
         check(rel <= 5e-5, f"video product ({m}, {k}, {n}) {rows}: "
               f"relative error {rel}")
-        products.append({**product_times(gemm, ref, peaks, x, w, b, rows),
+        products.append({**product_times(gemm, ref, peaks, x, w, b, rows,
+                                         reps=SWEEP_REPS),
                          "calls": calls, "rel_max_err": rel})
         gemm.release()
     summary = {"products": products, "max_rel_err": worst,
@@ -4946,7 +4989,8 @@ def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
     products = []
     for m, k, n, bias, calls, rows in gemms(cfg, 2, AUDIO_MEM):
         x, w, b = inputs(m, k, n, bias)
-        products.append({**product_times(gemm, ref, peaks, x, w, b, rows),
+        products.append({**product_times(gemm, ref, peaks, x, w, b, rows,
+                                         reps=SWEEP_REPS),
                          "calls": calls})
         gemm.release()
     summary = {"products": products, "max_rel_err": worst,
@@ -5391,6 +5435,592 @@ def audio_phase(peaks, kernels):
           "slice_s": slice_s, "launches": launches})
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 27–29)
+# ---------------------------------------------------------------------------
+
+TRAIN_DIT_BATCH, TRAIN_DIT_STEPS, TRAIN_DIT_LR = 16, 12, 1e-4
+TRAIN_DIT_CKPT_AFTER = 6          # save after this step, resume its next
+TRAIN_CHECK_BLOCKS = 2
+TRAIN_GEN_STEPS = 10              # DDIM steps of the generate after training
+TRAIN_DIT_BUDGET_S = 80
+QUICKSTART_BUDGET_S = 15
+TRAIN_LM_BATCH, TRAIN_LM_TOKENS, TRAIN_LM_STEPS = 4, 512, 5
+TRAIN_LM_CHECK_TOKENS = 64
+TRAIN_LM_BUDGET_S = 23
+TRAIN_SPANS = ("train.forward", "train.backward", "train.optimizer")
+TRAIN_RANGES = TRAIN_SPANS + ("plain_backward.linear",
+                               "plain_backward.flash_attention")
+
+
+def _timed_step(timing, fn):
+    """One training step ``fn()`` → (loss, metrics), run with its spans'
+    CUDA events collected: the row of the step — loss, wall s, forward /
+    backward / optimizer device ms, and whether every leaf's gradient was
+    finite and nonzero (from the optimizer's ``grad_sq_norms``)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timing.spans() as spans:
+        loss, metrics = fn()
+    ms = timing.span_ms(spans)
+    wall = time.perf_counter() - t0
+    sq = metrics["grad_sq_norms"].cpu()
+    return {"loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
+            "wall_s": wall,
+            **{n.split(".")[1] + "_ms": ms[n] for n in TRAIN_SPANS},
+            "leaves": int(sq.numel()),
+            "finite": bool(torch.isfinite(sq).all()),
+            "nonzero": bool((sq > 0).all())}
+
+
+def _leaf_rel_errs(want, got):
+    """Per leaf, max |Δ| over the leaf's largest |g|."""
+    return [float((a - b.to(a.device)).abs().max())
+            / max(float(a.abs().max()), 1e-30) for a, b in zip(want, got)]
+
+
+def _step_profile(fn):
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): wall
+    ms; device ms by kernel group, its idle share and top kernels; and
+    each of ``TRAIN_RANGES``' device span (the profiler's GPU-side record
+    of a ``record_function`` range, summed over its calls), kept apart
+    from the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kern = _kernel_times(prof)
+    ranges = {n: kern.pop(n, [0.0, 0])[0] / 1e3 for n in TRAIN_RANGES}
+    groups = {"attention_kernel": 0.0, "linear_kernels": 0.0,
+              "cublas": 0.0, "other": 0.0}
+    for name, (us, _) in kern.items():
+        low = name.lower()
+        group = ("attention_kernel" if "attn_fwd" in name
+                 else "linear_kernels" if ("gemm_tokens_wgmma" in name
+                                           or "gemm_requests_ffma" in name)
+                 else "cublas" if any(f in low for f in
+                                      ("gemm", "cutlass", "xmma", "gemv"))
+                 else "other")
+        groups[group] += us / 1e3
+    busy = sum(groups.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "groups_ms": groups, "range_spans_ms": ranges,
+            "top_kernels": [[k[:80], us / 1e3, n] for k, (us, n) in top]}
+
+
+def train_attention_row(ref, peaks, shape, causal):
+    """The attention kernel's forward at a training shape (b, l, h, kv,
+    d): against its plain version, device ms beside its bound, the plain
+    version's and SDPA's (``enable_gqa`` where kv < h)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.timing import device_ms
+    b, l, h, kv, d = shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    q = torch.randn((b, l, h, d), generator=g, device="cuda")
+    k, v = (torch.randn((b, l, kv, d), generator=g, device="cuda")
+            for _ in range(2))
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    err = float((out - ref.flash_attention_ref(q, k, v, causal=causal))
+                .abs().max())
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    _, _, flops, nbytes = _attn_bound(peaks, b, l, l, h, d)
+    flops = flops / 2 if causal else flops      # the causal triangle
+    t_ops = 3 * flops / peaks["tf32"] * 1e3     # as 3xTF32
+    t_bytes = 4 * (2 * b * l * h * d + 2 * b * l * kv * d) / peaks["hbm"] * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    row = {"shape": [b, l, h, kv, d], "causal": causal,
+           "max_abs_err": err, "limit": 5e-5,
+           "ms": device_ms(lambda: fa.flash_attention_cuda(
+               q, k, v, causal=causal), iters=20),
+           "plain_ms": device_ms(lambda: ref.flash_attention_ref(
+               q, k, v, causal=causal), iters=5),
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=kv < h), iters=20),
+           "bound_ms": bound, "bound_by": by}
+    check(err <= 5e-5, f"training attention {shape}: error {err}")
+    return row
+
+
+def train_op_grads_phase(ops, ref):
+    """The differentiable ops' mechanism on the card: each op's forward is
+    its hand-written kernel, launched once and counted in ``ops.LAUNCHES``,
+    and its outputs agree with the plain op's within 1e-4 of each output's
+    largest value; its gradient is the plain op's autograd within 1e-4 of
+    each input's largest |g|.  The backward recomputes the plain op and
+    never reads the kernel's output, so the gradient check holds the
+    wiring, not the kernel: the kernels' effect on a gradient is held by
+    the card-vs-CPU checks of the training phases.  Linear and attention
+    at DiT-XL/2's training shapes (4096 token rows, (16, 256, 16, 72)),
+    the SSD and RG-LRU scans at small shapes."""
+    import functools
+    g = torch.Generator(device="cuda").manual_seed(SEED + 301)
+
+    def r(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g, device="cuda")
+
+    def pos(*s, lo=0.1):
+        return lo + torch.rand(s, generator=g, device="cuda")
+
+    cases = {
+        "linear": (lambda x, w, b: ops.linear(x, w, b), ref.linear_ref,
+                   (r(4096, 1152), r(1152, 4608, scale=0.03), r(4608))),
+        "flash_attention": (
+            lambda q, k, v: ops.flash_attention(q, k, v, causal=False),
+            functools.partial(ref.flash_attention_ref, causal=False),
+            tuple(r(16, 256, 16, 72) for _ in range(3))),
+        "ssd": (lambda *t: ops.ssd(*t, chunk=64),
+                functools.partial(ref.ssd_ref, chunk=64),
+                (r(2, 256, 4, 32), pos(2, 256, 4, lo=0.01) * 0.1,
+                 pos(4, lo=0.5), r(2, 256, 1, 32), r(2, 256, 1, 32))),
+        "rglru_scan": (
+            lambda *t: ops.rglru_scan(*t[:5], 8.0, t[5]),
+            lambda *t: ref.rglru_scan_ref(*t[:5], 8.0, t[5]),
+            tuple(r(2, 96, 256) for _ in range(4)) + (r(256), r(2, 256)))}
+    rows = {}
+    for name, (op, plain, args) in cases.items():
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = ops.LAUNCHES[name]
+        outs = op(*leaves)
+        launched = ops.LAUNCHES[name] - before
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        weights = [r(*o.shape) for o in outs]
+        got = torch.autograd.grad(
+            sum((o * w).sum() for o, w in zip(outs, weights)), leaves)
+        plain_leaves = [a.clone().requires_grad_(True) for a in args]
+        pouts = plain(*plain_leaves)
+        pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+        want = torch.autograd.grad(
+            sum((o * w).sum() for o, w in zip(pouts, weights)),
+            plain_leaves)
+        fwd = _leaf_rel_errs([o.detach() for o in pouts],
+                             [o.detach() for o in outs])
+        errs = _leaf_rel_errs(want, got)
+        rows[name] = {"launches": launched, "forward_rel_err": fwd,
+                      "grad_rel_err_per_input": errs, "limit": 1e-4}
+        check(launched == 1, f"{name}: {launched} kernel launches")
+        check(max(fwd) <= 1e-4, f"{name} forward vs plain: {fwd}")
+        check(max(errs) <= 1e-4, f"{name} gradient vs plain: {errs}")
+    emit({"phase": "train_op_grads", **rows})
+
+
+def train_dit_cross_check(cfg, params, data, diffusion, adamw):
+    """Card against CPU at ``TRAIN_CHECK_BLOCKS`` of DiT-XL/2's blocks on
+    the card's weights copied over: the ε loss and every leaf's gradient
+    on the whole first training batch (B 16, the timed step's 4096 token
+    rows), the same t and noise, within 1e-4 relative (the gradient of
+    each leaf to its largest |g|)."""
+    from repro_torch.launch.train_dit import batch_at
+    from repro_torch.models.transformer import tree_map
+    cut, cut_params = dit_cut(cfg, params, TRAIN_CHECK_BLOCKS)
+    gpu = tree_map(lambda a: a.clone(), cut_params)
+    cpu = tree_map(lambda a: a.cpu(), gpu)
+    x0, cond = batch_at(data, 0, "cuda")
+    n = TRAIN_DIT_BATCH
+    gen = torch.Generator().manual_seed(SEED + 302)
+    t = torch.randint(0, 1000, (n,), generator=gen)
+    noise = torch.randn((n,) + tuple(cfg.latent_shape), generator=gen)
+    sched = diffusion.vp_schedule()
+
+    def run(p, dev):
+        return adamw.value_and_grad(lambda q: diffusion.eps_loss(
+            cut, q, None, x0.to(dev), sched=sched,
+            label=cond["label"].to(dev), t=t.to(dev),
+            noise=noise.to(dev)), p)
+    (lg, gg), gpu_s = _timed(lambda: run(gpu, "cuda"))
+    t0 = time.perf_counter()
+    lc, gc_ = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    errs = _leaf_rel_errs(tree_leaves(gc_), tree_leaves(gg))
+    emit({"phase": "train_dit_cross_check", "blocks": TRAIN_CHECK_BLOCKS,
+          "rows": n, "loss_cpu": float(lc), "loss_rel_err": loss_rel,
+          "grad_rel_err_max": max(errs), "leaves": len(errs),
+          "limit": 1e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
+    check(loss_rel <= 1e-4, f"training loss card vs CPU: {loss_rel}")
+    check(max(errs) <= 1e-4, f"gradients card vs CPU: {max(errs)}")
+
+
+def train_dit_phase(cfg, params, peaks, kernels):
+    """DiT-XL/2 training at every published width and all 28 blocks (phase
+    27; budget ``TRAIN_DIT_BUDGET_S``), on the serving phases' weights,
+    trained in place after ``gemm.release()`` by the port's
+    ``make_dit_step``: ``BlobLatents`` on the card (B 16, 1000 classes),
+    the ε loss, AdamW (lr 1e-4, no weight decay, ``cosine_schedule(10,
+    12)``), 12 steps.  Before: the ops' mechanism (``train_op_grads``),
+    the attention kernel at (16, 256, 16, 72) and the token products at
+    4096 rows against their plain versions and timed, a 2-block
+    card-vs-CPU loss and gradient on the whole batch.  Each step: loss
+    finite, every leaf's gradient finite and nonzero (the step's
+    ``grad_sq_norms``; the card's weights have no zero leaf:
+    ``full_width_params``), forward / backward / optimizer device ms from
+    the step's own spans, prepared and retired bytes; step 2 traced.  The
+    peak after step 12 within 1% of the peak after step 3, the prepared
+    and retired bytes constant from step 2; a checkpoint after step 6,
+    restored into fresh tensors, whose step 7 matches the run's within
+    1e-6; ``generate`` on the trained weights bitwise equal to the same
+    after ``gemm.release()`` and a fresh ``prepare_linear``."""
+    import shutil
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import diffusion, solvers
+    from repro_torch.data.synthetic import BlobLatents, step_generator
+    from repro_torch.kernels import gemm, ops, ref, timing
+    from repro_torch.launch.train_dit import batch_at, make_dit_step
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase
+
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_op_grads_phase(ops, ref)
+    mark("op_grads")
+    attn = train_attention_row(ref, peaks, (TRAIN_DIT_BATCH, 256, 16, 16,
+                                            72), causal=False)
+    rows_m = TRAIN_DIT_BATCH * 256
+    shapes = sorted({tuple(w.shape)
+                     for w in diffusion.token_weights(params)})
+    gx = torch.Generator(device="cuda").manual_seed(SEED + 303)
+    products = []
+    for k, n in shapes:
+        x = torch.randn((rows_m, k), generator=gx, device="cuda")
+        w = torch.randn((k, n), generator=gx, device="cuda") * k ** -0.5
+        want = ref.linear_ref(x, w)
+        rel = float((gemm.linear_cuda(x, w, None, rows="tokens") - want)
+                    .abs().max()) / float(want.abs().max())
+        check(rel <= 5e-5, f"training product ({rows_m}, {k}, {n}): "
+              f"relative error {rel}")
+        products.append({**product_times(gemm, ref, peaks, x, w, None,
+                                         "tokens", iters=10),
+                         "rel_max_err": rel})
+    emit({"phase": "train_dit_kernels", "attention": attn, "limit": 5e-5,
+          "products": [{key: p[key] for key in (
+              "m", "k", "n", "rel_max_err", "ms", "plain_ms",
+              "plain_same_as", "library_ms", "bound_ms", "bound_by")}
+                       for p in products]})
+    mark("kernel_times")
+    gemm.release()
+    data = BlobLatents(cfg.latent_shape, cfg.num_classes, TRAIN_DIT_BATCH)
+    train_dit_cross_check(cfg, params, data, diffusion, adamw)
+    mark("cross_check")
+    opt_cfg = adamw.AdamWConfig(
+        lr=TRAIN_DIT_LR, weight_decay=0.0,
+        schedule=adamw.cosine_schedule(10, TRAIN_DIT_STEPS))
+    dit_step = make_dit_step(cfg, opt_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the token kernel's halves of every weight, which each step's forward
+    # makes anew after the last step's update: their cost a step
+    diffusion.prepare_linear(params)
+    with torch.no_grad():
+        for a in tree_leaves(params):
+            a.add_(0.0)       # moves every version, changes no value
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    diffusion.prepare_linear(params)
+    ev[1].record()
+    torch.cuda.synchronize()
+    prepare_ms = ev[0].elapsed_time(ev[1])
+    torch.cuda.reset_peak_memory_stats()
+    state = adamw.init_state(params)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt = os.path.join(tmp, "dit.ckpt")
+
+    n_leaves = len(tree_leaves(params))
+
+    def step(p, s, i):
+        x0, cond = batch_at(data, i, "cuda")
+        return {"step": i + 1, **_timed_step(timing, lambda: dit_step(
+            p, s, x0, step_generator(SEED, i), **cond))}
+
+    rows, profile, want7, saved = [], None, None, {}
+    for i in range(TRAIN_DIT_STEPS):
+        if i == 2:
+            _reset_counts(ops)
+        if i == 1:
+            got = []
+            profile = _step_profile(lambda: got.append(step(params, state,
+                                                            i)))
+            row = got[0]
+        else:
+            row = step(params, state, i)
+        row.update(prepared_bytes=gemm.prepared_bytes(),
+                   retired_bytes=gemm.retired_bytes(),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        rows.append(row)
+        emit({"phase": "train_dit_step", **row})
+        check(math.isfinite(row["loss"]), f"step {i + 1}: loss {row}")
+        check(row["leaves"] == n_leaves and row["finite"]
+              and row["nonzero"], f"step {i + 1}: a leaf's gradient "
+              f"missing, non-finite or zero: {row}")
+        if i + 1 == TRAIN_DIT_CKPT_AFTER:
+            ckpt_io.save(ckpt, {"params": params, "opt": state},
+                         {"step": i + 1}, timings=saved)
+        if i == TRAIN_DIT_CKPT_AFTER:
+            # on the host: a copy on the card would raise the peak
+            want7 = [a.to("cpu", copy=True) for a in tree_leaves(params)]
+    mark("steps")
+    launches = {k: ops.LAUNCHES[k] / (TRAIN_DIT_STEPS - 2)
+                for k in ("linear", "flash_attention")}
+    weight_bytes = sum(a.numel() * 4 for a in tree_leaves(params))
+    timed = rows[2:]
+    med = {k: statistics.median(r[k] for r in timed)
+           for k in ("wall_s", "forward_ms", "backward_ms",
+                     "optimizer_ms")}
+    peak3, peak12 = rows[2]["peak_bytes"], rows[-1]["peak_bytes"]
+    held = {(r["prepared_bytes"], r["retired_bytes"]) for r in rows[1:]}
+    prepared = rows[-1]["prepared_bytes"]
+    emit({"phase": "train_dit_memory", "peak_after_step3": peak3,
+          "peak_after_step12": peak12, "weights": weight_bytes,
+          "moments": 2 * weight_bytes, "gradients": weight_bytes,
+          "halves": prepared, "rest": peak12 - 4 * weight_bytes - prepared,
+          "prepared_and_retired_from_step2": sorted(held)})
+    check(peak12 <= 1.01 * peak3, f"peak grew: {peak3} → {peak12}")
+    check(len(held) == 1, f"prepared / retired bytes moved: {held}")
+
+    # generate on the trained weights: the halves made on demand after the
+    # last update against halves made afresh
+    pipe = DiffusionPipeline(cfg, solvers.ddim(TRAIN_GEN_STEPS),
+                             cfg_scale=1.5, device="cuda")
+    labels = torch.tensor(REQUEST_LABELS[:2], device="cuda")
+    gen_a = pipe.generate(params, torch.Generator().manual_seed(SEED + 304),
+                          2, label=labels)
+    gemm.release()
+    diffusion.prepare_linear(params)
+    gen_b = pipe.generate(params, torch.Generator().manual_seed(SEED + 304),
+                          2, label=labels)
+    same = bool(torch.equal(gen_a, gen_b))
+    check(same and bool(torch.isfinite(gen_a).all()),
+          "generate after training differs from generate on fresh halves")
+    del pipe, gen_a, gen_b, state
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("generate")
+
+    # resume: a fresh tree from the checkpoint, its step 7 against the run's
+    t0 = time.perf_counter()
+    tree, meta = ckpt_io.restore(ckpt)
+    p7 = tree_map(lambda a: a.cuda(), tree["params"])
+    s7 = tree_map(lambda a: a.cuda(), tree["opt"])
+    del tree
+    restore_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(ckpt)
+    shutil.rmtree(tmp, ignore_errors=True)
+    row7 = step(p7, s7, TRAIN_DIT_CKPT_AFTER)
+    errs = _leaf_rel_errs(want7, tree_leaves(p7))
+    emit({"phase": "train_dit_resume", "after_step": meta["step"],
+          "checkpoint_bytes": ckpt_bytes, "save_timings_s": saved,
+          "restore_s": restore_s, "loss_step7": row7["loss"],
+          "loss_step7_run": rows[TRAIN_DIT_CKPT_AFTER]["loss"],
+          "param_rel_err_max": max(errs), "limit": 1e-6})
+    check(max(errs) <= 1e-6, f"resumed step 7 vs the run: {max(errs)}")
+    del p7, s7, want7
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("resume")
+
+    summary = {"step_ms_median": 1e3 * med["wall_s"],
+               "forward_ms": med["forward_ms"],
+               "backward_ms": med["backward_ms"],
+               "optimizer_ms": med["optimizer_ms"],
+               "prepare_halves_ms": prepare_ms,
+               "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+               "peak_gb": peak12 / 1e9, "launches_per_step": launches,
+               "profile_step2": profile}
+    kernels["flash_attention"]["train_dit"] = {
+        **attn, "launches_per_step": launches["flash_attention"]}
+    kernels["linear"]["train_dit"] = {
+        "rows": rows_m, "ms": sum(p["ms"] for p in products),
+        "plain_ms": sum(p["plain_ms"] for p in products),
+        "plain_same_as": "library_ms",
+        "library_ms": sum(p["library_ms"] for p in products),
+        "bound_ms": sum(p["bound_ms"] for p in products),
+        "shapes": [[p["k"], p["n"]] for p in products],
+        "launches_per_step": launches["linear"]}
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "train_dit", "arch": cfg.name, "blocks": cfg.num_layers,
+          "batch": TRAIN_DIT_BATCH, "steps": TRAIN_DIT_STEPS, **summary,
+          "sections_s": marks, "seconds": seconds,
+          "budget_s": TRAIN_DIT_BUDGET_S})
+    check(seconds <= TRAIN_DIT_BUDGET_S,
+          f"train_dit took {seconds} s of its {TRAIN_DIT_BUDGET_S}")
+
+
+def quickstart_phase(kernels):
+    """The quickstart's protocol on the card (phase 28; budget
+    ``QUICKSTART_BUDGET_S``): the smoke DiT trained by ``train_dit`` (150
+    steps, B 16, lr 2e-3), a 10-sample calibration through
+    ``DiffusionPipeline`` (DDIM 50, CFG 1.5), and the policy sweep against
+    ``no_cache`` on 32 samples: ms a batch, speedup, Fréchet distance to
+    ``BlobLatents(..., 32, seed=7)``, compute fraction.  Checked: the mean
+    of the last 20 losses below the first loss, every sample finite, the
+    kernels launched."""
+    from repro_torch.kernels import gemm, ops
+    from repro_torch.launch import quickstart
+    t0 = time.perf_counter()
+    _reset_counts(ops)
+    out = quickstart.run("cuda", log=lambda line: None)
+    launches = {k: ops.LAUNCHES[k] for k in ("linear", "flash_attention")}
+    gemm.release()
+    losses = out["losses"]
+    last20 = statistics.mean(losses[-20:])
+    seconds = time.perf_counter() - t0
+    emit({"phase": "quickstart", "arch": "dit-xl-256-smoke",
+          "loss_first": losses[0], "loss_last20_mean": last20,
+          "policies": out["rows"], "launches": launches,
+          "seconds": seconds, "budget_s": QUICKSTART_BUDGET_S})
+    check(last20 < losses[0], f"loss {losses[0]} → {last20}")
+    check(all(r["finite"] for r in out["rows"]), "a sample not finite")
+    check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    check(seconds <= QUICKSTART_BUDGET_S,
+          f"quickstart took {seconds} s of its {QUICKSTART_BUDGET_S}")
+    kernels["flash_attention"]["quickstart_launches"] = launches[
+        "flash_attention"]
+    kernels["linear"]["quickstart_launches"] = launches["linear"]
+
+
+def train_lm_phase(peaks, kernels):
+    """InternVL2-1B training at every published width and all 24 blocks
+    (phase 29; budget ``TRAIN_LM_BUDGET_S``): ``make_train_step`` at B 4 ×
+    (256 patch embeddings + 512 tokens) from ``TokenStream``, AdamW at lr
+    3e-4 with the reference CLI's ``cosine_schedule(10, steps · 10)``, no
+    remat, 5 steps on weights drawn on the card.  The attention kernel at
+    the training shape (4, 768, 14 over 2, 64), causal, timed; a 2-block
+    card-vs-CPU loss and gradient (1 × (256 + 64)); each step every leaf's
+    gradient finite and nonzero (the step's ``grad_sq_norms``); the peak
+    after step 5 within 1% of the peak after step 2; ms a step with its
+    forward / backward / optimizer split from the step's own spans,
+    tokens / s, step 2 traced."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStream, vit_patch_embeds
+    from repro_torch.kernels import gemm, ops, ref, timing
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.launch import programs, serve
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    cfg = configs.get("internvl2-1b")
+    plen = cfg.num_prefix_embeds
+    m = cfg.stages[0].unit[0].mixer
+    attn = train_attention_row(ref, peaks, (
+        TRAIN_LM_BATCH, plen + TRAIN_LM_TOKENS, m.num_heads,
+        m.num_kv_heads, m.head_dim), causal=True)
+    params = serve.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 320), cfg,
+        device="cuda")
+    weight_bytes = sum(a.numel() * 4 for a in tree_leaves(params))
+    prefix = vit_patch_embeds(torch.Generator().manual_seed(SEED + 321),
+                              TRAIN_LM_BATCH, plen, cfg.d_model,
+                              device="cuda")
+
+    # card against CPU at 2 blocks, one sequence of 64 tokens
+    cut = lm_cut(cfg, TRAIN_CHECK_BLOCKS)
+    gpu = tree_map(lambda a: a.clone(), {**params, "stages": [tuple(
+        tree_map(lambda a: a[:TRAIN_CHECK_BLOCKS], u)
+        for u in params["stages"][0])]})
+    cpu = tree_map(lambda a: a.cpu(), gpu)
+    toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_LM_CHECK_TOKENS + 1),
+                         generator=torch.Generator().manual_seed(SEED + 322))
+
+    def run(p, dev):
+        return adamw.value_and_grad(lambda q: programs.lm_loss(
+            cut, q, toks[:, :-1].to(dev), toks[:, 1:].to(dev),
+            prefix_embeds=prefix[:1].to(dev), remat=False), p)
+    (lg, gg), gpu_s = _timed(lambda: run(gpu, "cuda"))
+    t0 = time.perf_counter()
+    lc, gcpu = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    errs = _leaf_rel_errs(tree_leaves(gcpu), tree_leaves(gg))
+    emit({"phase": "train_lm_cross_check", "arch": cfg.name,
+          "blocks": TRAIN_CHECK_BLOCKS, "tokens": TRAIN_LM_CHECK_TOKENS,
+          "prefix": plen, "loss_cpu": float(lc), "loss_rel_err": loss_rel,
+          "grad_rel_err_max": max(errs), "leaves": len(errs),
+          "limit": 1e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
+    check(loss_rel <= 1e-4, f"LM loss card vs CPU: {loss_rel}")
+    check(max(errs) <= 1e-4, f"LM gradients card vs CPU: {max(errs)}")
+    del gpu, cpu, gg, gcpu
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt_cfg = adamw.AdamWConfig(
+        lr=3e-4, schedule=adamw.cosine_schedule(10, TRAIN_LM_STEPS * 10))
+    train_step = programs.make_train_step(cfg, opt_cfg, remat=False)
+    state = adamw.init_state(params)
+    stream = TokenStream(cfg.vocab_size, TRAIN_LM_TOKENS, TRAIN_LM_BATCH,
+                         seed=SEED)
+    n_leaves = len(tree_leaves(params))
+    rows, profile = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_LM_STEPS):
+        toks, tgts = stream.batch_at(i, device="cuda")
+        if i == 2:
+            _reset_counts(ops)
+
+        def one():
+            _, _, loss, metrics = train_step(params, state, toks, tgts,
+                                             prefix_embeds=prefix)
+            return loss, metrics
+        if i == 1:
+            got = []
+            profile = _step_profile(lambda: got.append(
+                _timed_step(timing, one)))
+            row = got[0]
+        else:
+            row = _timed_step(timing, one)
+        row = {"step": i + 1, **row,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        rows.append(row)
+        emit({"phase": "train_lm_step", **row})
+        check(math.isfinite(row["loss"]) and row["leaves"] == n_leaves
+              and row["finite"] and row["nonzero"], f"LM step {i + 1}: {row}")
+    launches = {k: ops.LAUNCHES[k] / (TRAIN_LM_STEPS - 2)
+                for k in ("linear", "flash_attention")}
+    med = {k: statistics.median(r[k] for r in rows[2:])
+           for k in ("wall_s", "forward_ms", "backward_ms", "optimizer_ms")}
+    step_s = med["wall_s"]
+    peak2, peak5 = rows[1]["peak_bytes"], rows[-1]["peak_bytes"]
+    check(peak5 <= 1.01 * peak2, f"LM peak grew: {peak2} → {peak5}")
+    prepared = gemm.prepared_bytes()
+    del params, state, prefix
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    kernels["flash_attention"]["train_lm"] = {
+        **attn, "launches_per_step": launches["flash_attention"]}
+    kernels["linear"]["train_lm_launches_per_step"] = launches["linear"]
+    emit({"phase": "train_lm", "arch": cfg.name, "blocks": cfg.num_layers,
+          "batch": TRAIN_LM_BATCH, "prefix": plen,
+          "tokens": TRAIN_LM_TOKENS, "steps": TRAIN_LM_STEPS,
+          "step_ms_median": 1e3 * step_s,
+          **{k: med[k] for k in ("forward_ms", "backward_ms",
+                                 "optimizer_ms")},
+          "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_TOKENS / step_s,
+          "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+          "peak_gb": peak5 / 1e9, "weight_bytes": weight_bytes,
+          "halves": prepared, "launches_per_step": launches,
+          "profile_step2": profile, "seconds": seconds,
+          "budget_s": TRAIN_LM_BUDGET_S})
+    check(seconds <= TRAIN_LM_BUDGET_S,
+          f"train_lm took {seconds} s of its {TRAIN_LM_BUDGET_S}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5408,6 +6038,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     peaks = card()
+    t_main = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        """Seconds since the builds began, after the named step."""
+        marks[name] = time.perf_counter() - t_main
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:
         builds = {m.__name__.rsplit(".", 1)[-1]: pool.submit(m.build)
@@ -5417,10 +6054,12 @@ def main():
           "seconds": {k: r["seconds"] for k, r in builds.items()},
           "wall_s": time.perf_counter() - t0})
     sass = sass_phase({k: r["path"] for k, r in builds.items()})
+    mark("build_and_sass")
     cfg = configs.get("dit-xl-256")
     kernels = {"flash_attention": kernel_phase(fa, ref, peaks),
                "ssd": ssd_kernel_phase(ssd, ref, peaks),
                "linear": gemm_kernel_phase(gemm, ref, peaks, cfg)}
+    mark("kernel_sweeps")
 
     t0 = time.perf_counter()
     params_cpu = full_width_params(cfg)
@@ -5445,6 +6084,7 @@ def main():
     cross_check_phase(cfg, diffusion, params_cpu, params_gpu)
     del params_cpu
     dit_profile_phase(cfg, diffusion, params_gpu, ops)
+    mark("dit_params_cross_check_profile")
 
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
@@ -5465,6 +6105,7 @@ def main():
     check(all(dit_launches["linear_" + rows] > 0 for rows in gemm.ROWS),
           f"a linear variant never launched in the DiT slice: "
           f"{dit_launches}")
+    mark("dit_slice")
     serve_launches, serve_calls, store = serve_phase(cfg, params_gpu, ops,
                                                      smooth_art)
     kernels["flash_attention"]["serve_launches"] = serve_launches
@@ -5483,9 +6124,17 @@ def main():
         kernels["flash_attention"][name + "_launches"] = \
             launches["flash_attention"]
         kernels["linear"][name + "_launches"] = launches["linear"]
-    del params_gpu, cut_params, store
+    mark("serving")
+    del cut_params, store
+    # training trains the serving phases' weights in place
+    train_dit_phase(cfg, params_gpu, peaks, kernels)
+    del params_gpu
     gemm.release()            # the prepared halves hold the DiT weights
     gc.collect()              # the DiT weights go before the Mamba phases
+    torch.cuda.empty_cache()
+    mark("train_dit")
+    quickstart_phase(kernels)
+    mark("quickstart")
 
     cfg = lm_cut(configs.get("mamba2-1.3b"), MAMBA2_BLOCKS)
     t0 = time.perf_counter()
@@ -5505,22 +6154,36 @@ def main():
     kernels["ssd"]["launches"] = lm_launches["ssd"]
     lm_decode_consistency_phase(cfg, T, params_gpu, prompts, toks)
     lm_profile_phase(cfg, T, params_gpu, prompts, toks)
+    mark("mamba2")
     del params_gpu, prompts, toks
     gemm.release()
     gc.collect()              # the Mamba weights go before the qwen3 phases
     torch.cuda.empty_cache()
     qwen3_phase(peaks, kernels, sass)
+    mark("qwen3")
     gemma2_phase(peaks, kernels, sass)
+    mark("gemma2")
     minicpm3_phase(peaks, kernels, sass)
+    mark("minicpm3")
     deepseek3_phase(peaks, kernels, sass)
+    mark("deepseek3")
     recurrentgemma_phase(peaks, kernels, sass)
+    mark("recurrentgemma")
     musicgen_phase(peaks, kernels, sass)
+    mark("musicgen")
     internvl2_phase(peaks, kernels, sass)
+    mark("internvl2")
+    train_lm_phase(peaks, kernels)
+    mark("train_lm")
     llama4_phase(peaks, kernels, sass)
+    mark("llama4")
     video_phase(peaks, kernels)
+    mark("video")
     torch.cuda.empty_cache()  # the video weights go before the audio phase
     audio_phase(peaks, kernels)
+    mark("audio")
 
+    emit({"phase": "script_marks", "seconds_since_build": marks})
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -169,14 +169,19 @@ def _dtype(e: Dict, path: str) -> torch.dtype:
 
 
 def restore(path: str):
-    """Returns ``(tree, metadata)`` with CPU tensors.  Refuses (with
+    """Returns ``(tree, metadata)`` with CPU tensors (views of one buffer
+    holding the file's body).  Refuses (with
     :class:`CheckpointError`) files whose magic/header is unreadable,
     whose body is shorter than the header declares (torn write), whose
     entries reach past the body, or whose body sha256 disagrees with the
     header (bit-rot / tamper)."""
     with open(path, "rb") as f:
         header = _read_header(f, path)
-        body = bytearray(f.read())
+        # the body read once into one uninitialized buffer, which the
+        # leaves then view: no zero fill and no second copy
+        body = torch.empty(os.fstat(f.fileno()).st_size - f.tell(),
+                           dtype=torch.uint8)
+        body = body[:f.readinto(memoryview(body.numpy()))]
     declared = header.get("body_len")
     if declared is not None and len(body) != int(declared):
         raise CheckpointError(
@@ -184,7 +189,7 @@ def restore(path: str):
             f"declares {declared}")
     want_sha = header.get("body_sha256")
     if want_sha is not None:
-        got = hashlib.sha256(body).hexdigest()
+        got = hashlib.sha256(body.numpy()).hexdigest()
         if got != want_sha:
             raise CheckpointError(
                 f"checkpoint {path} failed its content checksum "
@@ -206,8 +211,10 @@ def restore(path: str):
         if n == 0:
             leaves[e["name"]] = torch.empty(shape, dtype=dt)
             continue
-        a = torch.frombuffer(body, dtype=dt, count=n, offset=off)
-        leaves[e["name"]] = a.clone().reshape(shape)
+        raw = body[off:need]
+        if off % dt.itemsize:         # a view must be aligned: copy
+            raw = raw.clone()
+        leaves[e["name"]] = raw.view(dt).reshape(shape)
     tree = _rebuild(header["kinds"], leaves, "")
     return tree, header.get("meta", {})
 

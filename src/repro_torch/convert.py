@@ -62,3 +62,15 @@ def params_from_npz(path: str, *, device=None):
     with np.load(path) as f:
         flat = {k: f[k] for k in f.files}
     return params_from_numpy(_unflatten(flat), device=device)
+
+
+def opt_state_from_numpy(state, *, device=None):
+    """The JAX package's AdamW state ``{"step", "mu", "nu"}`` with numpy
+    leaves → the port's (``optim.adamw``): step a 0-d int32 tensor, the
+    moments leaf for leaf in f32, on ``device``."""
+    dev = resolve_device(device)
+    moments = lambda t: tree_map(  # noqa: E731
+        lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev), t)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "mu": moments(state["mu"]), "nu": moments(state["nu"])}

@@ -181,3 +181,52 @@ def vp_schedule(num_train_steps: int = 1000, beta_start: float = 1e-4,
     alphas = 1.0 - betas
     return {"betas": betas, "alphas": alphas,
             "alpha_bar": torch.cumprod(alphas, dim=0)}
+
+
+# ---------------------------------------------------------------------------
+# Training losses
+# ---------------------------------------------------------------------------
+
+def q_sample(sched, x0, t, noise):
+    """VP forward: x_t = √ᾱ_t x₀ + √(1 − ᾱ_t) ε.  t: (B,) int."""
+    ab = sched["alpha_bar"].to(x0.device)[t]
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    return (torch.sqrt(ab).reshape(shape) * x0
+            + torch.sqrt(1.0 - ab).reshape(shape) * noise)
+
+
+def _draw(gen, x0, t, noise, draw_t):
+    """(t, noise) on x0's device: each drawn from ``gen`` (t first, then
+    the noise, on the generator's device) unless the caller passed it."""
+    if t is None:
+        t = draw_t(gen).to(x0.device)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=gen, dtype=x0.dtype,
+                            device=gen.device).to(x0.device)
+    return t, noise
+
+
+def eps_loss(cfg, params, gen, x0, *, sched, label=None, memory=None,
+             t=None, noise=None):
+    """DDPM ε-prediction loss: t uniform over the schedule's integer steps,
+    ε ~ N(0, 1), mean (ε̂(x_t, t) − ε)².  ``t`` (B,) and ``noise`` (x0's
+    shape), when passed, replace the draws from ``gen``."""
+    n = sched["betas"].shape[0]
+    t, noise = _draw(gen, x0, t, noise, lambda g: torch.randint(
+        0, n, (x0.shape[0],), generator=g, device=g.device))
+    pred, _ = apply(cfg, params, q_sample(sched, x0, t, noise), t,
+                    label=label, memory=memory)
+    return torch.mean(torch.square(pred - noise))
+
+
+def rf_loss(cfg, params, gen, x0, *, label=None, memory=None, t=None,
+            noise=None):
+    """Rectified-flow velocity loss: t ~ U[0, 1), x_t = (1 − t)x₀ + t·ε,
+    the target v* = ε − x₀, the model's time t·1000.  ``t`` and ``noise``
+    as in :func:`eps_loss`."""
+    t, noise = _draw(gen, x0, t, noise, lambda g: torch.rand(
+        (x0.shape[0],), generator=g, device=g.device))
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    xt = (1.0 - t).reshape(shape) * x0 + t.reshape(shape) * noise
+    pred, _ = apply(cfg, params, xt, t * 1000.0, label=label, memory=memory)
+    return torch.mean(torch.square(pred - (noise - x0)))

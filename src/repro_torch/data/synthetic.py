@@ -2,8 +2,10 @@
 streams for the LMs, with a planted bigram and, for MusicGen, a token per
 codebook; a stub of a T5-style text memory (drawn from a generator, or per
 prompt for a serving engine's ``text_encoder``); a stub of a ViT's patch
-embeddings, the prefix of InternVL2 and Llama-4; and text-conditioned
-latents whose low-frequency content is a linear readout of that memory.
+embeddings, the prefix of InternVL2 and Llama-4; text-conditioned latents
+whose low-frequency content is a linear readout of that memory; and
+class-conditional latents, a Gaussian blob at a class-dependent position
+with a class-dependent channel signature (DiT's training data).
 
 Drawn on the CPU from a ``torch.Generator``, so a seed gives the same bits
 on every device, then moved to the device (``cuda`` unless the caller
@@ -23,7 +25,7 @@ import torch
 from repro_torch import resolve_device
 
 
-def _step_generator(seed: int, step: int) -> torch.Generator:
+def step_generator(seed: int, step: int) -> torch.Generator:
     """A CPU generator for (seed, step), the same on every host."""
     return torch.Generator().manual_seed(
         int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
@@ -45,7 +47,7 @@ class TokenStream:
         int64, targets the tokens shifted by one; the same for the same
         (seed, step)."""
         dev = resolve_device(device)
-        gen = _step_generator(self.seed, step)
+        gen = step_generator(self.seed, step)
         shape = (self.batch, self.seq_len + 1)
         if self.num_codebooks > 1:
             shape = shape + (self.num_codebooks,)
@@ -89,6 +91,52 @@ def prompt_memory(prompts: Sequence[str], length: int, dim: int, *,
     return torch.cat(rows).to(resolve_device(device))
 
 
+def render_blobs(latent_shape, num_classes: int, label, noise):
+    """The deterministic half of :class:`BlobLatents`: labels (B,) int and
+    noise (B, H, W, C) → x0 (B, H, W, C) f32 on their device.  Class c puts
+    a blob of width H/8 at angle 2πc / num_classes on a circle of radius
+    (H/4, W/4) about the centre, times the channel signature cos(angle ·
+    (i + 1)) for channel i, plus 0.05 · noise."""
+    h, w, c = latent_shape
+    dev = label.device
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    ang = 2 * math.pi * label.float() / max(num_classes, 1)
+    cy = h / 2 + (h / 4) * torch.sin(ang)
+    cx = w / 2 + (w / 4) * torch.cos(ang)
+    d2 = ((yy[None] - cy[:, None, None]) ** 2
+          + (xx[None] - cx[:, None, None]) ** 2)
+    blob = torch.exp(-d2 / (2.0 * (h / 8) ** 2))              # (B, H, W)
+    sig = torch.stack([torch.cos(ang * (i + 1)) for i in range(c)], -1)
+    x0 = blob[..., None] * sig[:, None, None, :]
+    return (x0 + 0.05 * noise).float()
+
+
+@dataclasses.dataclass(frozen=True)
+class BlobLatents:
+    """Class-conditional latents, learnable by a small DiT: a Gaussian blob
+    whose position and channel signature follow the class
+    (:func:`render_blobs`)."""
+    latent_shape: Tuple[int, ...]        # (H, W, C)
+    num_classes: int
+    batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int, *, device=None):
+        """(x0 (batch, H, W, C) f32, label (batch,) int64) on ``device``:
+        the labels and noise drawn on the CPU for (seed, step), the blobs
+        rendered on the device."""
+        dev = resolve_device(device)
+        gen = step_generator(self.seed, step)
+        label = torch.randint(0, self.num_classes, (self.batch,),
+                              generator=gen)
+        noise = torch.randn((self.batch,) + tuple(self.latent_shape),
+                            generator=gen)
+        label = label.to(dev)
+        return (render_blobs(self.latent_shape, self.num_classes, label,
+                             noise.to(dev)), label)
+
+
 @dataclasses.dataclass(frozen=True)
 class CondLatents:
     """Text-conditioned latents: a memory stub and a latent whose
@@ -103,7 +151,7 @@ class CondLatents:
         """(x0 (batch, *latent_shape), memory (batch, cond_len,
         cond_dim)), float32, the same for the same (seed, step)."""
         dev = resolve_device(device)
-        gen = _step_generator(self.seed, step)
+        gen = step_generator(self.seed, step)
         memory = torch.randn((self.batch, self.cond_len, self.cond_dim),
                              generator=gen)
         n = math.prod(self.latent_shape)

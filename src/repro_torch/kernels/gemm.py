@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import re
 from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
@@ -180,17 +180,21 @@ def _library():
 # The token kernel's prepared weights
 # ---------------------------------------------------------------------------
 
-class Prepared(NamedTuple):
+@dataclasses.dataclass
+class Prepared:
     """A weight's split halves for the token kernel, each (N, K) f32."""
     weight: torch.Tensor  # held, so that its address is not reused
     version: int
     big_t: torch.Tensor
     small_t: torch.Tensor
+    captured: bool = False  # read by a launch that a CUDA graph captured
 
 
 _PREPARED: dict = {}
-# copies replaced after an in-place change of their weight: a captured
-# graph may still read them, so they live until ``release``
+# copies replaced after an in-place change of their weight that a captured
+# graph may still read: they live until ``release``.  A copy that no
+# capture read is dropped when it is replaced, so that a training loop's
+# in-place updates keep one copy a weight.
 _RETIRED: list = []
 
 
@@ -203,8 +207,10 @@ def _key(w):
 def prepare(w) -> Prepared:
     """The split halves of weight w (K, N) for the token kernel, made once
     (``ref.split_tf32_t``) and kept until ``release``; made anew when w was
-    changed in place (``w._version``).  A copy missing while the stream
-    captures a CUDA graph raises: prepare every weight before a capture."""
+    changed in place (``w._version``: update weights through the tensor,
+    ``p.add_`` or ``p.copy_``, never through ``p.data``, whose version is
+    not shared).  A copy missing while the stream captures a CUDA graph
+    raises: prepare every weight before a capture."""
     key = _key(w)
     hit = _PREPARED.get(key)
     if hit is not None and hit.version == w._version:
@@ -215,8 +221,13 @@ def prepare(w) -> Prepared:
             "while a CUDA graph captures: call gemm.prepare (or "
             "diffusion.prepare_linear) on every weight before the capture")
     if hit is not None:
-        _RETIRED.append(hit)
-    big_t, small_t = ref.split_tf32_t(w)
+        del _PREPARED[key]
+        if hit.captured:
+            _RETIRED.append(hit)
+        hit = None  # the old halves go before the new ones are made
+    with torch.no_grad():
+        w = w.detach()  # shares w's version counter
+        big_t, small_t = ref.split_tf32_t(w)
     hit = Prepared(w, w._version, big_t, small_t)
     _PREPARED[key] = hit
     return hit
@@ -230,9 +241,18 @@ def prepare_params(weights) -> int:
     return prepared_bytes()
 
 
+def _bytes(copies) -> int:
+    return sum(p.big_t.numel() * p.big_t.element_size() * 2 for p in copies)
+
+
 def prepared_bytes() -> int:
-    return sum(p.big_t.numel() * p.big_t.element_size() * 2
-               for p in _PREPARED.values())
+    """Bytes of the current prepared copies."""
+    return _bytes(_PREPARED.values())
+
+
+def retired_bytes() -> int:
+    """Bytes of the replaced copies that a captured graph may still read."""
+    return _bytes(_RETIRED)
 
 
 def release() -> None:
@@ -302,6 +322,7 @@ def linear_cuda(x, w, b=None, *, rows: str = "tokens"):
         stream = torch.cuda.current_stream().cuda_stream
         if rows == "tokens":
             p = prepare(w)
+            p.captured |= torch.cuda.is_current_stream_capturing()
             rc = lib.linear_tokens_f32(x.data_ptr(), p.big_t.data_ptr(),
                                        p.small_t.data_ptr(), bias,
                                        y.data_ptr(), m, n, k, width, stream)

@@ -13,13 +13,21 @@ an entry.  It counts calls of the function, not CUDA launches: one
 while the stream captures a CUDA graph launches nothing: it records the
 launch into the graph, and counts in ``CAPTURED`` instead.  A graph's
 replays make no call at all.
+
+On a CUDA tensor that requires a gradient (grad mode on), each op's forward
+is still its kernel, with the same launch and count, and its backward the
+gradient of its plain version (``autograd.py``).  A CPU tensor's plain
+version is differentiable as it stands.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import functools
+
 import torch
 
+from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ref
@@ -29,6 +37,14 @@ from repro_torch.kernels import ssd as _ssd
 LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0, "linear_tokens": 0,
             "linear_requests": 0, "rglru_scan": 0}
 CAPTURED = dict(LAUNCHES)
+
+
+def _call(name, kernel, plain, *inputs, vjp=None):
+    """``kernel(*inputs)``; through ``autograd.differentiable`` when a
+    backward must be recorded."""
+    if _ag.needs_grad(*inputs):
+        return _ag.differentiable(kernel, plain, *inputs, vjp=vjp, name=name)
+    return kernel(*inputs)
 
 
 def _count(name: str) -> None:
@@ -48,7 +64,10 @@ def linear(x, w, b=None, *, rows: str = "tokens"):
     if rows not in _gemm.ROWS:
         raise ValueError(f"rows must be one of {_gemm.ROWS}, got {rows!r}")
     if x.device.type == "cuda":
-        out = _gemm.linear_cuda(x.reshape(-1, x.shape[-1]), w, b, rows=rows)
+        out = _call("linear",
+                    functools.partial(_gemm.linear_cuda, rows=rows),
+                    ref.linear_ref, x.reshape(-1, x.shape[-1]), w, b,
+                    vjp=_ag.linear_vjp)
         _count("linear")
         _count("linear_" + rows)
         return out.reshape(*x.shape[:-1], w.shape[1])
@@ -64,8 +83,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Lq, H, D); k: (B, Lk, KV, D); v: (B, Lk, KV, Dv), Dv ≤ D →
     (B, Lq, H, Dv)."""
     if q.device.type == "cuda":
-        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        out = _call("flash_attention",
+                    functools.partial(_fa.flash_attention_cuda, **kw),
+                    functools.partial(ref.flash_attention_ref, **kw),
+                    q, k, v)
         _count("flash_attention")
         return out
     if q.device.type == "cpu":
@@ -78,7 +100,9 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128):
     """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N) →
     (y (B, L, H, P) in x's dtype, hT (B, H, P, N) f32)."""
     if x.device.type == "cuda":
-        out = _ssd.ssd_cuda(x, dt, a, b, c, chunk=chunk)
+        out = _call("ssd", functools.partial(_ssd.ssd_cuda, chunk=chunk),
+                    functools.partial(ref.ssd_ref, chunk=chunk),
+                    x, dt, a, b, c)
         _count("ssd")
         return out
     if x.device.type == "cpu":
@@ -91,7 +115,11 @@ def rglru_scan(xr, ga, gx, gate, a_param, c: float, h0=None):
     → (y (B, L, W) f32, hT (B, W) f32): the RG-LRU recurrence
     (``ref.rglru_scan_ref``)."""
     if xr.device.type == "cuda":
-        out = _rglru.rglru_scan_cuda(xr, ga, gx, gate, a_param, c, h0)
+        # the constant c rides in the kernel and plain closures
+        out = _call("rglru_scan",
+                    lambda *t: _rglru.rglru_scan_cuda(*t[:5], c, t[5]),
+                    lambda *t: ref.rglru_scan_ref(*t[:5], c, t[5]),
+                    xr, ga, gx, gate, a_param, h0)
         _count("rglru_scan")
         return out
     if xr.device.type == "cpu":

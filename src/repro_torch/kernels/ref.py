@@ -10,6 +10,12 @@ import torch
 NEG_INF = -2.0e38
 
 
+def wide(t):
+    """t in f32, or in f64 when it is f64: the plain versions compute in at
+    least f32, and an f64 input keeps f64 (a gradient check's)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def linear_ref(x, w, b=None):
     """``x @ w`` (+ ``b``), the bias added to the finished product."""
     y = x @ w
@@ -73,7 +79,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     g = h // kv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qr = q.reshape(b, lq, kv, g, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qr, k).float() * scale
+    scores = wide(torch.einsum("bqkgd,bskd->bkgqs", qr, k)) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     qpos = torch.arange(lq, device=q.device)[:, None]
@@ -149,13 +155,13 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
 
     # 3. inter-chunk recurrence: h_z = exp(Σ da_z)·h_{z-1} + S_z
     chunk_decay = torch.exp(dac.sum(dim=2))                # (B,nc,H)
-    hprev = (torch.zeros(bs, h, p, n, dtype=torch.float32, device=x.device)
+    hprev = (torch.zeros(bs, h, p, n, dtype=x.dtype, device=x.device)
              if h0 is None else h0)
     hprevs = []
     for z in range(nc):
         hprevs.append(hprev)
         hprev = (hprev * chunk_decay[:, z, :, None, None]
-                 + states[:, z].float())
+                 + wide(states[:, z]))
     hprevs = torch.stack(hprevs, dim=1)                    # (B,nc,H,P,N)
 
     # 4. inter-chunk output: y += C · h_prev · decay from the chunk start
@@ -166,12 +172,13 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
 
 
 def ssd_ref(x, dt, a, b, c, chunk: int = 64, h0=None):
-    """The SSD kernel's function in plain PyTorch: every input taken to f32,
-    chunk = min(chunk, L), y returned in x's dtype and the final state in
-    f32.  The CPU runs it, and the CUDA kernel is held against it."""
+    """The SSD kernel's function in plain PyTorch: every input taken to f32
+    (f64 kept), chunk = min(chunk, L), y returned in x's dtype and the
+    final state in f32.  The CPU runs it, and the CUDA kernel is held
+    against it."""
     l = x.shape[1]
-    y, hT = ssd_chunked(x.float(), dt.float(), a.float(), b.float(),
-                        c.float(), min(chunk, l), h0)
+    y, hT = ssd_chunked(wide(x), wide(dt), wide(a), wide(b), wide(c),
+                        min(chunk, l), h0)
     return y.to(x.dtype), hT
 
 
@@ -208,11 +215,11 @@ def rglru_gates(xr, ga, gx, a_param, c: float):
     """The RG-LRU's per-step decay and input, in f32: ``log_a = −c ·
     softplus(Λ) · σ(ga)`` and ``gated = √max(1 − exp(2·log_a), 1e−12) ·
     σ(gx) · xr``, with ga and gx the gate products with their biases."""
-    r = torch.sigmoid(ga.float())
-    i = torch.sigmoid(gx.float())
-    log_a = -c * softplus(a_param.float()) * r
+    r = torch.sigmoid(wide(ga))
+    i = torch.sigmoid(wide(gx))
+    log_a = -c * softplus(wide(a_param)) * r
     a2 = torch.exp(2.0 * log_a)
-    gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * i * xr.float()
+    gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * i * wide(xr)
     return log_a, gated
 
 
@@ -229,7 +236,7 @@ def rglru_scan_ref(xr, ga, gx, gate, a_param, c: float, h0=None):
     a = torch.exp(log_a)
     if h0 is not None:
         h = h.clone()
-        h[:, 0] = a[:, 0] * h0.float() + h[:, 0]
+        h[:, 0] = a[:, 0] * wide(h0) + h[:, 0]
     d, l = 1, h.shape[1]
     while d < l:
         nh, na = h.clone(), a.clone()
@@ -237,7 +244,7 @@ def rglru_scan_ref(xr, ga, gx, gate, a_param, c: float, h0=None):
         na[:, d:] = a[:, :-d] * a[:, d:]
         h, a = nh, na
         d *= 2
-    return h * gate.float(), h[:, -1]
+    return h * wide(gate), h[:, -1]
 
 
 def rglru_scan_chunked_ref(xr, ga, gx, gate, a_param, c: float, h0=None,

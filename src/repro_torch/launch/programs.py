@@ -1,14 +1,14 @@
-"""The serving programs of an LM, as the JAX package's
-``repro.launch.programs`` builds them:
+"""The programs of an LM, as the JAX package's ``repro.launch.programs``
+builds them:
 
+  train_step   — LM loss (+ MoE aux, + MTP for DeepSeek-V3) + AdamW update
   prefill_step — full forward that builds the decode caches
   serve_step   — ONE new token against a fixed KV/state cache
 
 plus ``adapt_for_shape``, the long_500k sliding-window adaptation.  These
 are the entry points that hand a prefix of precomputed embeddings
-(InternVL2's and Llama-4's patches) to the prefill.  The training half
-(``lm_loss``, ``make_train_step``, ``input_specs``, the optimizer's
-structures) is not ported.
+(InternVL2's and Llama-4's patches) to the model.  ``input_specs`` and the
+optimizer's structures describe GSPMD shardings and are not ported.
 
 Two choices differ from the JAX package's.  The caches are f32
 (``CACHE_DTYPE``), as every decode path of the port takes them; the JAX
@@ -26,8 +26,11 @@ import torch
 
 from repro_torch.config import AttentionSpec, ModelConfig, Stage
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
 
 CACHE_DTYPE = torch.float32
+#: the MTP head's loss weight in :func:`lm_loss`, the JAX package's
+MTP_WEIGHT = 0.3
 
 
 def adapt_for_shape(cfg: ModelConfig, shape) -> ModelConfig:
@@ -50,6 +53,72 @@ def adapt_for_shape(cfg: ModelConfig, shape) -> ModelConfig:
                          for b in st.unit), repeat=st.repeat)
         for st in cfg.stages)
     return cfg.replace(stages=stages, name=cfg.name + "+swa")
+
+
+def _xent(logits, targets):
+    """Mean cross entropy in f32: logsumexp minus the target's logit, over
+    every position (and codebook)."""
+    z = logits.float()
+    tgt = torch.gather(z, -1, targets[..., None].long())[..., 0]
+    return torch.mean(torch.logsumexp(z, dim=-1) - tgt)
+
+
+def _moe_aux_weight(cfg: ModelConfig) -> float:
+    """The first MoE FFN's load-balance loss weight (0 without one)."""
+    for st in cfg.stages:
+        for b in st.unit:
+            w = getattr(b.ffn, "aux_loss_weight", 0.0) if b.ffn else 0.0
+            if w:
+                return w
+    return 0.0
+
+
+def lm_loss(cfg: ModelConfig, params, tokens, targets, *, prefix_embeds=None,
+            memory=None, moe_strategy="gshard", remat=True):
+    """The next-token cross entropy over the token positions (the prefix's
+    are sliced off), plus ``MTP_WEIGHT`` × the MTP head's on the targets
+    shifted once more (one codebook, ``mtp_depth`` > 0), plus the MoE
+    load-balance loss at its weight."""
+    logits, aux = T.forward(cfg, params, tokens, prefix_embeds=prefix_embeds,
+                            memory=memory, moe_strategy=moe_strategy,
+                            remat=remat)
+    plen = prefix_embeds.shape[1] if (cfg.num_prefix_embeds
+                                      and prefix_embeds is not None) else 0
+    loss = _xent(logits[:, plen:], targets)
+    if cfg.mtp_depth > 0 and cfg.num_codebooks == 1:
+        mlogits = T.mtp_logits(cfg, params, aux["hidden"][:, plen:], tokens,
+                               moe_strategy=moe_strategy)
+        mtgt = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
+        loss = loss + MTP_WEIGHT * _xent(mlogits, mtgt)
+    aux_w = _moe_aux_weight(cfg)
+    if aux_w:
+        loss = loss + aux_w * aux["aux"].to(loss.device)
+    return loss
+
+
+def make_train_step(cfg: ModelConfig,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+                    moe_strategy="gshard", remat=True):
+    """``train_step(params, opt_state, tokens, targets, prefix_embeds=None,
+    memory=None)`` → ``(params, opt_state, loss, metrics)``: the loss's
+    gradient (autograd, through the kernels' forwards on a card), rounded
+    to bf16 as the JAX package rounds it before its optimizer, then one
+    AdamW step in place (``optim.adamw``)."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, tokens, targets, prefix_embeds=None,
+                   memory=None):
+        loss, grads = adamw.value_and_grad(
+            lambda p: lm_loss(cfg, p, tokens, targets,
+                              prefix_embeds=prefix_embeds, memory=memory,
+                              moe_strategy=moe_strategy, remat=remat),
+            params)
+        grads = T.tree_map(lambda g: g.to(torch.bfloat16), grads)
+        params, opt_state, metrics = adamw.apply_updates(
+            opt_cfg, params, grads, opt_state)
+        return params, opt_state, loss, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None, *,

@@ -33,9 +33,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import AttentionSpec, BlockSpec, ModelConfig, MoESpec
-from repro_torch.kernels import gemm
+from repro_torch.kernels import gemm, ops
 from repro_torch.models import blocks, layers as L
 
 
@@ -47,6 +48,32 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return None if tree is None else fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of dicts, lists and tuples, in ``tree_map``'s
+    order (None is no leaf)."""
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _unstack(tree, n: int):
+    """``[tree_map(lambda a: a[r], tree) for r in range(n)]`` through one
+    ``unbind`` a leaf: the same views, and in a backward one stack of the
+    slices' gradients a leaf, where ``a[r]``'s backward fills a zero
+    tensor of the whole leaf for each r and adds the n of them."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [type(tree)(v[r] for v in parts) for r in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees):
@@ -226,7 +253,7 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
                  pos=None, caches=None, cond=None, skip=None,
                  branch_caches=None, collect_branches=False,
                  collect_caches=False, memory=None, video_shape=None,
-                 moe_strategy="gshard", moe_group_size=2048):
+                 moe_strategy="gshard", moe_group_size=2048, remat=False):
     """Run all stages.  Returns ``(x, branch, new_caches, aux)``.
     ``positions`` (full mode) and ``pos`` (decode mode) reach every
     attention mixer, ``moe_strategy`` and ``moe_group_size`` every MoE FFN;
@@ -238,7 +265,9 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
     nothing is collected.  new_caches: per stage, a tuple per unit block of
     the block's state cache stacked ``(repeat, ...)``, when
     ``collect_caches`` or ``mode == "decode"``; else None per stage.  A
-    decode step's KV caches are the given ones, updated in place."""
+    decode step's KV caches are the given ones, updated in place.
+    ``remat`` recomputes each unit's activations in the backward
+    (``torch.utils.checkpoint``), with the same numbers."""
     collect = _normalize_collect(collect_branches)
     collect_any = collect is None or len(collect) > 0
     keep_caches = collect_caches or mode == "decode"
@@ -249,28 +278,40 @@ def apply_stages(cfg: ModelConfig, params, x, *, mode="full", positions=None,
         sbc = branch_caches[si] if branch_caches is not None else None
         scache = caches[si] if caches is not None else None
         per_rep, per_rep_caches = [], []
+        sp_reps = [_unstack(u, st.repeat) for u in sp]
         for r in range(st.repeat):
-            outs, new_caches = [], []
-            for i, b in enumerate(st.unit):
-                bc = (tree_map(lambda a: a[r], sbc[i])
-                      if sbc is not None and sbc[i] else None)
-                cache = (tree_map(lambda a: a[r], scache[i])
-                         if scache is not None else None)
-                is_moe = isinstance(b.ffn, MoESpec)
-                x, bo, nc, *aux = blocks.apply(
-                    b, tree_map(lambda a: a[r], sp[i]), x, mode=mode,
-                    positions=positions, pos=pos, cache=cache, cond=cond,
-                    skip=skip, branch_cache=bc, memory=memory,
-                    video_shape=video_shape, moe_strategy=moe_strategy,
-                    moe_group_size=moe_group_size, with_aux=is_moe)
-                if is_moe:
-                    aux_total = (aux[0] if aux_total is None
-                                 else aux_total + aux[0])
-                if collect is not None:
-                    types = dict(zip(b.branch_names(), b.branch_types()))
-                    bo = {n: v for n, v in bo.items() if types[n] in collect}
-                outs.append(bo or None)
-                new_caches.append(nc if keep_caches else None)
+            # the stage's values bound now: a remat recompute runs later
+            def unit(x, r=r, st=st, sps=sp_reps, sbc=sbc, scache=scache):
+                outs, new_caches, auxes = [], [], []
+                for i, b in enumerate(st.unit):
+                    bc = (tree_map(lambda a: a[r], sbc[i])
+                          if sbc is not None and sbc[i] else None)
+                    cache = (tree_map(lambda a: a[r], scache[i])
+                             if scache is not None else None)
+                    is_moe = isinstance(b.ffn, MoESpec)
+                    x, bo, nc, *aux = blocks.apply(
+                        b, sps[i][r], x, mode=mode,
+                        positions=positions, pos=pos, cache=cache,
+                        cond=cond, skip=skip, branch_cache=bc,
+                        memory=memory, video_shape=video_shape,
+                        moe_strategy=moe_strategy,
+                        moe_group_size=moe_group_size, with_aux=is_moe)
+                    auxes.extend(aux)
+                    if collect is not None:
+                        types = dict(zip(b.branch_names(), b.branch_types()))
+                        bo = {n: v for n, v in bo.items()
+                              if types[n] in collect}
+                    outs.append(bo or None)
+                    new_caches.append(nc if keep_caches else None)
+                return x, outs, new_caches, auxes
+
+            # remat: the unit's activations are recomputed in the backward
+            # (its kernels launch again), as jax.checkpoint of the unit
+            x, outs, new_caches, auxes = (
+                checkpoint(unit, x, use_reentrant=False) if remat
+                else unit(x))
+            for a in auxes:
+                aux_total = a if aux_total is None else aux_total + a
             per_rep.append(outs)
             per_rep_caches.append(new_caches)
         # a decode step updates a KV cache in place: its stacked leaves
@@ -300,14 +341,15 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
             prefix_embeds=None, cond=None, skip=None, branch_caches=None,
             collect_branches=False, collect_caches=False, memory=None,
             video_shape=None, positions=None, moe_strategy="gshard",
-            moe_group_size=2048):
+            moe_group_size=2048, remat=False):
     """Full-sequence forward.  For an LM: tokens (B, L[, K]) with
     ``prefix_embeds`` (B, P, d) in front → logits over all P + L
     positions.  For a diffusion backbone: embeddings ``embeds`` (B, L, d)
     → hidden states after ``final_norm`` (the diffusion wrapper owns
     patchify and head).  ``memory`` (B, Lm, cond_dim), ``video_shape`` (T,
     S) and ``positions`` ((1, L) or (B, L); attention takes ``arange(L)``
-    when None), ``moe_strategy`` and ``moe_group_size`` reach every block.
+    when None), ``moe_strategy`` and ``moe_group_size`` reach every block;
+    ``remat`` recomputes each unit in the backward.
     Returns ``(out, {"branch", "caches", "aux", "hidden"})`` (see
     :func:`apply_stages`)."""
     x = (embed_tokens(cfg, params, tokens, prefix_embeds) if embeds is None
@@ -317,10 +359,33 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
         skip=skip, branch_caches=branch_caches,
         collect_branches=collect_branches, collect_caches=collect_caches,
         memory=memory, video_shape=video_shape, moe_strategy=moe_strategy,
-        moe_group_size=moe_group_size)
+        moe_group_size=moe_group_size, remat=remat)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     out = logits_from_hidden(cfg, params, x) if cfg.task == "lm" else x
     return out, {"branch": branch, "caches": caches, "aux": aux, "hidden": x}
+
+
+def mtp_logits(cfg: ModelConfig, params, hidden, tokens, *,
+               moe_strategy="gshard"):
+    """DeepSeek-V3's multi-token prediction head: predict token t + 2 from
+    hidden_t (B, L, d), the final-normed hidden states, and the embedding
+    of token t + 1, tokens (B, L).  The next tokens keep all L positions
+    (the last id repeated, so that a MoE group still divides them; the
+    last position is padding): norm(h) ⊕ norm(emb) → proj → one block of
+    the last unit's spec → the shared final norm and head.  Returns logits
+    (B, L, V)."""
+    mtp = params["mtp"]
+    nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    h = torch.cat([L.apply_norm(cfg.norm, mtp["h_norm"], hidden),
+                   L.apply_norm(cfg.norm, mtp["e_norm"],
+                                params["embed"][nxt])], dim=-1)
+    h = ops.linear(h, mtp["proj"])
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, *_ = blocks.apply(cfg.stages[-1].unit[-1], mtp["block"], h,
+                         mode="full", positions=positions,
+                         moe_strategy=moe_strategy)
+    h = L.apply_norm(cfg.norm, params["final_norm"], h)
+    return logits_from_hidden(cfg, params, h)
 
 
 def _to_decode_cache(block_spec: BlockSpec, prefill_cache, cache_len,
