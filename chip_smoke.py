@@ -333,6 +333,16 @@ exits non-zero:
    4 × (256 patch embeddings + 512 tokens), 5 steps — every leaf's
    gradient finite and nonzero, a 2-block card-vs-CPU loss and gradient,
    the peak flat, ms a step, tokens / s, step 2 traced.
+30. the share of the card's peak (``roofline``, budget
+   ``ROOFLINE_BUDGET_S``, last): the FLOPs and bytes of DiT-XL/2's three
+   50-step samplers (``build_sampler_fn`` of the slice's ``no_cache``,
+   α 0.18 and ``static:n=2``) and of the Qwen3 prefill, counted on the
+   meta device (``launch/op_analysis.py``) by a spawned process that runs
+   beside the video and audio phases, read against the H100's roofline
+   and this run's walls: counted / analytic FLOPs in [0.8, 1.25], cached
+   / uncached FLOPs within 0.15 of the compute fraction, each phase's
+   measured weight and prepared-halves bytes equal to the dry run's
+   prediction (``launch/dryrun.py``), no kernel launched.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 The weights are random (seeded); depth and widths are DiT-XL/2's and
@@ -346,16 +356,18 @@ RecurrentGemma-2B's at all 26 of its blocks, MusicGen-medium's at all
 48, InternVL2-1B's at all 24, and Llama-4 Maverick's at 4 of 48 with 8
 of its 128 experts.
 """
+import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -376,13 +388,11 @@ F64_LIMIT = 1e-5
 # came), and calls a batch at an LM prefill's rows (each call milliseconds
 # long): 5 (10 before) — part of what pays for the training phases
 SWEEP_REPS, SWEEP_PREFILL_ITERS = 3, 5
-# Published peaks per card (NVIDIA H100 data sheet: FP32 outside the tensor
-# cores, dense TF32 and BF16 on the tensor cores where cited, HBM
-# bandwidth), keyed by the name nvidia-smi reports.
-PEAKS = {"H100 80GB HBM3": {"fp32": 67e12, "tf32": 495e12,      # SXM5
-                            "bf16": 989e12, "hbm": 3.35e12},
-         "H100 PCIe": {"fp32": 51e12, "hbm": 2.0e12},
-         "H100 NVL": {"fp32": 60e12, "hbm": 3.9e12}}
+# what the roofline phase reads of the phases before it, measured in the
+# same run: the DiT slice's three generates (wall, schedule, compute
+# fraction), the qwen3 phase's prefill seconds, and the weight and
+# prepared-halves bytes each phase measured of its own weights
+MEASURED = {"dit_generate": {}, "qwen3_prefill_s": None, "params": {}}
 
 
 def emit(obj):
@@ -395,6 +405,9 @@ def check(ok, msg):
 
 
 def card():
+    """The card's name and power limit as ``nvidia-smi`` gives them, and
+    its published peaks (``repro_torch.launch.mesh``)."""
+    from repro_torch.launch import mesh
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -402,9 +415,7 @@ def card():
     print(line, flush=True)
     name, power = (s.strip() for s in line.split(",", 1))
     emit({"card": name, "power_limit": power})
-    peaks = [v for k, v in PEAKS.items() if k in name]
-    check(len(peaks) == 1, f"no published peaks on file for {name!r}")
-    return peaks[0]
+    return mesh.peaks(name)
 
 
 def kernel_phase(fa, ref, peaks):
@@ -413,6 +424,7 @@ def kernel_phase(fa, ref, peaks):
     DiT-XL/2 shape, in f32 and in bf16, beside SDPA's."""
     import torch.nn.functional as F
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     gen = torch.Generator().manual_seed(SEED)
 
     def qkv(b, l, h, kv, d, dtype, offset=0):
@@ -479,11 +491,9 @@ def kernel_phase(fa, ref, peaks):
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     _, lib_kernels = _traced(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    flops = 4 * b * h * l * l * d
-    nbytes = 4 * q.numel() * q.element_size()
-    # f32 runs as three TF32 products on the tensor cores (3xTF32)
-    t_ops = (3 * flops / peaks["tf32"] * 1e3 if "tf32" in peaks else None)
-    t_bytes = nbytes / peaks["hbm"] * 1e3
+    work = fa.work(b, l, l, h, h, d)
+    flops, nbytes, _ = work
+    bound, bound_by = kernel_bound(peaks, work)
 
     # the same shape in bf16, against SDPA in bf16
     qb, kb, vb = (a.bfloat16() for a in (q, k, v))
@@ -501,17 +511,15 @@ def kernel_phase(fa, ref, peaks):
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (qb, kb, vb))
     bf16_library_ms = device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    bf16_bound = (max(flops / peaks["bf16"], nbytes / 2 / peaks["hbm"]) * 1e3
-                  if "bf16" in peaks else None)
+    bf16_bound = kernel_bound(peaks, fa.work(b, l, l, h, h, d,
+                                             dtype=torch.bfloat16))[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
             "shape": [b, l, h, h, d], "dtype": "float32", "causal": False,
             **fa.plan(q, k, v),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": None if t_ops is None else max(t_ops, t_bytes),
-            "bound_by": (None if t_ops is None else
-                         "operations" if t_ops >= t_bytes else "bytes"),
+            "bound_ms": bound, "bound_by": bound_by,
             "bound_simt_ms": flops / peaks["fp32"] * 1e3,
             "library_ms": library_ms,
             "library_kernel": max(lib_kernels, key=lambda k:
@@ -609,15 +617,14 @@ def product_times(gemm, ref, peaks, x, w, b, rows, iters=50, reps=5):
     ``plain_ms`` repeats that one reading so that the sums by phase add
     every row."""
     from repro_torch.kernels.timing import device_ms, per_call_ms
+    from repro_torch.launch.roofline import kernel_bound
     (m, k), n = x.shape, w.shape[1]
     bias = b is not None
     lib = ((lambda: torch.addmm(b, x, w)) if bias
            else (lambda: torch.mm(x, w)))
-    flops = 2 * m * k * n
-    nbytes = 4 * (m * k + k * n + m * n + (n if bias else 0))
-    t_ops = (3 * flops / peaks["tf32"] if rows == "tokens"
-             else flops / peaks["fp32"]) * 1e3
-    t_bytes = nbytes / peaks["hbm"] * 1e3
+    work = gemm.work(m, k, n, bias, rows)
+    flops, nbytes, _ = work
+    bound, bound_by = kernel_bound(peaks, work)
     row = {"m": m, "k": k, "n": n, "bias": bias, "rows": rows,
            "plan": gemm.launch_plan(m, k, n, rows),
            "ms": device_ms(lambda: gemm.linear_cuda(x, w, b, rows=rows),
@@ -625,8 +632,7 @@ def product_times(gemm, ref, peaks, x, w, b, rows, iters=50, reps=5):
            "per_call_ms": per_call_ms(
                lambda: gemm.linear_cuda(x, w, b, rows=rows), iters=iters),
            "library_ms": device_ms(lib, iters=iters, reps=reps),
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ms": bound, "bound_by": bound_by,
            "flops": flops, "bytes": nbytes}
     if bias:
         row["plain_ms"] = device_ms(lambda: ref.linear_ref(x, w, b),
@@ -875,6 +881,8 @@ def slice_phase(cfg, params, ops):
                      "rel_l1_to_no_cache": float((x - base).abs().sum()
                                                  / base.abs().sum())})
         emit({"phase": "generate", **runs[-1]})
+        MEASURED["dit_generate"][name] = {"wall_s": wall, "schedule": sch,
+                                          "compute_fraction": frac}
     eager = serve.generate(params, torch.Generator().manual_seed(SEED + 3),
                            len(REQUEST_LABELS), label=labels, compiled=False)
     same = bool(torch.equal(eager, latents["smoothcache:alpha=0.18"]))
@@ -889,6 +897,7 @@ def ssd_kernel_phase(ssd, ref, peaks):
     launches must agree bitwise), at a ragged length and on strided views
     of one projection; device times at the prefill shape."""
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     gen = torch.Generator().manual_seed(SEED)
 
     def inputs(b, l, h, p, g, n, dtype, split=False):
@@ -960,12 +969,9 @@ def ssd_kernel_phase(ssd, ref, peaks):
                          reps=3)
     _, passes = _traced(lambda: [ssd.ssd_cuda(*t, chunk=q)
                                  for _ in range(10)])
-    flops = ssd_flops(b, l, h, p, g, n, q)
-    nbytes = 4 * (2 * b * l * h * p + b * h * p * n + 2 * b * l * g * n
-                  + b * l * h + h)
-    # f32 runs as three TF32 products on the tensor cores (3xTF32)
-    t_ops = (3 * flops / peaks["tf32"] * 1e3 if "tf32" in peaks else None)
-    t_bytes = nbytes / peaks["hbm"] * 1e3
+    work = ssd.work(b, l, h, p, g, n, q)
+    flops, nbytes, _ = work
+    bound, bound_by = kernel_bound(peaks, work)
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:76",
@@ -973,9 +979,7 @@ def ssd_kernel_phase(ssd, ref, peaks):
             **ssd.plan(t[0], t[3], t[4]),
             "max_abs_err": full["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": None if t_ops is None else max(t_ops, t_bytes),
-            "bound_by": (None if t_ops is None else
-                         "operations" if t_ops >= t_bytes else "bytes"),
+            "bound_ms": bound, "bound_by": bound_by,
             "bound_simt_ms": flops / peaks["fp32"] * 1e3,
             "library_ms": None,
             "pass_ms": {k: us / 1e3 / calls
@@ -994,21 +998,6 @@ def ssd_passes(kern):
                 row[0] += us
                 row[1] += calls
     return out
-
-
-def ssd_flops(b, l, h, p, g, n, q):
-    """FLOPs the SSD function needs with no initial state, counted per chunk
-    of qz = min(q, L - start) steps: C·Bᵀ on its causal triangle once per
-    (batch, group), since every head of a group shares it; per (batch,
-    head) the scores·x triangle, the state update x'·B, and C·stateᵀ from
-    the second chunk on (the state entering the first chunk is zero)."""
-    macs = 0
-    for z, start in enumerate(range(0, l, q)):
-        qz = min(q, l - start)
-        tri = qz * (qz + 1) // 2
-        macs += b * g * tri * n
-        macs += b * h * (tri * p + qz * n * p + (qz * n * p if z else 0))
-    return 2 * macs
 
 
 def rel_err(got, want):
@@ -1187,33 +1176,56 @@ def _top_kernel(fn, calls=10):
     return max(kern, key=lambda k: kern[k][0])[:90] if kern else None
 
 
+# traces a profile phase takes at most until its kernel records match the
+# wrappers' launch counts (a torch.profiler trace has dropped records)
+TRACE_TRIES = 3
+
+
 def dit_profile_phase(cfg, diffusion, params, ops):
     """Where a DiT-XL/2 step's time goes: one full-width denoiser forward at
     B = 8 (4 requests under CFG) after one untraced warm-up forward —
     device time by kernel, the attention kernel's and the GEMMs' shares of
-    it, and the device's idle share of the wall time."""
+    it, and the device's idle share of the wall time.  The forward is
+    traced again (up to ``TRACE_TRIES`` times) until the trace holds a
+    record of every attention and linear launch the wrappers counted; if
+    none does, ``trace_complete`` says which family fell short, and that
+    family's times and shares, and the device's, are null."""
     gen = torch.Generator().manual_seed(SEED + 6)
     x = torch.randn((8,) + cfg.latent_shape, generator=gen).cuda()
     t = torch.full((8,), 500.0, device="cuda")
     label = torch.tensor(REQUEST_LABELS + [cfg.num_classes] * 4,
                          device="cuda")
     diffusion.apply(cfg, params, x, t, label=label)
-    before = {k: ops.LAUNCHES[k] for k in ("linear", "linear_tokens",
-                                           "linear_requests")}
-    wall_us, kern = _traced(
-        lambda: diffusion.apply(cfg, params, x, t, label=label))
-    launched = {k: ops.LAUNCHES[k] - v for k, v in before.items()}
+    for tries in range(1, TRACE_TRIES + 1):
+        before = {k: ops.LAUNCHES[k] for k in ("flash_attention", "linear",
+                                               "linear_tokens",
+                                               "linear_requests")}
+        wall_us, kern = _traced(
+            lambda: diffusion.apply(cfg, params, x, t, label=label))
+        launched = {k: ops.LAUNCHES[k] - v for k, v in before.items()}
+        attn = [v for k, v in kern.items() if "attn_fwd" in k]
+        linear = {rows: [v for k, v in kern.items() if name in k]
+                  for rows, name in LINEAR_KERNELS.items()}
+        in_trace = {"flash_attention": sum(n for _, n in attn),
+                    "linear": sum(n for v in linear.values() for _, n in v)}
+        complete = {k: n == launched[k] for k, n in in_trace.items()}
+        if all(complete.values()):
+            break
     busy = sum(us for us, _ in kern.values())
-    attn = [v for k, v in kern.items() if "attn_fwd" in k]
-    linear = {rows: [v for k, v in kern.items() if name in k]
-              for rows, name in LINEAR_KERNELS.items()}
     # any other product kernel (cuBLAS, CUTLASS) would break the row
     # contract: every DiT product must go through the port's linear kernels
     library = [k for k in kern
                if not any(n in k for n in LINEAR_KERNELS.values()) and any(
                    f in k.lower() for f in ("gemm", "cutlass", "xmma",
                                             "cublas"))]
-    by_variant = {rows: {"ms": sum(us for us, _ in v) / 1e3,
+
+    def timed(us, family):
+        return us / 1e3 if complete[family] else None
+
+    def share(us):       # of the device time, which needs every record
+        return us / busy if all(complete.values()) else None
+
+    by_variant = {rows: {"ms": timed(sum(us for us, _ in v), "linear"),
                          "kernels_in_profile": sum(n for _, n in v),
                          "calls": launched["linear_" + rows]}
                   for rows, v in linear.items()}
@@ -1221,22 +1233,33 @@ def dit_profile_phase(cfg, diffusion, params, ops):
     attn_us = sum(us for us, _ in attn)
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     row = {"phase": "dit_profile", "batch": 8, "wall_ms": wall_us / 1e3,
-           "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-           "attn_ms": attn_us / 1e3, "attn_calls": sum(n for _, n in attn),
-           "attn_share": attn_us / busy, "gemm_ms": gemm / 1e3,
-           "gemm_share": gemm / busy,
+           "trace_complete": complete, "traces": tries,
+           "device_ms": busy / 1e3 if all(complete.values()) else None,
+           "idle_share": 1 - busy / wall_us if all(complete.values())
+           else None,
+           "attn_ms": timed(attn_us, "flash_attention"),
+           "attn_calls": launched["flash_attention"],
+           "attn_kernels_in_profile": in_trace["flash_attention"],
+           "attn_share": share(attn_us),
+           "gemm_ms": timed(gemm, "linear"),
+           "gemm_share": share(gemm),
            "gemm_calls": launched["linear"],
-           "gemm_kernels_in_profile": sum(
-               v["kernels_in_profile"] for v in by_variant.values()),
+           "gemm_kernels_in_profile": in_trace["linear"],
            "gemm_variants": by_variant,
            "library_gemm_kernels": library, "kernels": len(kern),
            "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
                    for k, (us, n) in top]}
     emit(row)
     check(busy > 0, "the profiler saw no device time")
-    check(row["attn_calls"] == attn_calls(cfg, cfg.layer_types()),
-          f"{row['attn_calls']} attention kernels in one forward, expected "
-          f"{attn_calls(cfg, cfg.layer_types())}")
+    # the calls counted by the wrapper, which drops none; the trace's count
+    # is a second reading (a trace of this forward has dropped 2 of its 28
+    # attention and 18 of its 201 linear kernel records)
+    check(row["attn_calls"] == attn_calls(cfg, cfg.layer_types())
+          and row["attn_kernels_in_profile"] <= row["attn_calls"]
+          and row["gemm_kernels_in_profile"] <= row["gemm_calls"],
+          f"{row['attn_calls']} attention calls in one forward "
+          f"({row['attn_kernels_in_profile']} kernels in the trace), "
+          f"expected {attn_calls(cfg, cfg.layer_types())}")
     want = linear_calls(cfg, cfg.layer_types())
     check(row["gemm_calls"] == want and all(linear.values())
           and not library,
@@ -1288,13 +1311,6 @@ def lm_profile_phase(cfg, T, params, prompts, toks):
 QWEN3_BLOCKS = 8          # of 40: weights and prepared halves take ~38 GB
 QWEN3_CHECK_BLOCKS = 2    # the card-vs-CPU prefill's depth
 QWEN3_BUDGET_S = 120
-
-
-def _band_pairs(l, window):
-    """(query, key) pairs of a causal self-attention over ``l`` positions
-    under a sliding ``window`` (None: the whole triangle)."""
-    w = window or l
-    return sum(min(i + 1, w) for i in range(l))
 
 
 def flex_library(qt, kt, vt, window, softcap):
@@ -1377,6 +1393,7 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
     from torch.nn.attention import SDPBackend
     from repro_torch.kernels.timing import device_ms
     from repro_torch.config import AttentionSpec
+    from repro_torch.launch.roofline import kernel_bound
     specs = {}
     for blk in cfg.stages[0].unit:
         if isinstance(blk.mixer, AttentionSpec):
@@ -1412,10 +1429,10 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
         check(bool(torch.equal(out, again)),
               f"two launches of the {cfg.name} {name} attention differ")
         del again, want
-        flops = 2 * b * h * (d + dv) * _band_pairs(l, spec.window)
-        nbytes = 4 * b * l * (h * d + kv * d + kv * dv + h * dv)
-        t_ops = 3 * flops / peaks["tf32"] * 1e3
-        t_bytes = nbytes / peaks["hbm"] * 1e3
+        work = fa.work(b, l, l, h, kv, d, dv, causal=True,
+                       window=spec.window)
+        flops, nbytes, _ = work
+        bound, bound_by = kernel_bound(peaks, work)
         if spec.window is None:
             sdpa_kw = dict(is_causal=True, **gqa)
         else:
@@ -1462,8 +1479,7 @@ def attn_lm_attention_phase(fa, ref, peaks, cfg, rand, shape, sass,
                 library_ms=device_ms(flex, iters=5, reps=3),
                 library_no_softcap_ms=sdpa_ms)
             del got, flex
-        row.update(bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+        row.update(bound_ms=bound, bound_by=bound_by,
                    flops=flops, bytes=nbytes,
                    # grid (B·H, query tiles): tile i walks the key tiles
                    # of its band
@@ -1874,6 +1890,7 @@ def lm_params_phase(cfg, serve, T, seed):
     generator (a CPU draw of billions of values takes minutes) and the
     token kernel's prepared halves of every block product.  Returns
     (params, weight bytes, prepared bytes)."""
+    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     params = serve.init_params(
         torch.Generator(device="cuda").manual_seed(seed), cfg, device="cuda")
@@ -1887,8 +1904,9 @@ def lm_params_phase(cfg, serve, T, seed):
           "count": sum(a.numel() for a in tree_leaves(params)),
           "weight_bytes": weight_bytes, "linear_prepared_bytes": prepared,
           "device_bytes": torch.cuda.memory_allocated()})
-    check(prepared == 2 * 4 * sum(w.numel() for w in T.token_weights(params)),
+    check(prepared == dryrun.halves_bytes(T.token_weights(params)),
           f"{prepared} prepared bytes")
+    MEASURED["params"][cfg.name] = (cfg, weight_bytes, prepared)
     return params, weight_bytes, prepared
 
 
@@ -1910,9 +1928,10 @@ def qwen3_phase(peaks, kernels, sass):
                                                      SEED + 80)
     attn_lm_cross_check_phase(cfg, T, params, QWEN3_CHECK_BLOCKS, SEED + 82,
                               "qwen3")
-    prompts, toks, launches, _ = attn_lm_generate_phase(
+    prompts, toks, launches, row = attn_lm_generate_phase(
         cfg, serve, params, ops, (LM_BATCH, LM_PROMPT, LM_GEN), SEED + 83,
         "qwen3", weight_bytes=weight_bytes, prepared_bytes=prepared)
+    MEASURED["qwen3_prefill_s"] = row["prefill_s"]
     lm_decode_consistency_phase(cfg, T, params, prompts, toks,
                                 name="qwen3_decode_consistency")
     profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
@@ -2221,6 +2240,7 @@ def moe_experts_phase(gemm, ref, moe, peaks, cfg, params, tag, tokens,
     ``group``).  Emits ``<tag>_experts``."""
     from repro_torch.kernels.timing import device_ms
     from repro_torch.models.transformer import tree_map
+    from repro_torch.launch.roofline import kernel_bound
     t_phase = time.perf_counter()
     si, bi, spec = moe_block(cfg)
     ffn = tree_map(lambda a: a[0], params["stages"][si][bi]["ffn"])
@@ -2256,11 +2276,9 @@ def moe_experts_phase(gemm, ref, moe, peaks, cfg, params, tag, tokens,
         err = max(float((a - b).abs().max() / b.abs().max())
                   for a, b in zip(got, want))
         del got, want, up, gate, down, shared
-        flops = sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w in ws)
-        nbytes = 4 * sum(a.numel() + w.numel() + a.shape[0] * w.shape[1]
-                         for a, w in ws)
-        t_ops = 3 * flops / peaks["tf32"] * 1e3
-        t_bytes = nbytes / peaks["hbm"] * 1e3
+        works = [gemm.work(a.shape[0], *w.shape) for a, w in ws]
+        flops, nbytes = (sum(w[i] for w in works) for i in (0, 1))
+        bound, bound_by = kernel_bound(peaks, (flops, nbytes, "3xtf32"))
         iters = 20 if rows <= 8 else 2
         row = {"rows_per_expert": rows, "experts": e_n, "shared": 1,
                "products": len(ws), "rel_max_err": err,
@@ -2271,8 +2289,7 @@ def moe_experts_phase(gemm, ref, moe, peaks, cfg, params, tag, tokens,
                "library": "torch.bmm (f32, TF32 off) + torch.mm",
                "library_ms": device_ms(library, iters=iters, reps=3,
                                        warmup=2),
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bound_ms": bound, "bound_by": bound_by,
                "flops": flops, "bytes": nbytes,
                "plan": {"up_gate": gemm.launch_plan(rows, d, f),
                         "down": gemm.launch_plan(rows, f, d)}}
@@ -2503,6 +2520,7 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg, sass):
     FFMA count of the ``sass`` line.  Returns the ``kernels`` entry
     (launches filled in by the generate)."""
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     m = next(b.mixer for _, _, _, b in cfg.blocks()
              if not hasattr(b.mixer, "num_kv_heads"))
     c, w = m.c_constant, m.expand * cfg.d_model
@@ -2556,12 +2574,9 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg, sass):
               f"rglru scan at L {steps} launched {launched}, the plan "
               f"{rglru.plan(steps)}")
         if name in ("prefill", "decode"):
-            n = b * steps * width
-            # xr, ga, gx, gate read and y written once; Λ, h0 and hT
-            nbytes = 4 * (5 * n + width + (2 if with_h0 else 1) * b * width)
-            ops_count = 20 * n
-            t_bytes = nbytes / peaks["hbm"] * 1e3
-            t_ops = ops_count / peaks["fp32"] * 1e3
+            work = rglru.work(b, steps, width, with_h0)
+            ops_count, nbytes, _ = work
+            bound, bound_by = kernel_bound(peaks, work)
             calls = [0]
 
             def call():
@@ -2586,8 +2601,7 @@ def recurrentgemma_scan_phase(rglru, ref, peaks, cfg, sass):
                 "max_abs_err": row["max_abs_err"], "ms": ms,
                 "plain_ms": device_ms(lambda: ref.rglru_scan_ref(*t, c, h0),
                                       iters=3, reps=3),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": None,
                 "timed_calls": calls[0],
                 "launches_per_call": per_call,
@@ -2787,10 +2801,11 @@ def cross_attention_phase(fa, ref, peaks, rand, cases):
     """The attention kernel as cross-attention (not causal) at ``cases`` =
     {name: (B, Lq, Lk, H, D)} from ``rand(*shape)``: against its plain
     version (≤ 5e-5), two launches bitwise, device ms beside its bound
-    (:func:`_attn_bound`), the plain version's and SDPA's.  A decode
+    (``flash_attention.work``), the plain version's and SDPA's.  A decode
     step's case has Lq 1: one real row in the kernel's query tile."""
     import torch.nn.functional as F
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     rows = {}
     for name, (b, lq, lk, h, d) in cases.items():
         q, k, v = rand(b, lq, h, d), rand(b, lk, h, d), rand(b, lk, h, d)
@@ -2806,7 +2821,8 @@ def cross_attention_phase(fa, ref, peaks, rand, cases):
               f"{name} cross attention vs plain: max abs err {err}")
         check(bool(torch.equal(out, again)),
               f"two launches of the {name} cross attention differ")
-        bound, by, flops, nbytes = _attn_bound(peaks, b, lq, lk, h, d)
+        flops, nbytes, unit = fa.work(b, lq, lk, h, h, d)
+        bound, by = kernel_bound(peaks, (flops, nbytes, unit))
         row = {"shape": [b, lq, lk, h, d], "causal": False,
                **fa.plan(q, k, v), "max_abs_err": err, "ms": device_ms(call),
                "plain_ms": device_ms(lambda: ref.flash_attention_ref(
@@ -3507,27 +3523,51 @@ def fused_phase(cfg, params, ops, store):
     check(torch.equal(rs2.x, xf), "two fused batches differ")
     _, a2 = _timed(lambda: executor.sample_adaptive(
         params, gen(), n, tau=entry.tau, **kw))
-    traced = {}
-    wall_us, prof = _profiled(lambda: traced.update(
-        d=executor.sample_adaptive_fused(params, gen(), n, tau=entry.tau,
-                                         return_decisions=True, **kw)[1]))
-    busy, attn_us, attn_kernels = _device_us(prof, "attn_fwd")
+    # the attention kernels the traced batch's replays launched, from what
+    # cannot drop a record: each step replays the graph, whose IF bodies
+    # hold the attention calls captured in each branch, and runs the
+    # branch of that step's decision (read from the device after the
+    # run).  The trace's own count is a second reading: a torch.profiler
+    # trace has dropped kernel records (1 of 9 runs, 1 of 12), so the
+    # batch is traced again (up to ``TRACE_TRIES`` times) until it holds
+    # them all, and the trace's times are null if none does.
+    by_branch = step.stats["captured_by_branch"]
+    for tries in range(1, TRACE_TRIES + 1):
+        traced = {}
+        wall_us, prof = _profiled(lambda: traced.update(
+            d=executor.sample_adaptive_fused(
+                params, gen(), n, tau=entry.tau, return_decisions=True,
+                **kw)[1]))
+        busy, attn_us, attn_kernels = _device_us(prof, "attn_fwd")
+        replayed = sum(by_branch[step.table.code_of(d)]["flash_attention"]
+                       for d in traced["d"])
+        complete = attn_kernels == replayed
+        if complete:
+            break
     attn_steps = sum("attn" not in d for d in traced["d"])
     row.update({
         "walls_ABBA_s": {"host_loop": [a1, a2], "fused": [b1, b2]},
         "order": "A B B A",
-        "traced_fused": {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
-                         "idle_share": 1 - busy / wall_us,
-                         "attn_ms": attn_us / 1e3,
+        "traced_fused": {"wall_ms": wall_us / 1e3,
+                         "trace_complete": complete, "traces": tries,
+                         "device_ms": busy / 1e3 if complete else None,
+                         "idle_share": 1 - busy / wall_us if complete
+                         else None,
+                         "attn_ms": attn_us / 1e3 if complete else None,
                          "attn_kernels_in_trace": attn_kernels},
         "attn_steps": attn_steps,
-        "replayed_launches": attn_kernels,
+        "replayed_launches": replayed,
+        "captured_by_branch": [b["flash_attention"] for b in by_branch],
+        "trace_dropped_attn_kernels": replayed - attn_kernels,
         "captured_launches_per_graph": captured,
         "phase_s": time.perf_counter() - t_phase})
     emit(row)
-    check(attn_kernels == per_step * attn_steps,
-          f"{attn_kernels} attention kernels replayed in the traced fused "
+    check(replayed == per_step * attn_steps,
+          f"{replayed} attention kernels replayed in the traced fused "
           f"batch, expected {per_step} x {attn_steps} attention steps")
+    check(attn_kernels <= replayed,
+          f"the trace holds {attn_kernels} attention kernels, more than the "
+          f"{replayed} replayed")
     return row
 
 
@@ -4499,17 +4539,6 @@ VIDEO_SMOOTH = "smoothcache:alpha=0.1"
 VIDEO_ADAPTIVE = "adaptive:base=smoothcache(alpha=0.1),tau=0.3"
 
 
-def _attn_bound(peaks, b, lq, lk, h, d):
-    """(bound ms, bound by, flops, bytes) of f32 attention over these
-    shapes: 3xTF32 operations against q/k/v/o bytes."""
-    flops = 4 * b * h * lq * lk * d
-    nbytes = 4 * b * h * d * (2 * lq + 2 * lk)
-    t_ops = 3 * flops / peaks["tf32"] * 1e3
-    t_bytes = nbytes / peaks["hbm"] * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
-
-
 def video_kernel_phase(fa, ref, gemm, peaks, cfg):
     """The attention kernel at the video path's shapes for one request
     under CFG (B = 2) — spatial (32, 256), temporal (512, 16), cross
@@ -4523,6 +4552,7 @@ def video_kernel_phase(fa, ref, gemm, peaks, cfg):
     from repro_torch.core.diffusion import token_shape
     from repro_torch.kernels.products import gemms
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 40)
     h, d = 16, 72
@@ -4559,7 +4589,8 @@ def video_kernel_phase(fa, ref, gemm, peaks, cfg):
               f"{name} attention vs plain: max abs err {err}")
         check(bool(torch.equal(out, again)),
               f"two launches at the {name} shape differ")
-        bound, by, flops, nbytes = _attn_bound(peaks, b, lq, lk, h, d)
+        flops, nbytes, unit = fa.work(b, lq, lk, h, h, d)
+        bound, by = kernel_bound(peaks, (flops, nbytes, unit))
         row = {"shape": [b, lq, lk, h, d], "blocks": b * h * -(-lq // 64),
                "max_abs_err": err, "bound_ms": bound, "bound_by": by,
                "flops": flops, "bytes": nbytes}
@@ -4827,6 +4858,7 @@ def video_phase(peaks, kernels):
     from repro_torch.core import diffusion
     from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.launch import dryrun
     from repro_torch.launch.serve_diffusion import random_params
     t_phase = time.perf_counter()
     cfg = configs.get("opensora-v12")
@@ -4843,9 +4875,8 @@ def video_phase(peaks, kernels):
           "count": sum(a.numel() for a in tree_leaves(params)),
           "linear_prepared_bytes": prepared,
           "device_bytes": torch.cuda.memory_allocated()})
-    check(prepared == 2 * 4 * sum(
-        w.numel() for w in diffusion.token_weights(params)),
-        f"{prepared} prepared bytes")
+    check(prepared == dryrun.halves_bytes(diffusion.token_weights(params)),
+          f"{prepared} prepared bytes")
     memory = synthetic.text_memory(torch.Generator().manual_seed(SEED + 48),
                                    1, VIDEO_MEM, cfg.cond_dim)
     _reset_counts(ops)
@@ -4898,6 +4929,7 @@ def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
     from repro_torch.core.diffusion import token_shape
     from repro_torch.kernels.products import gemms
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 60)
     spec = cfg.stages[0].unit[0].mixer
@@ -4922,7 +4954,8 @@ def audio_kernel_phase(fa, ref, gemm, peaks, cfg):
             check(bool(torch.equal(out, again)),
                   f"two launches of audio {name} attention at B = {b} "
                   "differ")
-            bound, by, flops, nbytes = _attn_bound(peaks, b, n_tok, lk, h, d)
+            flops, nbytes, unit = fa.work(b, n_tok, lk, h, h, d)
+            bound, by = kernel_bound(peaks, (flops, nbytes, unit))
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
             row = {"shape": [b, n_tok, lk, h, d], **fa.plan(q, k, v),
                    "max_abs_err": err, "bound_ms": bound, "bound_by": by,
@@ -5385,6 +5418,7 @@ def audio_phase(peaks, kernels):
     from repro_torch.core import diffusion
     from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
+    from repro_torch.launch import dryrun
     from repro_torch.launch.serve_diffusion import random_params
     from repro_torch.kernels.products import lm_cut
     t_phase = time.perf_counter()
@@ -5402,9 +5436,8 @@ def audio_phase(peaks, kernels):
           "count": sum(a.numel() for a in tree_leaves(params)),
           "linear_prepared_bytes": prepared,
           "device_bytes": torch.cuda.memory_allocated()})
-    check(prepared == 2 * 4 * sum(
-        w.numel() for w in diffusion.token_weights(params)),
-        f"{prepared} prepared bytes")
+    check(prepared == dryrun.halves_bytes(diffusion.token_weights(params)),
+          f"{prepared} prepared bytes")
     memory = synthetic.text_memory(torch.Generator().manual_seed(SEED + 70),
                                    1, AUDIO_MEM, cfg.cond_dim)
     path = audio_attention_path(cfg, fa, params, memory)
@@ -5521,6 +5554,7 @@ def train_attention_row(ref, peaks, shape, causal):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.timing import device_ms
+    from repro_torch.launch.roofline import kernel_bound
     b, l, h, kv, d = shape
     g = torch.Generator(device="cuda").manual_seed(SEED + 300)
     q = torch.randn((b, l, h, d), generator=g, device="cuda")
@@ -5530,12 +5564,8 @@ def train_attention_row(ref, peaks, shape, causal):
     err = float((out - ref.flash_attention_ref(q, k, v, causal=causal))
                 .abs().max())
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    _, _, flops, nbytes = _attn_bound(peaks, b, l, l, h, d)
-    flops = flops / 2 if causal else flops      # the causal triangle
-    t_ops = 3 * flops / peaks["tf32"] * 1e3     # as 3xTF32
-    t_bytes = 4 * (2 * b * l * h * d + 2 * b * l * kv * d) / peaks["hbm"] * 1e3
-    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                      else "bytes")
+    bound, by = kernel_bound(peaks, fa.work(b, l, l, h, kv, d,
+                                            causal=causal))
     row = {"shape": [b, l, h, kv, d], "causal": causal,
            "max_abs_err": err, "limit": 5e-5,
            "ms": device_ms(lambda: fa.flash_attention_cuda(
@@ -6021,6 +6051,180 @@ def train_lm_phase(peaks, kernels):
           f"train_lm took {seconds} s of its {TRAIN_LM_BUDGET_S}")
 
 
+ROOFLINE_BUDGET_S = 10
+
+
+def program_counts(schedules, requests, steps, lm_shape, cache_len,
+                   qwen3_blocks):
+    """The work of the two programs the roofline phase reads, counted on
+    the meta device (``launch/op_analysis.py``: nothing allocated, nothing
+    launched), in a process of its own that ``main`` starts before the
+    video phase: running the ~200 k ATen ops of three 50-step samplers on
+    meta takes 4–11 s of host time, which the device-bound video phase
+    hides.  DiT-XL/2 at 28 of 28 blocks: ``build_sampler_fn`` of each
+    schedule (JSON; None: ``no_cache``) at ``requests`` requests under CFG
+    1.5, DDIM ``steps``; Qwen3-14B at ``qwen3_blocks`` blocks: the
+    ``generate`` prefill of ``lm_shape`` = (prompts, length) with
+    ``cache_len`` slots, the first token picked.  Returns plain dicts:
+    {"dit": {name: totals}, "qwen3": totals, "seconds": s}."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.core import diffusion, schedule as S, solvers
+    from repro_torch.core.executor import SmoothCacheExecutor
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.launch import op_analysis, programs, serve
+    t0 = time.perf_counter()
+    cfg = configs.get("dit-xl-256")
+    with programs.on_meta():
+        params = diffusion.init_params(torch.Generator(), cfg, device="meta")
+    ex = SmoothCacheExecutor(cfg, solvers.ddim(steps), cfg_scale=1.5,
+                             device="meta")
+    x = torch.empty((requests,) + tuple(cfg.latent_shape), device="meta")
+    label = torch.empty((requests,), dtype=torch.int64, device="meta")
+    dit = {}
+    for name, js in schedules.items():
+        sch = (S.Schedule.from_json(js) if js is not None
+               else S.no_cache(cfg.layer_types(), steps))
+        dit[name] = dataclasses.asdict(op_analysis.analyze(
+            ex.build_sampler_fn(sch), params, x, label))
+    qcfg = lm_cut(configs.get("qwen3-14b"), qwen3_blocks)
+    qwen3 = dataclasses.asdict(op_analysis.analyze(
+        lambda p, tk: serve.generate(qcfg, p, tk, 1, cache_len=cache_len,
+                                     device="meta"),
+        programs.params_struct(qcfg), programs.token_struct(qcfg, *lm_shape)))
+    return {"dit": dit, "qwen3": qwen3,
+            "seconds": time.perf_counter() - t0}
+
+
+def start_counts(pool):
+    """Submit :func:`program_counts` for the DiT slice's schedules and the
+    qwen3 phase's prefill to ``pool`` (one spawned process): (its future,
+    the time it was submitted)."""
+    schedules = {name: (None if m["schedule"] is None
+                        else m["schedule"].to_json())
+                 for name, m in MEASURED["dit_generate"].items()}
+    return (pool.submit(program_counts, schedules, len(REQUEST_LABELS), 50,
+                        (LM_BATCH, LM_PROMPT), LM_PROMPT + LM_GEN,
+                        QWEN3_BLOCKS), time.perf_counter())
+
+
+def roofline_phase(counts):
+    """The share of the card's peak that whole programs reach: the FLOPs
+    and bytes :func:`program_counts` counted on the meta device
+    (``counts``: its future and when it was submitted), read against the
+    H100's roofline
+    (``launch/roofline.py``) and the walls measured earlier in this run.
+
+    DiT-XL/2 at 28 of 28 blocks, the ``generate`` phase's 4 requests
+    (B = 8 under CFG 1.5), DDIM 50: ``no_cache``, the run's calibrated
+    ``smoothcache:alpha=0.18`` schedule and ``static:n=2`` — counted over
+    analytic (``utils.flops``) in [0.8, 1.25], cached over uncached FLOPs
+    within 0.15 of the schedule's compute fraction.  Qwen3-14B at the
+    qwen3 phase's 8 of 40 blocks and its prefill (4 × 1024, cache_len
+    1056) against that phase's prefill seconds.  The weight and
+    prepared-halves bytes the dry run predicts (``launch/dryrun.py``) for
+    each phase's own weights, against what it measured: equal.  No
+    kernel launch in the whole phase; budget ``ROOFLINE_BUDGET_S``, and
+    the counts' own seconds no more than the phases they ran beside."""
+    from repro_torch import configs
+    from repro_torch.core import diffusion, schedule as S
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.products import lm_cut
+    from repro_torch.launch import dryrun, programs
+    from repro_torch.launch.roofline import Roofline
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import flops as F
+    t_phase = time.perf_counter()
+    before = (dict(ops.LAUNCHES), dict(ops.CAPTURED))
+    card_name = torch.cuda.get_device_name(0)
+    future, submitted = counts
+    counted = future.result()
+    waited = time.perf_counter() - t_phase
+    beside = t_phase - submitted
+
+    def terms(arch, shape, t, wall):
+        rf = Roofline(arch, shape, "1", 1, t["flops"], t["bytes"], 0.0, {},
+                      flops_by_unit=t["by_unit"], card=card_name)
+        bound = max(rf.t_compute, rf.t_memory)
+        return {"counted_tflop": t["flops"] / 1e12, "bytes": t["bytes"],
+                "flops_by_unit": t["by_unit"],
+                "kernel_calls": {k: v[0] for k, v in t["kernels"].items()},
+                "t_compute_s": rf.t_compute, "t_memory_s": rf.t_memory,
+                "bottleneck": rf.bottleneck, "wall_s": wall,
+                "achieved_tflops": t["flops"] / wall / 1e12,
+                "share_of_roofline": bound / wall}
+
+    cfg = configs.get("dit-xl-256")
+    n = len(REQUEST_LABELS)
+    n_tok = diffusion.token_shape(cfg)[0]
+    dit = {}
+    for name, m in MEASURED["dit_generate"].items():
+        t = counted["dit"][name]
+        sch = m["schedule"] or S.no_cache(cfg.layer_types(), 50)
+        analytic = 2 * F.sampler_tmacs(cfg, sch, n_tok, n, cfg_scale=1.5)
+        dit[name] = {**terms(cfg.name, f"generate {name}", t, m["wall_s"]),
+                     "analytic_tflop": analytic,
+                     "counted_over_analytic": t["flops"] / 1e12 / analytic,
+                     "compute_fraction": m["compute_fraction"]}
+        check(0.8 <= dit[name]["counted_over_analytic"] <= 1.25,
+              f"DiT-XL/2 {name}: counted / analytic FLOPs "
+              f"{dit[name]['counted_over_analytic']}")
+    plain = dit["no_cache"]["counted_tflop"]
+    for name, row in dit.items():
+        row["over_no_cache"] = row["counted_tflop"] / plain
+        check(abs(row["over_no_cache"] - row["compute_fraction"]) <= 0.15,
+              f"DiT-XL/2 {name}: cached / plain FLOPs "
+              f"{row['over_no_cache']}, compute fraction "
+              f"{row['compute_fraction']}")
+    per_image = F.sampler_tmacs(cfg, S.no_cache(cfg.layer_types(), 50),
+                                n_tok, 1, cfg_scale=1.5)
+
+    qcfg = lm_cut(configs.get("qwen3-14b"), QWEN3_BLOCKS)
+    analytic = 2 * LM_BATCH * (sum(F.model_macs_by_type(
+        qcfg, LM_PROMPT).values()) + F.non_block_macs(qcfg, LM_PROMPT)) / 1e12
+    qwen3 = {**terms(qcfg.name, "prefill 4 x 1024", counted["qwen3"],
+                     MEASURED["qwen3_prefill_s"]),
+             "blocks": qcfg.num_layers, "analytic_tflop": analytic,
+             "counted_over_analytic":
+             counted["qwen3"]["flops"] / 1e12 / analytic}
+    check(0.8 <= qwen3["counted_over_analytic"] <= 1.25,
+          f"Qwen3 prefill: counted / analytic FLOPs "
+          f"{qwen3['counted_over_analytic']}")
+
+    memory = {}
+    for name, (mcfg, weights, prepared) in MEASURED["params"].items():
+        if mcfg.task == "lm":
+            ps = programs.params_struct(mcfg)
+            halves = dryrun.halves_bytes(T.token_weights(ps))
+        else:
+            with programs.on_meta():
+                ps = diffusion.init_params(torch.Generator(), mcfg,
+                                           device="meta")
+            halves = dryrun.halves_bytes(diffusion.token_weights(ps))
+        memory[name] = {"weights": weights, "halves": prepared,
+                        "predicted_weights": dryrun.meta_params_bytes(ps),
+                        "predicted_halves": halves}
+        check(memory[name]["predicted_weights"] == weights
+              and halves == prepared,
+              f"{name}: the dry run predicts {memory[name]}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "roofline", "card": card_name,
+          "dit_xl_2": dit, "qwen3_prefill": qwen3,
+          "dit_tmacs_per_image_b1_cfg": per_image,
+          "memory_predicted_vs_measured": memory,
+          "launches_unchanged": (dict(ops.LAUNCHES), dict(ops.CAPTURED))
+          == before, "seconds": seconds, "waited_for_counts_s": waited,
+          "count_process_s": counted["seconds"],
+          "phases_beside_counts_s": beside, "budget_s": ROOFLINE_BUDGET_S})
+    check((dict(ops.LAUNCHES), dict(ops.CAPTURED)) == before,
+          "the roofline phase launched a kernel")
+    check(seconds <= ROOFLINE_BUDGET_S,
+          f"the roofline phase took {seconds:.1f} s, over its budget")
+    check(counted["seconds"] <= beside,
+          f"the meta counts took {counted['seconds']:.1f} s, more than the "
+          f"{beside:.1f} s of the phases they ran beside")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6031,7 +6235,7 @@ def main():
     from repro_torch.kernels import flash_attention as fa, gemm, ops, ref
     from repro_torch.kernels import rglru, ssd
     from repro_torch.kernels.products import lm_cut
-    from repro_torch.launch import serve
+    from repro_torch.launch import dryrun, serve
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import tree_map
 
@@ -6077,9 +6281,11 @@ def main():
           "linear_prepared_bytes": prepared,
           "linear_prepare_s": time.perf_counter() - t0,
           "device_bytes": torch.cuda.memory_allocated()})
-    check(prepared == 2 * 4 * sum(
-        w.numel() for w in diffusion.token_weights(params_gpu)),
-        f"{prepared} prepared bytes")
+    check(prepared == dryrun.halves_bytes(diffusion.token_weights(params_gpu)),
+          f"{prepared} prepared bytes")
+    MEASURED["params"][cfg.name] = (
+        cfg, sum(a.numel() * a.element_size()
+                 for a in tree_leaves(params_gpu)), prepared)
     kernels["linear"]["prepared_bytes"] = prepared
     cross_check_phase(cfg, diffusion, params_cpu, params_gpu)
     del params_cpu
@@ -6177,11 +6383,18 @@ def main():
     mark("train_lm")
     llama4_phase(peaks, kernels, sass)
     mark("llama4")
-    video_phase(peaks, kernels)
-    mark("video")
-    torch.cuda.empty_cache()  # the video weights go before the audio phase
-    audio_phase(peaks, kernels)
-    mark("audio")
+    # the roofline phase's meta counts run in a process of their own
+    # beside the video and audio phases
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        counts = start_counts(pool)
+        video_phase(peaks, kernels)
+        mark("video")
+        torch.cuda.empty_cache()  # the video weights go before audio
+        audio_phase(peaks, kernels)
+        mark("audio")
+        roofline_phase(counts)
+        mark("roofline")
 
     emit({"phase": "script_marks", "seconds_since_build": marks})
     emit({"kernels": list(kernels.values())})

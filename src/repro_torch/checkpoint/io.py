@@ -22,6 +22,13 @@ Robustness contract (the durable serving layer builds on it):
   entry reaching past the end), or a body whose sha256 disagrees with the
   header all raise :class:`CheckpointError` — never a bare ``assert`` and
   never a silently short read.
+
+The body's sha256 runs on a second thread beside the host copies and the
+file write (:func:`save`) and beside the file read (:func:`restore`):
+``hashlib`` and file IO release the GIL, so the digest of a large body
+costs little more than its IO.  The header, written first, holds a
+placeholder of the digest's 64 hex digits, which :func:`save` overwrites
+in place once the digest is done: the file is the same byte for byte.
 """
 from __future__ import annotations
 
@@ -30,11 +37,14 @@ import json
 import math
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional
 
 import torch
 
 MAGIC = b"RTORCHCKP1"
+#: bytes :func:`restore` reads (and hands to the hasher) at a time
+READ_CHUNK = 64 << 20
 
 
 class CheckpointError(ValueError):
@@ -78,8 +88,9 @@ def save(path: str, tree: Any, metadata: Optional[Dict] = None, *,
     """Write ``tree`` (tensors and ``None`` under dicts / lists / tuples)
     with ``metadata`` to ``path``.  ``timings``, when given, accumulates
     the seconds of the wait for the device's queued work (``sync_s``),
-    the device→host copy (``copy_s``), the body's sha256 (``hash_s``) and
-    the file write (``write_s``)."""
+    the device→host copies (``copy_s``), the file write (``write_s``) and
+    the wait for the body's sha256 past the last write (``hash_s``: the
+    digest runs on a second thread beside the copies and the write)."""
     pairs = _flatten_with_paths(tree)
     t0 = time.perf_counter()
     devices = {a.device for _, a in pairs
@@ -88,7 +99,7 @@ def save(path: str, tree: Any, metadata: Optional[Dict] = None, *,
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
     header = {"meta": metadata or {}, "entries": [], "kinds": _kinds(tree)}
-    chunks, off = [], 0
+    leaves, off = [], 0
     for name, arr in pairs:
         if arr is None:
             header["entries"].append({"name": name, "none": True})
@@ -96,35 +107,46 @@ def save(path: str, tree: Any, metadata: Optional[Dict] = None, *,
         if not isinstance(arr, torch.Tensor):
             raise TypeError(f"checkpoint leaf {name!r} is a "
                             f"{type(arr).__name__}, not a tensor")
-        a = arr.detach().to("cpu").contiguous()
-        # the raw bytes as a uint8 view: no copy past the host one
-        chunks.append(a.reshape(-1).view(torch.uint8).numpy())
         header["entries"].append({
-            "name": name, "shape": list(a.shape),
-            "dtype": _dtype_name(a.dtype), "offset": off, "none": False})
-        off += chunks[-1].nbytes
-    t2 = time.perf_counter()
+            "name": name, "shape": list(arr.shape),
+            "dtype": _dtype_name(arr.dtype), "offset": off, "none": False})
+        leaves.append(arr)
+        off += arr.numel() * arr.element_size()
     # declared length + content hash: restore() detects torn writes and
-    # bit-rot instead of returning silently short reads
-    digest = hashlib.sha256()
-    for c in chunks:
-        digest.update(c)
+    # bit-rot instead of returning silently short reads.  The digest's
+    # place holds zeros until it is known.
     header["body_len"] = off
-    header["body_sha256"] = digest.hexdigest()
-    t3 = time.perf_counter()
+    header["body_sha256"] = "0" * 64
     hb = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    digest = hashlib.sha256()
+    copy_s = write_s = 0.0
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
+    with open(tmp, "wb") as f, ThreadPoolExecutor(max_workers=1) as hasher:
         f.write(MAGIC)
         f.write(len(hb).to_bytes(8, "little"))
+        at = f.tell()
         f.write(hb)
-        for c in chunks:
-            f.write(c)
+        for arr in leaves:
+            c0 = time.perf_counter()
+            a = arr.detach().to("cpu").contiguous()
+            # the raw bytes as a uint8 view: no copy past the host one
+            chunk = a.reshape(-1).view(torch.uint8).numpy()
+            c1 = time.perf_counter()
+            hasher.submit(digest.update, chunk)
+            f.write(chunk)
+            copy_s += c1 - c0
+            write_s += time.perf_counter() - c1
+        t3 = time.perf_counter()
+        hasher.shutdown(wait=True)
+        t4 = time.perf_counter()
+        header["body_sha256"] = digest.hexdigest()
+        f.seek(at)
+        f.write(json.dumps(header, separators=(",", ":")).encode("utf-8"))
     os.replace(tmp, path)
-    t4 = time.perf_counter()
+    write_s += time.perf_counter() - t4
     if timings is not None:
-        for k, dt in (("sync_s", t1 - t0), ("copy_s", t2 - t1),
-                      ("hash_s", t3 - t2), ("write_s", t4 - t3)):
+        for k, dt in (("sync_s", t1 - t0), ("copy_s", copy_s),
+                      ("hash_s", t4 - t3), ("write_s", write_s)):
             timings[k] = timings.get(k, 0.0) + dt
 
 
@@ -177,19 +199,30 @@ def restore(path: str):
     header (bit-rot / tamper)."""
     with open(path, "rb") as f:
         header = _read_header(f, path)
+        want_sha = header.get("body_sha256")
         # the body read once into one uninitialized buffer, which the
-        # leaves then view: no zero fill and no second copy
+        # leaves then view: no zero fill and no second copy; each chunk
+        # hashed on a second thread while the next one is read
         body = torch.empty(os.fstat(f.fileno()).st_size - f.tell(),
                            dtype=torch.uint8)
-        body = body[:f.readinto(memoryview(body.numpy()))]
+        view, n = memoryview(body.numpy()), 0
+        digest = hashlib.sha256()
+        with ThreadPoolExecutor(max_workers=1) as hasher:
+            while n < len(view):
+                got = f.readinto(view[n:n + READ_CHUNK])
+                if not got:
+                    break
+                if want_sha is not None:
+                    hasher.submit(digest.update, view[n:n + got])
+                n += got
+        body = body[:n]
     declared = header.get("body_len")
     if declared is not None and len(body) != int(declared):
         raise CheckpointError(
             f"torn checkpoint {path}: body is {len(body)} bytes, header "
             f"declares {declared}")
-    want_sha = header.get("body_sha256")
     if want_sha is not None:
-        got = hashlib.sha256(body.numpy()).hexdigest()
+        got = digest.hexdigest()
         if got != want_sha:
             raise CheckpointError(
                 f"checkpoint {path} failed its content checksum "

@@ -213,3 +213,23 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape presets (the JAX package's, value for value)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapePreset:
+    name: str
+    seq_len: int
+    global_batch: int
+    program: str                         # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k":    ShapePreset("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapePreset("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapePreset("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapePreset("long_500k",  524_288,    1, "decode"),
+}

@@ -678,6 +678,39 @@ class SmoothCacheExecutor:
                                      schedule=schedule, label=label,
                                      memory=memory, check=check)
 
+    # -- whole-sampler function (for FLOP / roofline accounting) ------------
+
+    def build_sampler_fn(self, schedule):
+        """``fn(params, x, label=None, memory=None, generator=None)`` → the
+        final latent: one function that unrolls every step of the
+        schedule's liveness-pruned plan from the initial latent ``x``,
+        each step collecting only what the next step reads and keeping
+        only what stays live (``plan.collect_at`` / ``live_out_at``).
+        ``launch/op_analysis.py`` counts its FLOPs and bytes on meta
+        tensors; sample with :meth:`sample_compiled`.  A stochastic
+        solver's noise seed is drawn from ``generator``, as a run draws it
+        after its latent."""
+        s_total = self.solver.num_steps
+        plan = self.plan_for(schedule)
+
+        def fn(params, x, label=None, memory=None, generator=None):
+            noise_seed = (self.noise_seed(generator)
+                          if generator is not None else None)
+            state = self.solver.init_state()
+            cache = empty_branch_cache(self.cfg)
+            for s in range(s_total):
+                skip, collect = plan.sig_at(s).skip, plan.collect_at(s)
+                pred, computed = self._model_call(
+                    params, x, self._times(s, x.shape[0]), label, memory,
+                    cache if any(skip.values()) else None, skip=skip,
+                    collect=frozenset(collect))
+                cache = pruned_branch_caches(self.cfg, computed, cache,
+                                             collect, plan.live_out_at(s))
+                x, state = self._solver_step(x, pred, s, state, noise_seed)
+            return x
+
+        return fn
+
     # -- input-adaptive runtime dispatch ------------------------------------
 
     def sample_adaptive(self, params, generator, batch: int, *, schedule,

@@ -69,7 +69,9 @@ class FusedGraph:
 
     ``stats`` records the capture: seconds of the eager warm-up of every
     branch and of the capture itself, and the kernel calls recorded into
-    the graph (``ops.CAPTURED`` during the capture).  It keeps no
+    the graph (``ops.CAPTURED`` during the capture), in all and in each
+    branch's IF body (``captured_by_branch``, in branch order): a replay
+    launches its taken branch's.  It keeps no
     reference to the executor (which holds it), so dropping the executor
     frees the graph and its buffers at once."""
 
@@ -102,7 +104,8 @@ class FusedGraph:
                             "branches": len(self.table.branches),
                             "runtime": self.runtime,
                             "telemetry": self.telemetry, "warmup_s": None,
-                            "capture_s": None, "captured": None}
+                            "capture_s": None, "captured": None,
+                            "captured_by_branch": None}
         if dev.type == "cuda":
             self._load(rs)
             self._capture(executor)
@@ -224,10 +227,14 @@ class FusedGraph:
         self.stats["warmup_s"] = time.perf_counter() - t0
         graph = torch.cuda.CUDAGraph()
 
+        by_branch = []
+
         @contextlib.contextmanager
         def pick(code, i):
+            at = dict(ops.CAPTURED)
             with cap.if_body(code, i):
                 yield True
+            by_branch.append({k: ops.CAPTURED[k] - at[k] for k in at})
 
         before = dict(ops.CAPTURED)
         t0 = time.perf_counter()
@@ -238,6 +245,7 @@ class FusedGraph:
         self.stats["capture_s"] = time.perf_counter() - t0
         self.stats["captured"] = {k: ops.CAPTURED[k] - before[k]
                                   for k in before}
+        self.stats["captured_by_branch"] = by_branch
         self.graph = graph
 
     # -- a chunk ----------------------------------------------------------------

@@ -360,3 +360,25 @@ def switch_branch_table(pool) -> SwitchTable:
                 "signature — derive the pool via mask_lattice()")
         branches.append(sig)
     return SwitchTable(types=types, branches=tuple(branches))
+
+
+# ---------------------------------------------------------------------------
+# Cache-size accounting
+# ---------------------------------------------------------------------------
+
+def branch_cache_type_bytes(cfg, batch: int, *, dtype_bytes: int = 4,
+                            cfg_doubled: bool = False) -> Dict[str, int]:
+    """Bytes of one resident cache entry per layer *type*: every layer of the
+    type holds one pre-residual output of shape (B, N, d_model), B doubled
+    under CFG (``cfg_doubled``).  ``dtype_bytes`` 4: the port's caches are
+    f32."""
+    from repro_torch.core import diffusion  # late: diffusion imports models
+    n_tok, _, _ = diffusion.token_shape(cfg)
+    b = 2 * batch if cfg_doubled else batch
+    per_layer = b * n_tok * cfg.d_model * dtype_bytes
+    out: Dict[str, int] = {}
+    for st in cfg.stages:
+        for blk in st.unit:
+            for t in blk.branch_types():
+                out[t] = out.get(t, 0) + st.repeat * per_layer
+    return out

@@ -21,6 +21,7 @@ pair takes the instance for D with V's columns past Dv zero.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import re
 from pathlib import Path
@@ -56,6 +57,33 @@ QUERY_TILE, WIDE_QUERY_TILE, MAX_HEAD_DIM = (
 def query_tile(d: int) -> int:
     """Query rows per block at head dim ``d``."""
     return QUERY_TILE if d <= 128 else WIDE_QUERY_TILE
+
+
+@functools.lru_cache(maxsize=1024)
+def pairs(lq: int, lk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the kernel scores: key j of query i when j ≤ i
+    (causal) and j > i − window (a window), positions from 0 on both."""
+    total = 0
+    for i in range(lq):
+        hi = min(lk - 1, i) if causal else lk - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(b: int, lq: int, lk: int, h: int, kv: int, d: int,
+         dv: Optional[int] = None, *, causal: bool = False,
+         window: Optional[int] = None, dtype=torch.float32) -> tuple:
+    """(FLOPs, bytes, unit) of one call on q (b, lq, h, d), k (b, lk, kv,
+    d), v (b, lk, kv, dv): the two products over the pairs it scores (the
+    causal triangle, the window's band), q, k, v read once and the output
+    written once; f32 runs 3xTF32 on the tensor cores, bf16 as bf16."""
+    dv = d if dv is None else dv
+    esize = torch.empty((), dtype=dtype).element_size()
+    flops = 2 * b * h * (d + dv) * pairs(lq, lk, causal, window)
+    nbytes = esize * b * (lq * h * d + lk * kv * d + lk * kv * dv
+                          + lq * h * dv)
+    return flops, nbytes, "3xtf32" if dtype == torch.float32 else "bf16"
 
 
 def build() -> dict:

@@ -147,6 +147,18 @@ def launch_plan(m: int, k: int, n: int, rows: str = "tokens") -> dict:
     return {**p, "grid": grid}
 
 
+def work(m: int, k: int, n: int, bias: bool = False,
+         rows: str = "tokens") -> tuple:
+    """(FLOPs, bytes, unit) of one product of an (m, k) x by a (k, n) w in
+    f32: x, w and the bias read once, the (m, n) output written once; the
+    token kernel runs 3xTF32 on the tensor cores, the request-row kernel
+    f32 FMAs outside them."""
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {ROWS}, got {rows!r}")
+    return (2 * m * k * n, 4 * (m * k + k * n + m * n + (n if bias else 0)),
+            "3xtf32" if rows == "tokens" else "fp32")
+
+
 def build(flags=()) -> dict:
     """Compile the kernels (a no-op when this source is already built);
     ``flags`` (for example ``("-DGEMM_ALL_TILES",)``) build a separate

@@ -18,6 +18,13 @@ On a CUDA tensor that requires a gradient (grad mode on), each op's forward
 is still its kernel, with the same launch and count, and its backward the
 gradient of its plain version (``autograd.py``).  A CPU tensor's plain
 version is differentiable as it stands.
+
+A meta tensor (``launch/op_analysis.py`` counts a program's work on the
+meta device) takes the kernel's meta stand-in: empty meta outputs of the
+kernel's shapes, and the kernel's ``work(...)`` — (FLOPs, bytes, unit) —
+handed to every meter in ``METERS``.  It launches nothing and counts in
+neither ``LAUNCHES`` nor ``CAPTURED``; with a gradient to record, its
+backward is the plain version's gradient, on meta, as on a card.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ from repro_torch.kernels import ssd as _ssd
 LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0, "linear_tokens": 0,
             "linear_requests": 0, "rglru_scan": 0}
 CAPTURED = dict(LAUNCHES)
+#: callables ``meter(name, work, outputs)`` each meta stand-in reports to
+METERS: list = []
 
 
 def _call(name, kernel, plain, *inputs, vjp=None):
@@ -45,6 +54,14 @@ def _call(name, kernel, plain, *inputs, vjp=None):
     if _ag.needs_grad(*inputs):
         return _ag.differentiable(kernel, plain, *inputs, vjp=vjp, name=name)
     return kernel(*inputs)
+
+
+def _on_meta(name, work, *outs):
+    """A kernel's meta stand-in: ``outs`` (its empty meta outputs), with
+    its ``work`` reported to every meter."""
+    for meter in METERS:
+        meter(name, work, outs)
+    return outs[0] if len(outs) == 1 else outs
 
 
 def _count(name: str) -> None:
@@ -73,6 +90,14 @@ def linear(x, w, b=None, *, rows: str = "tokens"):
         return out.reshape(*x.shape[:-1], w.shape[1])
     if x.device.type == "cpu":
         return ref.linear_ref(x, w, b)
+    if x.device.type == "meta":
+        def kernel(x2, w, b):
+            return _on_meta("linear", _gemm.work(
+                x2.shape[0], x2.shape[1], w.shape[1], b is not None, rows),
+                x2.new_empty((x2.shape[0], w.shape[1])))
+        out = _call("linear", kernel, ref.linear_ref,
+                    x.reshape(-1, x.shape[-1]), w, b, vjp=_ag.linear_vjp)
+        return out.reshape(*x.shape[:-1], w.shape[1])
     raise ValueError(f"no linear for device {x.device}")
 
 
@@ -93,6 +118,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
+    if q.device.type == "meta":
+        (b, lq, h, d), (lk, kv), dv = q.shape, k.shape[1:3], v.shape[-1]
+
+        def kernel(q, k, v):
+            return _on_meta("flash_attention", _fa.work(
+                b, lq, lk, h, kv, d, dv, causal=causal, window=window,
+                dtype=q.dtype), q.new_empty((b, lq, h, dv)))
+        return _call("flash_attention", kernel, functools.partial(
+            ref.flash_attention_ref, causal=causal, window=window,
+            softcap=softcap, scale=scale), q, k, v)
     raise ValueError(f"no flash_attention for device {q.device}")
 
 
@@ -107,6 +142,16 @@ def ssd(x, dt, a, b, c, *, chunk: int = 128):
         return out
     if x.device.type == "cpu":
         return ref.ssd_ref(x, dt, a, b, c, chunk=chunk)
+    if x.device.type == "meta":
+        (bs, l, h, p), (g, n) = x.shape, b.shape[2:]
+
+        def kernel(x, dt, a, b, c):
+            return _on_meta("ssd", _ssd.work(bs, l, h, p, g, n, chunk),
+                            x.new_empty(x.shape),
+                            x.new_empty((bs, h, p, n), dtype=torch.float32))
+        return _call("ssd", kernel, functools.partial(ref.ssd_ref,
+                                                      chunk=chunk),
+                     x, dt, a, b, c)
     raise ValueError(f"no ssd for device {x.device}")
 
 
@@ -124,4 +169,15 @@ def rglru_scan(xr, ga, gx, gate, a_param, c: float, h0=None):
         return out
     if xr.device.type == "cpu":
         return ref.rglru_scan_ref(xr, ga, gx, gate, a_param, c, h0)
+    if xr.device.type == "meta":
+        bs, l, w = xr.shape
+
+        def kernel(*t):
+            return _on_meta("rglru_scan", _rglru.work(bs, l, w,
+                                                      h0 is not None),
+                            xr.new_empty(xr.shape, dtype=torch.float32),
+                            xr.new_empty((bs, w), dtype=torch.float32))
+        return _call("rglru_scan", kernel,
+                     lambda *t: ref.rglru_scan_ref(*t[:5], c, t[5]),
+                     xr, ga, gx, gate, a_param, h0)
     raise ValueError(f"no rglru_scan for device {xr.device}")

@@ -33,6 +33,16 @@ PASSES = ("rglru_summary", "rglru_carry", "rglru_output")
 _LIB = None
 
 
+def work(b: int, l: int, w: int, h0: bool = False) -> tuple:
+    """(FLOPs, bytes, unit) of one call over (b, l, w): about 20 f32
+    operations a channel and step (the gates, the decay's power and
+    square root, the recurrence, the GELU branch's product); xr, ga, gx
+    and gate read and y written once, Λ, h0 (when given) and hT; f32
+    FMAs outside the tensor cores."""
+    n = b * l * w
+    return 20 * n, 4 * (5 * n + w + (2 if h0 else 1) * b * w), "fp32"
+
+
 def build() -> dict:
     """Compile the kernel (a no-op when this source is already built).
     Returns ``{"path", "seconds"}``."""

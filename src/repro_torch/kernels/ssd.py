@@ -32,6 +32,26 @@ TILE = 64  # P columns of a block (ssd.cu)
 _LIB = None
 
 
+def work(b: int, l: int, h: int, p: int, g: int, n: int,
+         chunk: int = 128) -> tuple:
+    """(FLOPs, bytes, unit) of one f32 call with no initial state, counted
+    per chunk of qz = min(chunk, L − start) steps: C·Bᵀ on its causal
+    triangle once per (batch, group), since every head of a group shares
+    it; per (batch, head) the scores·x triangle, the state update x'·B,
+    and C·stateᵀ from the second chunk on (the state entering the first
+    chunk is zero).  x, dt, B, C and A read once, y and hT written once;
+    3xTF32 on the tensor cores."""
+    macs = 0
+    for z, start in enumerate(range(0, l, chunk)):
+        qz = min(chunk, l - start)
+        tri = qz * (qz + 1) // 2
+        macs += b * g * tri * n
+        macs += b * h * (tri * p + qz * n * p + (qz * n * p if z else 0))
+    nbytes = 4 * (2 * b * l * h * p + b * h * p * n + 2 * b * l * g * n
+                  + b * l * h + h)
+    return 2 * macs, nbytes, "3xtf32"
+
+
 def build() -> dict:
     """Compile the kernel (a no-op when this source is already built).
     Returns ``{"path", "seconds"}``."""

@@ -5,26 +5,34 @@ builds them:
   prefill_step — full forward that builds the decode caches
   serve_step   — ONE new token against a fixed KV/state cache
 
-plus ``adapt_for_shape``, the long_500k sliding-window adaptation.  These
-are the entry points that hand a prefix of precomputed embeddings
-(InternVL2's and Llama-4's patches) to the model.  ``input_specs`` and the
-optimizer's structures describe GSPMD shardings and are not ported.
+plus ``adapt_for_shape``, the long_500k sliding-window adaptation, and
+``input_specs``, ``params_struct`` and ``opt_struct``: every program
+input as a tensor on the meta device (the JAX package's
+``ShapeDtypeStruct`` stand-ins), which ``launch/op_analysis.py`` and
+``launch/dryrun.py`` run the programs on without allocating anything.
+These are the entry points that hand a prefix of precomputed embeddings
+(InternVL2's and Llama-4's patches) to the model.
 
-Two choices differ from the JAX package's.  The caches are f32
-(``CACHE_DTYPE``), as every decode path of the port takes them; the JAX
-package keeps them in bf16 for the TPU's memory.  ``make_prefill_step``'s
-default ``cache_len`` counts the prefix: the JAX package's counts the
-tokens alone, so that a prefix of P clamps the last P + 1 positions into
-one slot (``ROADMAP.md``, queue 3, fault 6).
+Choices that differ from the JAX package's.  The weights, optimizer
+moments, prefix and memory are f32 (the JAX package's structs are bf16,
+its ν f32), the tokens int64 (int32) — the port's own dtypes; the shapes
+are the same.  The caches are f32 (``CACHE_DTYPE``), as every decode path
+of the port takes them; the JAX package keeps them in bf16 for the TPU's
+memory.  ``make_prefill_step``'s default ``cache_len`` counts the prefix:
+the JAX package's counts the tokens alone, so that a prefix of P clamps
+the last P + 1 positions into one slot (``ROADMAP.md``, queue 3, fault
+6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._device import _device_constructors
 
-from repro_torch.config import AttentionSpec, ModelConfig, Stage
+from repro_torch.config import AttentionSpec, ModelConfig, ShapePreset, Stage
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -53,6 +61,70 @@ def adapt_for_shape(cfg: ModelConfig, shape) -> ModelConfig:
                          for b in st.unit), repeat=st.repeat)
         for st in cfg.stages)
     return cfg.replace(stages=stages, name=cfg.name + "+swa")
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a factory function makes lands on the meta device,
+    whatever device the call names."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _device_constructors():
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
+
+
+def on_meta() -> _OnMeta:
+    """A context in which the port's own init code
+    (``transformer.init_params``, ``diffusion.init_params(...,
+    device="meta")``, ``init_caches``) makes every draw and every zero on
+    the meta device: the same shapes and dtypes, nothing allocated.  A CPU
+    generator draws nothing there."""
+    return _OnMeta()
+
+
+def token_struct(cfg: ModelConfig, batch: int, seq: int):
+    """Tokens (batch, seq), or (batch, seq, K) for K codebooks, int64 on
+    the meta device."""
+    shape = (batch, seq, cfg.num_codebooks) if cfg.num_codebooks > 1 \
+        else (batch, seq)
+    return torch.empty(shape, dtype=torch.int64, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapePreset) -> Dict[str, Any]:
+    """{name: meta tensor} of every input of the program of ``shape``: the
+    JAX package's keys and shapes.  A decode's caches are
+    ``init_caches``' at ``shape.seq_len`` slots."""
+    b = shape.global_batch
+    out: Dict[str, Any] = {}
+    if shape.program == "train":
+        out["tokens"] = token_struct(cfg, b, shape.seq_len)
+        out["targets"] = token_struct(cfg, b, shape.seq_len)
+    elif shape.program == "prefill":
+        out["tokens"] = token_struct(cfg, b, shape.seq_len)
+    else:  # decode
+        out["token"] = token_struct(cfg, b, 1)
+        with on_meta():
+            out["caches"] = T.init_caches(cfg, b, shape.seq_len, CACHE_DTYPE,
+                                          device="meta")
+    if cfg.num_prefix_embeds and shape.program in ("train", "prefill"):
+        out["prefix_embeds"] = torch.empty(
+            (b, cfg.num_prefix_embeds, cfg.d_model), device="meta")
+    if cfg.cond_dim:
+        out["memory"] = torch.empty((b, 64, cfg.cond_dim), device="meta")
+    return out
+
+
+def params_struct(cfg: ModelConfig, dtype=torch.float32):
+    """``transformer.init_params`` of ``cfg`` on the meta device."""
+    with on_meta():
+        return T.init_params(torch.Generator(), cfg, dtype)
+
+
+def opt_struct(params_shape):
+    """The AdamW state (``optim.adamw.init_state``) of meta params: the
+    JAX package's leaves — ``step``, ``mu``, ``nu`` — with f32 moments."""
+    return adamw.init_state(params_shape)
 
 
 def _xent(logits, targets):
@@ -122,18 +194,21 @@ def make_train_step(cfg: ModelConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None, *,
-                      moe_strategy="gshard"):
+                      moe_strategy="gshard", moe_group_size=2048):
     """``prefill_step(params, tokens, prefix_embeds=None, memory=None)`` →
     (the last position's logits (B, 1, V) or (B, 1, K, V), caches).  The
     caches hold ``cache_len`` slots, by default the prefill's P + L
-    positions (give room for the decode steps that follow)."""
+    positions (give room for the decode steps that follow).  A MoE FFN
+    routes ``gshard`` groups of ``moe_group_size`` tokens, which must
+    divide B·(P + L)."""
     def prefill_step(params, tokens, prefix_embeds=None, memory=None):
         plen = tokens.shape[1] + (0 if prefix_embeds is None
                                   else prefix_embeds.shape[1])
         logits, caches = T.prefill(
             cfg, params, tokens, cache_len=cache_len or plen,
             prefix_embeds=prefix_embeds, memory=memory,
-            cache_dtype=CACHE_DTYPE, moe_strategy=moe_strategy)
+            cache_dtype=CACHE_DTYPE, moe_strategy=moe_strategy,
+            moe_group_size=moe_group_size)
         # a copy: a view would keep every position's logits alive
         return logits[:, -1:].clone(), caches
 
