@@ -41,9 +41,22 @@ exits non-zero:
    and answer 4 requests with no cache, the artifact's SmoothCache schedule
    and ``static:n=2``; every latent finite, kernel launches = 28 × attention
    steps computed, linear launches = 5 + 28 × (1 + 4 per computed
-   attention + 2 per computed MLP) per step, segmented ≡ eager bitwise;
-   the q/k/v that the model's
+   attention + 2 per computed MLP) per step — the segment graphs'
+   replays (each graph's captured calls × its replays, ``ops.REPLAYED``),
+   the wrapper calls being the new graphs' warm-ups —, segmented ≡ eager
+   bitwise; the q/k/v that the model's
    attention makes take 3xTF32 with ``cp.async`` loads;
+6b. the segmented path's step graphs (``segment_graphs``, budget
+   ``SEGMENT_GRAPHS_BUDGET_S``): the slice's weights and artifact on
+   pipelines of their own with graphs on and off; per policy the first
+   graphed ``generate`` ≡ the eager ``sample`` bitwise with phase 6's
+   launch counts from the captures, the walls graphs on / off in the
+   order A B B A (every run bitwise), a whole run segment by segment
+   under ``torch.cuda.set_sync_debug_mode("error")`` with its copy-in /
+   copy-out ms per boundary; graphs = the plans' unique (signature,
+   batch) pairs = the ``seg`` variants; warm-up and capture s, captured
+   calls, buffer and pool bytes per graph; the idle share of traced
+   graphed runs and of a traced run with graphs off;
 7. a Mamba-2-1.3B prefill (full width, ``MAMBA2_BLOCKS`` = 24 of its 48
    blocks) of one 200-token prompt on the card (kernel scan) against the
    same prefill on the CPU (plain scan): logits and final states;
@@ -61,10 +74,16 @@ exits non-zero:
    per entry, arriving at once (``max_batch`` 4, 2 in flight,
    ``interleave``).  One line per entry (batches, wall, queue wait and
    service p50/p95, images/s, realized compute fraction, attention
-   launches = 28 × computed attention steps, host syncs) and a summary
-   (model variants within the program budget; the idle share of a second,
-   traced drain, whose attention kernels, counted in its device trace,
-   must be 28 × its computed attention steps).  One served batch per
+   launches = 28 × computed attention steps — for a static entry its
+   segment graphs' replays —, host syncs) and a summary
+   (model variants and step graphs within the program budget, the static
+   entries' warm-up and captured attention calls 28 per new graph that
+   computes attention; the idle share of a second,
+   traced drain, whose attention launches — the wrappers' calls and the
+   segment and fused graphs' replays, counted from their captures — must
+   be 28 × its computed attention steps, and its trace must hold no more:
+   traced again, up to ``TRACE_TRIES`` times, until a trace holds them
+   all, its times null if none does).  One served batch per
    entry replayed through
    ``DiffusionPipeline.generate`` must match bitwise, and the adaptive
    batch replayed at τ = 0 on its own realized decisions gives the per-step
@@ -816,6 +835,30 @@ def attention_path(cfg, diffusion, fa, params):
     return fa.plan(*attention._gqa_qkv(spec, mixer, x))
 
 
+def graph_counts(ops, executor, before=None):
+    """The kernel counts around a run on ``executor``'s segmented path.
+    Without ``before``: a mark of ``ops.LAUNCHES``, ``ops.REPLAYED`` and
+    the executor's segment graphs.  With the mark taken before the run:
+    the launches its graph replays made (``replayed``: each graph's
+    captured calls × its replays), the wrapper calls it made
+    (``calls``), the calls the warm-ups of the graphs it built made
+    (``warmup``; a run that built its graphs and called nothing else has
+    ``calls == warmup``) and those graphs (``new_graphs``)."""
+    keys = ("flash_attention", "linear")
+    if before is None:
+        return {"launches": dict(ops.LAUNCHES),
+                "replayed": dict(ops.REPLAYED),
+                "graphs": executor.graph_count("seg")}
+    new = executor.segment_graphs()[before["graphs"]:]
+    return {"replayed": {k: ops.REPLAYED[k] - before["replayed"][k]
+                         for k in keys},
+            "calls": {k: ops.LAUNCHES[k] - before["launches"][k]
+                      for k in keys},
+            "warmup": {k: sum(g["warmup_launches"][k] for g in new)
+                       for k in keys},
+            "new_graphs": len(new)}
+
+
 def slice_phase(cfg, params, ops):
     from repro_torch.cache import DiffusionPipeline
     from repro_torch.core import solvers
@@ -854,16 +897,16 @@ def slice_phase(cfg, params, ops):
         gemm_calls = sum(linear_calls(cfg, [
             t for t in cfg.layer_types()
             if sch is None or not sch.skip[t][s]]) for s in range(50))
-        before = ops.LAUNCHES["flash_attention"]
-        before_linear = ops.LAUNCHES["linear"]
+        counts = graph_counts(ops, serve.executor)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x = serve.generate(params, torch.Generator().manual_seed(SEED + 3),
                            len(REQUEST_LABELS), label=labels, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = ops.LAUNCHES["flash_attention"] - before
-        linear = ops.LAUNCHES["linear"] - before_linear
+        counts = graph_counts(ops, serve.executor, counts)
+        launches = counts["replayed"]["flash_attention"]
+        linear = counts["replayed"]["linear"]
         latents[name] = x
         frac = (1.0 if sch is None else float(sum(
             sch.compute_fraction(t) for t in sch.skip) / len(sch.skip)))
@@ -873,11 +916,16 @@ def slice_phase(cfg, params, ops):
               f"{n_attn} x {attn_steps}")
         check(linear == gemm_calls,
               f"{name}: {linear} linear launches, expected {gemm_calls}")
+        check(counts["calls"] == counts["warmup"],
+              f"{name}: kernel calls {counts['calls']} outside the graphs' "
+              f"warm-ups {counts['warmup']}")
         base = latents["no_cache"]
         runs.append({"run": name, "requests": len(REQUEST_LABELS),
                      "wall_s": wall, "compute_fraction": frac,
                      "attn_steps": attn_steps, "launches": launches,
                      "linear_launches": linear,
+                     "new_graphs": counts["new_graphs"],
+                     "warmup_calls": counts["warmup"],
                      "rel_l1_to_no_cache": float((x - base).abs().sum()
                                                  / base.abs().sum())})
         emit({"phase": "generate", **runs[-1]})
@@ -890,6 +938,216 @@ def slice_phase(cfg, params, ops):
           "bitwise_equal": same})
     check(same, "segmented and eager latents differ")
     return runs, art
+
+
+# the segment_graphs phase's budget: ~1.5x the longest run measured (53 s
+# on an H100 80GB HBM3 at 700 W)
+SEGMENT_GRAPHS_BUDGET_S = 80
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def segment_graphs_phase(cfg, params, ops, art):
+    """The segmented path's step graphs at full width (see the module
+    docstring, phase 6b; budget ``SEGMENT_GRAPHS_BUDGET_S``): DiT-XL/2 at
+    28 of 28 blocks, DDIM 50, CFG 1.5, 4 requests (B = 8 in the kernels),
+    on the DiT slice's weights and calibrated artifact, on pipelines of
+    their own with graphs on and off (``graphs=False``: the same step
+    uncaptured, launched from the host each step).  Per policy (``no_cache``, the artifact's
+    α 0.18 schedule, ``static:n=2``): the first graphed ``generate``
+    (capturing what it lacks) ≡ the eager ``sample`` bitwise, its
+    replayed launches equal to the DiT slice's formula and its wrapper
+    calls the new graphs' warm-ups; the walls graphs on (A) and off (B)
+    in the order A B B A, every run bitwise the first; a whole run by
+    ``advance_run`` under ``set_sync_debug_mode("error")`` (no host sync
+    in any segment or boundary) with its copy-in / copy-out ms per
+    boundary.  Then: graphs = the plans' unique (signature, batch) pairs
+    = the ``seg`` variants, none built after the first runs; per graph
+    the warm-up and capture seconds, the kernel calls captured, buffer
+    and pool bytes; a traced graphed run of ``no_cache`` and of
+    ``static:n=2`` and a traced ``no_cache`` run with graphs off, each
+    traced again (up to ``TRACE_TRIES`` times) until the trace holds every
+    attention and linear launch (the replays' count comes from the
+    captures): idle share, device and attention ms, null where no trace
+    was complete.  The graphed and eager walls go to the roofline
+    phase."""
+    from repro_torch.cache import DiffusionPipeline
+    from repro_torch.core import schedule as S, segment_graph, solvers
+    t_phase = time.perf_counter()
+    n_attn = attn_calls(cfg, ("attn",))
+    labels = torch.tensor(REQUEST_LABELS, device="cuda")
+    n = len(REQUEST_LABELS)
+
+    def pipe(graphs):
+        p = DiffusionPipeline(cfg, solvers.ddim(50), "smoothcache:alpha=0.18",
+                              cfg_scale=1.5, graphs=graphs)
+        p.load_artifact(art, strict=True)
+        return p
+
+    def gen():
+        return torch.Generator().manual_seed(SEED + 3)
+
+    graphed, loop = pipe(True), pipe(False)
+    ex = graphed.executor
+    schedules = {"no_cache": None,
+                 "smoothcache:alpha=0.18": graphed.schedule,
+                 "static:n=2": graphed.schedule_for("static:n=2")}
+    pairs, rows, outs = set(), {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    for name, sch in schedules.items():
+        full = sch if sch is not None else S.no_cache(cfg.layer_types(), 50)
+        plan = ex.plan_for(full)
+        pairs |= {(sig, n) for sig in plan.signatures}
+        attn_steps = int((~full.skip["attn"]).sum())
+        gemm_calls = sum(linear_calls(cfg, [
+            t for t in cfg.layer_types() if not full.skip[t][s]])
+            for s in range(50))
+
+        def run(p):
+            return _timed(lambda: p.generate(params, gen(), n, label=labels,
+                                             schedule=sch))
+
+        counts = graph_counts(ops, ex)
+        (x, first_s) = run(graphed)
+        counts = graph_counts(ops, ex, counts)
+        eager, eager_s = _timed(lambda: ex.sample(params, gen(), n,
+                                                  schedule=sch, label=labels))
+        same = bool(torch.equal(x, eager))
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite latents")
+        check(same, f"{name}: graphed and eager latents differ")
+        check(counts["replayed"]["flash_attention"] == n_attn * attn_steps,
+              f"{name}: {counts['replayed']['flash_attention']} replayed "
+              f"attention launches, expected {n_attn} x {attn_steps}")
+        check(counts["replayed"]["linear"] == gemm_calls,
+              f"{name}: {counts['replayed']['linear']} replayed linear "
+              f"launches, expected {gemm_calls}")
+        check(counts["calls"] == counts["warmup"],
+              f"{name}: calls {counts['calls']} besides the warm-ups "
+              f"{counts['warmup']}")
+        n_graphs = ex.graph_count()
+        walls = {"graphs": [], "loop": []}
+        for p in (graphed, loop, loop, graphed):
+            xr, wall = run(p)
+            walls["graphs" if p is graphed else "loop"].append(wall)
+            check(bool(torch.equal(xr, x)),
+                  f"{name}: a {'graphed' if p is graphed else 'loop'} run "
+                  "differs from the first")
+        check(ex.graph_count() == n_graphs,
+              f"{name}: a second run built a graph")
+        # a whole run segment by segment under the sync guard, with its
+        # copies' device ms per boundary
+        marks = [len(g["copy_in_ms"]) for g in ex.segment_graphs()]
+        rs = ex.start_run(params, gen(), n, plan=plan, schedule=full,
+                          label=labels)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with segment_graph.timing_copies():
+                while not rs.done:
+                    rs = ex.advance_run(params, rs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(torch.equal(rs.x, x)),
+              f"{name}: the guarded run differs from generate")
+        copy_in, copy_out = [], []
+        for g, m in zip(ex.segment_graphs(), marks):
+            copy_in += g["copy_in_ms"][m:]
+            copy_out += g["copy_out_ms"][m:]
+        check(len(copy_in) == len(plan.runs),
+              f"{name}: {len(copy_in)} boundaries timed, "
+              f"{len(plan.runs)} segments")
+        rows[name] = {
+            "segments": len(plan.runs),
+            "signatures": plan.num_unique_signatures,
+            "attn_steps": attn_steps,
+            "replayed_launches": counts["replayed"],
+            "warmup_calls": counts["warmup"],
+            "new_graphs": counts["new_graphs"],
+            "first_graphed_s": first_s, "eager_sample_s": eager_s,
+            "walls_abba_s": {"graphs": walls["graphs"],
+                             "loop": walls["loop"]},
+            "bitwise_equal_eager": same,
+            "copy_in_ms": {"sum": sum(copy_in), "median": _median(copy_in),
+                           "max": max(copy_in, default=None)},
+            "copy_out_ms": {"sum": sum(copy_out),
+                            "median": _median(copy_out),
+                            "max": max(copy_out, default=None)}}
+        outs[name] = x
+        MEASURED["dit_generate"].setdefault(name, {})["walls"] = walls
+    peak = torch.cuda.max_memory_allocated()
+    graphs = ex.segment_graphs()
+    check(ex.graph_count("seg") == len(pairs)
+          == ex.compiled_variant_count("seg") == ex.graph_count(),
+          f"{ex.graph_count('seg')} graphs, {len(pairs)} unique (signature,"
+          f" batch) pairs, {ex.compiled_variant_count('seg')} seg variants")
+
+    # traced runs: graphed no_cache and static:n=2, and no_cache off.  A
+    # trace drops kernel records, so each run is traced again (up to
+    # ``TRACE_TRIES`` times) until it holds a record of every attention
+    # and linear launch the captures' replays and the wrapper calls made;
+    # if none does, its device ms, idle share and attention ms are null
+    families = {"flash_attention": ("attn_fwd",),
+                "linear": tuple(LINEAR_KERNELS.values())}
+    traced = {}
+    for tag, p, name in (("graphs", graphed, "no_cache"),
+                         ("graphs", graphed, "static:n=2"),
+                         ("loop", loop, "no_cache")):
+        sch = schedules[name]
+        full = sch if sch is not None else S.no_cache(cfg.layer_types(), 50)
+        expect = n_attn * int((~full.skip["attn"]).sum())
+        for tries in range(1, TRACE_TRIES + 1):
+            before = (dict(ops.LAUNCHES), dict(ops.REPLAYED))
+            wall_us, prof = _profiled(lambda: p.generate(
+                params, gen(), n, label=labels, schedule=sch))
+            busy, in_trace = _device_us_by(prof, families)
+            replayed = {k: ops.REPLAYED[k] - before[1][k] for k in families}
+            issued = {k: ops.LAUNCHES[k] - before[0][k] + replayed[k]
+                      for k in families}
+            complete = all(in_trace[k][1] == issued[k] for k in families)
+            if complete:
+                break
+        traced[f"{tag}:{name}"] = {
+            "wall_ms": wall_us / 1e3, "trace_complete": complete,
+            "traces": tries,
+            "device_ms": busy / 1e3 if complete else None,
+            "idle_share": 1 - busy / wall_us if complete else None,
+            "attn_ms": in_trace["flash_attention"][0] / 1e3 if complete
+            else None,
+            "kernels_in_trace": {k: v[1] for k, v in in_trace.items()},
+            "launches": issued,
+            "attn_replayed": replayed["flash_attention"]
+            if tag == "graphs" else None,
+            "expected_attn": expect}
+        check(busy > 0, f"the profiler saw no device time ({tag}:{name})")
+        check(issued["flash_attention"] == expect
+              and in_trace["flash_attention"][1] <= expect,
+              f"{tag}:{name}: {issued['flash_attention']} attention "
+              f"launches ({in_trace['flash_attention'][1]} in the trace), "
+              f"expected {expect}")
+        if tag == "graphs":
+            check(replayed["flash_attention"] == expect,
+                  f"{tag}:{name}: {replayed['flash_attention']} replayed "
+                  f"attention launches, expected {expect}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "segment_graphs", "requests": n, "steps": 50,
+          "policies": rows,
+          "graphs": [{k: g[k] for k in (
+              "batch", "skip", "collect", "warmup_s", "capture_s",
+              "captured", "buffer_bytes_added", "reserved_bytes",
+              "replays")} for g in graphs],
+          "graph_count": ex.graph_count(),
+          "unique_signature_batch_pairs": len(pairs),
+          "seg_variants": ex.compiled_variant_count("seg"),
+          "buffer_bytes": sum(g["buffer_bytes_added"] for g in graphs),
+          "device_bytes_before": mem0, "peak_device_bytes": peak,
+          "traced": traced, "seconds": seconds,
+          "budget_s": SEGMENT_GRAPHS_BUDGET_S})
+    check(seconds <= SEGMENT_GRAPHS_BUDGET_S,
+          f"the segment_graphs phase took {seconds:.1f} s, over its budget")
+    return rows
 
 
 def ssd_kernel_phase(ssd, ref, peaks):
@@ -1152,20 +1410,30 @@ def _profiled(fn):
     return wall_us, prof
 
 
-def _device_us(prof, fragment):
-    """(device µs of every CUDA activity, device µs of those whose name
-    holds ``fragment``, their count) from the profiler's raw events, which
-    skips the per-event parsing behind ``key_averages`` (slow over a long
-    window).  Kernels replayed from a CUDA graph are traced one by one,
-    those of an IF body only when its predicate held."""
-    busy = part = count = 0
+def _device_us_by(prof, families):
+    """(device µs of every CUDA activity, {family: [device µs, count]} of
+    those whose name holds one of the family's name fragments) from the
+    profiler's raw events, which skips the per-event parsing behind
+    ``key_averages`` (slow over a long window).  Kernels replayed from a
+    CUDA graph are traced one by one, those of an IF body only when its
+    predicate held."""
+    busy = 0
+    part = {f: [0, 0] for f in families}
     for evt in prof.profiler.kineto_results.events():
         if evt.device_type() == torch.autograd.DeviceType.CUDA:
             busy += evt.duration_ns()
-            if fragment in evt.name():
-                part += evt.duration_ns()
-                count += 1
-    return busy / 1e3, part / 1e3, count
+            for f, frags in families.items():
+                if any(fr in evt.name() for fr in frags):
+                    part[f][0] += evt.duration_ns()
+                    part[f][1] += 1
+    return busy / 1e3, {f: [ns / 1e3, n] for f, (ns, n) in part.items()}
+
+
+def _device_us(prof, fragment):
+    """(device µs of every CUDA activity, device µs of those whose name
+    holds ``fragment``, their count): ``_device_us_by`` for one family."""
+    busy, part = _device_us_by(prof, {fragment: (fragment,)})
+    return (busy, *part[fragment])
 
 
 def _top_kernel(fn, calls=10):
@@ -3116,7 +3384,7 @@ def serve_drain(cfg, params, store, ops, executor):
     reqs = [serve.Request(rid=i, seed=int(rng.randint(1 << 31)),
                           label=int(rng.randint(cfg.num_classes)),
                           policy=SERVE_ENTRIES[i % 4]) for i in range(16)]
-    per = {n: {"launches": 0, "captured": 0, "host_syncs": 0}
+    per = {n: {"launches": 0, "captured": 0, "replayed": 0, "host_syncs": 0}
            for n in SERVE_ENTRIES}
 
     class CountingEngine(serve.ServeEngine):
@@ -3126,12 +3394,14 @@ def serve_drain(cfg, params, store, ops, executor):
         def _advance(self, fl):
             before = (ops.LAUNCHES["flash_attention"],
                       ops.CAPTURED["flash_attention"],
+                      ops.REPLAYED["flash_attention"],
                       self.executor.host_sync_count)
             super()._advance(fl)
             row = per[fl.mb.group]
             row["launches"] += ops.LAUNCHES["flash_attention"] - before[0]
             row["captured"] += ops.CAPTURED["flash_attention"] - before[1]
-            row["host_syncs"] += self.executor.host_sync_count - before[2]
+            row["replayed"] += ops.REPLAYED["flash_attention"] - before[2]
+            row["host_syncs"] += self.executor.host_sync_count - before[3]
 
     eng = CountingEngine(executor, params, store, max_batch=4,
                          max_inflight=2, scheduler="interleave")
@@ -3142,10 +3412,10 @@ def serve_drain(cfg, params, store, ops, executor):
 
 def serve_phase(cfg, params, ops, smooth_art):
     """The serving stack at full width (see the module docstring, phase
-    10).  Returns the attention kernels of the traced drain (counted in
-    its device trace), the attention wrapper calls of the untraced drain
-    (eager calls and the fused graph's warm-up and capture) and the
-    store."""
+    10).  Returns the attention launches of the traced drain (counted
+    from the wrappers and the graphs' captures), the attention wrapper
+    calls of the untraced drain
+    (the step graphs' warm-ups and captures) and the store."""
     import numpy as np
     from repro_torch import serve
     from repro_torch.core import schedule as schedule_lib, solvers
@@ -3157,9 +3427,16 @@ def serve_phase(cfg, params, ops, smooth_art):
     executor = SmoothCacheExecutor(cfg, solvers.ddim(50), cfg_scale=1.5)
     _reset_counts(ops)
     eng, reqs, per = serve_drain(cfg, params, store, ops, executor)
-    launches = dict(ops.LAUNCHES)
+    launches, calls = _launched(ops), dict(ops.LAUNCHES)
     drain_syncs = executor.host_sync_count
     graphs = executor.fused_graphs()
+    seg_graphs = executor.segment_graphs()
+    static = [n for n in SERVE_ENTRIES if not store.get(n).adaptive]
+    seg_attn = per_step * sum("attn" not in g["skip"] for g in seg_graphs)
+    check(sum(per[n]["launches"] for n in static) == seg_attn
+          and sum(per[n]["captured"] for n in static) == seg_attn,
+          f"static entries: {[per[n] for n in static]} warm-up and captured"
+          f" attention calls, expected {seg_attn} each")
     check(launches["ssd"] == 0, "SSD launched in the serve drain")
     check(sorted(eng.results) == list(range(16)),
           f"served {sorted(eng.results)} of 16 requests")
@@ -3204,10 +3481,13 @@ def serve_phase(cfg, params, ops, smooth_art):
                   f"{name}: {row['host_syncs']} decision syncs on the "
                   "fused path")
         else:
+            # static entries ride the segment graphs: their launches are
+            # the graphs' replays (captured calls x replays); the calls
+            # counted are the new graphs' warm-ups and captures, checked
+            # for the drain as a whole below (entries share graphs)
             emit(row)
-            check(row["launches"] == per_step * steps
-                  and row["captured"] == 0,
-                  f"{name}: {row['launches']} attention launches, expected "
+            check(row["replayed"] == per_step * steps,
+                  f"{name}: {row['replayed']} attention launches, expected "
                   f"{per_step} x {steps}")
         if entry.adaptive:
             age = {t: 0 for t in cfg.layer_types()}
@@ -3278,16 +3558,46 @@ def serve_phase(cfg, params, ops, smooth_art):
 
     # a second drain under the profiler (device activity only), on the
     # same executor so that no graph capture falls in the window: the
-    # device's idle share, and every attention kernel of the drain counted
-    # in the trace — eager launches and graph replays alike
-    n_graphs = len(executor.fused_graphs())
-    traced = {}
-    wall_us, prof = _profiled(lambda: traced.update(
-        eng=serve_drain(cfg, params, store, ops, executor)[0]))
-    busy, attn_us, attn_kernels = _device_us(prof, "attn_fwd")
-    traced_steps = sum(computed_attn_steps(r, store.get(r.group))
-                       for r in traced["eng"].records)
-    check(len(executor.fused_graphs()) == n_graphs,
+    # device's idle share.  The drain's attention launches come from what
+    # drops no record: the wrappers' calls, the segment graphs' replays
+    # (captured calls x replays) and the fused graphs' (each step runs the
+    # branch of its record's decision, whose captured calls its graph
+    # recorded).  The trace's count is a second reading: a trace drops
+    # kernel records (62 and 18 of 4900 in two runs), never adds one, so
+    # the drain is traced again (up to ``TRACE_TRIES`` times) until it
+    # holds them all, and its times are null if none does
+    n_graphs = executor.graph_count()
+    fused_by_batch = {g["batch"]: g for g in executor.fused_graphs()}
+    check(len(fused_by_batch) == len(executor.fused_graphs()),
+          "two fused graphs of one batch in the serve drain")
+
+    def fused_replayed(rec):
+        g = fused_by_batch[rec.bucket]
+        return sum(g["captured_by_branch"][sum(
+            1 << i for i, t in enumerate(g["types"]) if t in d)]
+            ["flash_attention"] for d in rec.decisions)
+
+    for tries in range(1, TRACE_TRIES + 1):
+        traced = {}
+        before = (ops.LAUNCHES["flash_attention"],
+                  ops.REPLAYED["flash_attention"])
+        wall_us, prof = _profiled(lambda: traced.update(
+            eng=serve_drain(cfg, params, store, ops, executor)[0]))
+        busy, attn_us, attn_kernels = _device_us(prof, "attn_fwd")
+        records = traced["eng"].records
+        traced_steps = sum(computed_attn_steps(r, store.get(r.group))
+                           for r in records)
+        issued = (ops.LAUNCHES["flash_attention"] - before[0]
+                  + ops.REPLAYED["flash_attention"] - before[1]
+                  + sum(fused_replayed(r) for r in records
+                        if store.get(r.group).adaptive))
+        check(attn_kernels <= issued,
+              f"the trace holds {attn_kernels} attention kernels, more "
+              f"than the {issued} the drain launched")
+        complete = attn_kernels == issued
+        if complete:
+            break
+    check(executor.graph_count() == n_graphs,
           "a graph was captured in the traced drain")
     row = {"phase": "serve", "requests": rep["requests"],
            "batches": rep["batches"], "buckets": rep["buckets"],
@@ -3297,31 +3607,48 @@ def serve_phase(cfg, params, ops, smooth_art):
            "compute_fraction": rep["compute_fraction"],
            "model_variants": rep["compiles"]["model_variants"],
            "variants": rep["compiles"],
+           "graphs": rep["compiles"]["graphs"],
            "program_budget": rep["program_budget"],
            "host_sync_count": drain_syncs,
            "launches": launches,
            "traced_drain": {"wall_ms": wall_us / 1e3,
-                            "device_ms": busy / 1e3,
-                            "idle_share": 1 - busy / wall_us,
-                            "attn_ms": attn_us / 1e3,
+                            "trace_complete": complete, "traces": tries,
+                            "device_ms": busy / 1e3 if complete else None,
+                            "idle_share": 1 - busy / wall_us if complete
+                            else None,
+                            "attn_ms": attn_us / 1e3 if complete else None,
                             "attn_steps": traced_steps,
+                            "attn_launches": issued,
                             "attn_kernels_in_trace": attn_kernels},
            "phase_s": time.perf_counter() - t_phase}
     emit(row)
     check(rep["compiles"]["model_variants"] <= rep["program_budget"],
           f"{rep['compiles']['model_variants']} model variants over the "
           f"budget {rep['program_budget']}")
+    check(rep["compiles"]["graphs"]["total"] <= rep["program_budget"]
+          and rep["compiles"]["graphs"]["seg"]
+          == executor.compiled_variant_count("seg"),
+          f"graphs {rep['compiles']['graphs']}, budget "
+          f"{rep['program_budget']}")
     check(busy > 0, "the profiler saw no device time in the serve drain")
-    check(attn_kernels == per_step * traced_steps,
-          f"{attn_kernels} attention kernels in the traced drain, expected "
-          f"{per_step} x {traced_steps} attention steps")
-    return attn_kernels, launches["flash_attention"], store
+    check(issued == per_step * traced_steps,
+          f"{issued} attention kernels launched in the traced drain "
+          f"({attn_kernels} in its trace), expected {per_step} x "
+          f"{traced_steps} attention steps")
+    return issued, calls["flash_attention"], store
 
 
 def _reset_counts(ops):
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
         ops.CAPTURED[k] = 0
+        ops.REPLAYED[k] = 0
+
+
+def _launched(ops):
+    """Every kernel launch counted so far: the wrappers' calls and the
+    segment graphs' replays."""
+    return {k: ops.LAUNCHES[k] + ops.REPLAYED[k] for k in ops.LAUNCHES}
 
 
 def _timed(fn):
@@ -4108,10 +4435,11 @@ def resilience_phase(cfg, params, ops, store):
     check(m.faults_total == sum(m.fault_kinds.values()),
           f"ramp: {m.faults_total} faults against {m.fault_kinds}")
     check(executor.host_sync_count == 0, "ramp: decision syncs")
-    launches = dict(ops.LAUNCHES)
+    launches = _launched(ops)
     emit({"phase": "resilience", "policy": RESILIENCE_POLICY,
           "clean": row_a, "fixed_plan": row_b, "ramp": row_c,
           "launches": launches, "captured": dict(ops.CAPTURED),
+          "replayed": dict(ops.REPLAYED),
           "phase_s": time.perf_counter() - t_phase})
     check(launches["flash_attention"] > 0 and launches["linear"] > 0,
           f"a kernel never launched in the resilience phase: {launches}")
@@ -4218,7 +4546,7 @@ def telemetry_phase(cfg, params, ops, store):
     realized = all(e_on.cache_reports[rid].realized == rec.decisions
                    for rec in e_on.records if rec.decisions
                    for rid in rec.rids)
-    launches = dict(ops.LAUNCHES)
+    launches = _launched(ops)
     row.update({"engine": {
         "requests": 8, "walls_s": {"tracer_and_telemetry":
                                    engines[True][1],
@@ -4229,6 +4557,7 @@ def telemetry_phase(cfg, params, ops, store):
         "trace_events": n_events,
         "host_sync_count": executor.host_sync_count - host_syncs},
         "launches": launches, "captured": dict(ops.CAPTURED),
+        "replayed": dict(ops.REPLAYED),
         "phase_s": time.perf_counter() - t_phase})
     emit({"phase": "telemetry", **row})
     check(drain_bitwise, "the traced telemetry drain differs from the "
@@ -4251,8 +4580,7 @@ def _free_engine(eng):
     """What a process death frees on the card: the engine's in-flight run
     states and its executor's captured graphs (buffers and memory pool)."""
     eng._inflight.clear()
-    eng.executor._fused.clear()
-    eng.executor._capture = None
+    eng.executor.release_graphs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4520,10 +4848,10 @@ def durable_phase(cfg, params, ops, store):
     _free_engine(probe)
     del probe, first, rep, live
     shutil.rmtree(tmp, ignore_errors=True)
-    launches = dict(ops.LAUNCHES)
+    launches = _launched(ops)
     emit({"phase": "durable", "costs": row_d, "restore": row_a,
           "refusals": row_b, "kill_ramp": row_c, "launches": launches,
-          "captured": dict(ops.CAPTURED),
+          "captured": dict(ops.CAPTURED), "replayed": dict(ops.REPLAYED),
           "phase_s": time.perf_counter() - t_phase})
     check(launches["flash_attention"] > 0 and launches["linear"] > 0,
           f"a kernel never launched in the durable phase: {launches}")
@@ -4724,12 +5052,13 @@ def video_slice_phase(cfg, params, ops, memory):
                  for s in range(VIDEO_STEPS)]
         want_attn = sum(attn_calls(cfg, c) for c in steps)
         want_linear = sum(linear_calls(cfg, c) for c in steps)
-        before = dict(ops.LAUNCHES)
+        counts = graph_counts(ops, serve.executor)
         x, wall = _timed(lambda: serve.generate(
             params, torch.Generator().manual_seed(SEED + 44), 1,
             memory=memory, **kw))
-        attn = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
-        linear = ops.LAUNCHES["linear"] - before["linear"]
+        counts = graph_counts(ops, serve.executor, counts)
+        attn = counts["replayed"]["flash_attention"]
+        linear = counts["replayed"]["linear"]
         latents[name] = x
         frac = (1.0 if sch is None else float(sum(
             sch.compute_fraction(t) for t in types) / len(types)))
@@ -4738,10 +5067,15 @@ def video_slice_phase(cfg, params, ops, memory):
               f"expected {want_attn}")
         check(linear == want_linear, f"{name}: {linear} linear launches, "
               f"expected {want_linear}")
+        check(counts["calls"] == counts["warmup"],
+              f"{name}: calls {counts['calls']} besides the warm-ups "
+              f"{counts['warmup']}")
         base = latents["no_cache"]
         runs.append({"run": name, "requests": 1, "wall_s": wall,
                      "compute_fraction": frac, "attn_launches": attn,
                      "linear_launches": linear,
+                     "new_graphs": counts["new_graphs"],
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
                      "skipped_steps": {t: int(sch.skip[t].sum())
                                        for t in types} if sch is not None
                      else None,
@@ -4808,22 +5142,39 @@ def video_fused_phase(cfg, params, ops, adaptive, memory):
     check(any(dh), "the adaptive video run skipped nothing")
 
 
-def video_profile_phase(cfg, diffusion, params, ops, memory):
-    """Where a video step's time goes: one full-width B = 2 forward (one
-    request under CFG) after an untraced warm-up — device time by kernel,
-    the attention and linear kernels' shares, the device's idle share."""
-    gen = torch.Generator().manual_seed(SEED + 46)
+def memory_profile_phase(phase, seed, cfg, diffusion, params, ops, memory):
+    """Where a video or audio step's time goes (``phase`` names the line):
+    one full-width B = 2 forward (one request under CFG) after an untraced
+    warm-up — device time by kernel, the attention and linear kernels'
+    shares, the device's idle share.  The launches are the wrappers'
+    counts and must be one forward's; a trace drops kernel records, never
+    adds one, so the forward is traced again (up to ``TRACE_TRIES`` times)
+    until the trace holds every attention and linear launch, and its times
+    are null if none does."""
+    gen = torch.Generator().manual_seed(seed)
     x = torch.randn((2,) + cfg.latent_shape, generator=gen).cuda()
     t = torch.full((2,), 500.0, device="cuda")
     mem = torch.cat([memory, torch.zeros_like(memory)])
     diffusion.apply(cfg, params, x, t, memory=mem)
-    before = ops.LAUNCHES["linear"]
-    wall_us, kern = _traced(lambda: diffusion.apply(cfg, params, x, t,
-                                                    memory=mem))
-    calls = ops.LAUNCHES["linear"] - before
+    for tries in range(1, TRACE_TRIES + 1):
+        before = dict(ops.LAUNCHES)
+        wall_us, kern = _traced(lambda: diffusion.apply(cfg, params, x, t,
+                                                        memory=mem))
+        calls = {k: ops.LAUNCHES[k] - before[k]
+                 for k in ("flash_attention", "linear")}
+        in_trace = {
+            "flash_attention": sum(n for k, (_, n) in kern.items()
+                                   if "attn_fwd" in k),
+            "linear": sum(n for k, (_, n) in kern.items()
+                          if any(v in k for v in LINEAR_KERNELS.values()))}
+        check(all(in_trace[k] <= calls[k] for k in calls),
+              f"{phase}: the trace holds {in_trace} kernels, more than the "
+              f"{calls} launched")
+        complete = in_trace == calls
+        if complete:
+            break
     busy = sum(us for us, _ in kern.values())
     attn = sum(us for k, (us, _) in kern.items() if "attn_fwd" in k)
-    attn_n = sum(n for k, (_, n) in kern.items() if "attn_fwd" in k)
     linear = sum(us for k, (us, _) in kern.items()
                  if any(n in k for n in LINEAR_KERNELS.values()))
     library = [k for k in kern
@@ -4831,22 +5182,34 @@ def video_profile_phase(cfg, diffusion, params, ops, memory):
                    f in k.lower() for f in ("gemm", "cutlass", "xmma",
                                             "cublas"))]
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
-    row = {"phase": "video_profile", "batch": 2, "wall_ms": wall_us / 1e3,
-           "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-           "attn_ms": attn / 1e3, "attn_calls": attn_n,
-           "attn_share": attn / busy, "linear_ms": linear / 1e3,
-           "linear_share": linear / busy, "linear_calls": calls,
+
+    def timed(v):
+        return v if complete else None
+
+    row = {"phase": phase, "batch": 2, "wall_ms": wall_us / 1e3,
+           "trace_complete": complete, "traces": tries,
+           "device_ms": timed(busy / 1e3),
+           "idle_share": timed(1 - busy / wall_us),
+           "attn_ms": timed(attn / 1e3),
+           "attn_calls": calls["flash_attention"],
+           "attn_kernels_in_trace": in_trace["flash_attention"],
+           "attn_share": timed(attn / busy) if busy else None,
+           "linear_ms": timed(linear / 1e3),
+           "linear_share": timed(linear / busy) if busy else None,
+           "linear_calls": calls["linear"],
+           "linear_kernels_in_trace": in_trace["linear"],
            "library_gemm_kernels": library,
            "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
                    for k, (us, n) in top]}
     emit(row)
-    check(busy > 0, "the profiler saw no device time")
+    check(busy > 0, f"{phase}: the profiler saw no device time")
     types = cfg.layer_types()
-    check(attn_n == attn_calls(cfg, types),
-          f"{attn_n} attention kernels in one video forward")
-    check(calls == linear_calls(cfg, types) and not library,
-          f"{calls} linear calls in one video forward, other product "
-          f"kernels {library}")
+    check(calls["flash_attention"] == attn_calls(cfg, types),
+          f"{phase}: {calls['flash_attention']} attention calls in one "
+          f"forward ({in_trace['flash_attention']} in the trace)")
+    check(calls["linear"] == linear_calls(cfg, types) and not library,
+          f"{phase}: {calls['linear']} linear calls in one forward, other "
+          f"product kernels {library}")
     return row
 
 
@@ -4881,10 +5244,11 @@ def video_phase(peaks, kernels):
                                    1, VIDEO_MEM, cfg.cond_dim)
     _reset_counts(ops)
     adaptive, slice_s = video_slice_phase(cfg, params, ops, memory)
-    launches = dict(ops.LAUNCHES)
+    launches = _launched(ops)
     check(launches["ssd"] == 0, "SSD launched in the video slice")
     video_fused_phase(cfg, params, ops, adaptive, memory)
-    profile = video_profile_phase(cfg, diffusion, params, ops, memory)
+    profile = memory_profile_phase("video_profile", SEED + 46, cfg,
+                                   diffusion, params, ops, memory)
     for name, key in (("flash_attention", "flash_attention"),
                       ("linear", "linear")):
         kernels[name]["video_launches"] = launches[key]
@@ -5159,12 +5523,13 @@ def audio_slice_phase(cfg, params, ops, memory):
                  for s in range(AUDIO_STEPS)]
         want_attn = sum(attn_calls(cfg, c) for c in steps)
         want_linear = sum(linear_calls(cfg, c) for c in steps)
-        before = dict(ops.LAUNCHES)
+        counts = graph_counts(ops, serve.executor)
         x, wall = _timed(lambda: serve.generate(
             params, torch.Generator().manual_seed(SEED + 66), 1,
             memory=memory, **kw))
-        attn = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
-        linear = ops.LAUNCHES["linear"] - before["linear"]
+        counts = graph_counts(ops, serve.executor, counts)
+        attn = counts["replayed"]["flash_attention"]
+        linear = counts["replayed"]["linear"]
         latents[name] = x
         frac = (1.0 if sch is None else float(sum(
             sch.compute_fraction(t) for t in types) / len(types)))
@@ -5173,10 +5538,14 @@ def audio_slice_phase(cfg, params, ops, memory):
               f"expected {want_attn}")
         check(linear == want_linear, f"{name}: {linear} linear launches, "
               f"expected {want_linear}")
+        check(counts["calls"] == counts["warmup"],
+              f"{name}: calls {counts['calls']} besides the warm-ups "
+              f"{counts['warmup']}")
         base = latents["no_cache"]
         runs.append({"run": name, "requests": 1, "wall_s": wall,
                      "compute_fraction": frac, "attn_launches": attn,
                      "linear_launches": linear,
+                     "new_graphs": counts["new_graphs"],
                      "linear_per_full_step": linear_calls(cfg, types),
                      "skipped_steps": {t: int(sch.skip[t].sum())
                                        for t in types} if sch is not None
@@ -5271,14 +5640,15 @@ def audio_serve_phase(cfg, params, ops, art, memory, runs):
                             text_encoder=encoder)
     prompts = ["rain on a tin roof", "a violin tuning", "waves at night",
                "a crowd applauding"]
-    before = dict(ops.LAUNCHES)
+    before = _launched(ops)
     eng.submit(*[serve.Request(rid=i, seed=500 + i, prompt=prompts[i],
                                policy=(AUDIO_ADAPTIVE if i % 2
                                        else "static:n=2"))
                  for i in range(4)])
     results, wall = _timed(eng.run_until_drained)
-    launches = {k: ops.LAUNCHES[k] - before[k] for k in ("flash_attention",
-                                                          "linear")}
+    launched = _launched(ops)
+    launches = {k: launched[k] - before[k] for k in ("flash_attention",
+                                                      "linear")}
     check(sorted(results) == [0, 1, 2, 3], f"served {sorted(results)}")
     check(eng.metrics.joins == 0, "a stochastic run took a join")
     replays = {}
@@ -5347,48 +5717,6 @@ def audio_serve_phase(cfg, params, ops, art, memory, runs):
     return launches
 
 
-def audio_profile_phase(cfg, diffusion, params, ops, memory):
-    """Where an audio step's time goes: one full-width B = 2 forward (one
-    request under CFG) after an untraced warm-up — device time by kernel,
-    the attention and linear kernels' shares, the device's idle share."""
-    gen = torch.Generator().manual_seed(SEED + 68)
-    x = torch.randn((2,) + cfg.latent_shape, generator=gen).cuda()
-    t = torch.full((2,), 500.0, device="cuda")
-    mem = torch.cat([memory, torch.zeros_like(memory)])
-    diffusion.apply(cfg, params, x, t, memory=mem)
-    before = ops.LAUNCHES["linear"]
-    wall_us, kern = _traced(lambda: diffusion.apply(cfg, params, x, t,
-                                                    memory=mem))
-    calls = ops.LAUNCHES["linear"] - before
-    busy = sum(us for us, _ in kern.values())
-    attn = sum(us for k, (us, _) in kern.items() if "attn_fwd" in k)
-    attn_n = sum(n for k, (_, n) in kern.items() if "attn_fwd" in k)
-    linear = sum(us for k, (us, _) in kern.items()
-                 if any(n in k for n in LINEAR_KERNELS.values()))
-    library = [k for k in kern
-               if not any(n in k for n in LINEAR_KERNELS.values()) and any(
-                   f in k.lower() for f in ("gemm", "cutlass", "xmma",
-                                            "cublas"))]
-    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
-    row = {"phase": "audio_profile", "batch": 2, "wall_ms": wall_us / 1e3,
-           "device_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-           "attn_ms": attn / 1e3, "attn_calls": attn_n,
-           "attn_share": attn / busy, "linear_ms": linear / 1e3,
-           "linear_share": linear / busy, "linear_calls": calls,
-           "library_gemm_kernels": library,
-           "top": [{"kernel": k[:70], "ms": us / 1e3, "calls": n}
-                   for k, (us, n) in top]}
-    emit(row)
-    check(busy > 0, "the profiler saw no device time")
-    types = cfg.layer_types()
-    check(attn_n == attn_calls(cfg, types),
-          f"{attn_n} attention kernels in one audio forward")
-    check(calls == linear_calls(cfg, types) and not library,
-          f"{calls} linear calls in one audio forward, other product "
-          f"kernels {library}")
-    return row
-
-
 def audio_attention_path(cfg, fa, params, memory):
     """How the kernel computes the q/k/v that the first audio block's self-
     and cross-attention make at B = 2 (after RoPE for self-attention)."""
@@ -5449,12 +5777,13 @@ def audio_phase(peaks, kernels):
     t0 = time.perf_counter()
     art, runs = audio_slice_phase(cfg, params, ops, memory)
     slice_s = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = _launched(ops)
     check(launches["ssd"] == 0, "SSD launched in the audio slice")
     check(all(launches["linear_" + rows] > 0 for rows in gemm.ROWS),
           f"a linear variant never launched in the audio slice: {launches}")
     serve_launches = audio_serve_phase(cfg, params, ops, art, memory, runs)
-    profile = audio_profile_phase(cfg, diffusion, params, ops, memory)
+    profile = memory_profile_phase("audio_profile", SEED + 68, cfg,
+                                   diffusion, params, ops, memory)
     for name in ("flash_attention", "linear"):
         kernels[name]["audio_launches"] = launches[name]
         kernels[name]["audio_serve_launches"] = serve_launches[name]
@@ -5695,8 +6024,10 @@ def train_dit_phase(cfg, params, peaks, kernels):
     peak after step 12 within 1% of the peak after step 3, the prepared
     and retired bytes constant from step 2; a checkpoint after step 6,
     restored into fresh tensors, whose step 7 matches the run's within
-    1e-6; ``generate`` on the trained weights bitwise equal to the same
-    after ``gemm.release()`` and a fresh ``prepare_linear``."""
+    1e-6; ``generate`` on the trained weights bitwise equal to the same,
+    on the same pipeline, after ``gemm.release()`` and a fresh
+    ``prepare_linear`` (its step graphs captured anew on the fresh
+    halves)."""
     import shutil
     from repro_torch.cache import DiffusionPipeline
     from repro_torch.checkpoint import io as ckpt_io
@@ -5821,20 +6152,30 @@ def train_dit_phase(cfg, params, peaks, kernels):
     check(len(held) == 1, f"prepared / retired bytes moved: {held}")
 
     # generate on the trained weights: the halves made on demand after the
-    # last update against halves made afresh
+    # last update against halves made afresh, on one pipeline, whose step
+    # graphs hold the halves they captured and are built anew on the new
     pipe = DiffusionPipeline(cfg, solvers.ddim(TRAIN_GEN_STEPS),
                              cfg_scale=1.5, device="cuda")
-    labels = torch.tensor(REQUEST_LABELS[:2], device="cuda")
-    gen_a = pipe.generate(params, torch.Generator().manual_seed(SEED + 304),
-                          2, label=labels)
+
+    def generate():
+        return pipe.generate(params, torch.Generator().manual_seed(
+            SEED + 304), 2, label=torch.tensor(REQUEST_LABELS[:2],
+                                               device="cuda"))
+
+    gen_a = generate()
+    built = pipe.executor.graph_count("seg")
     gemm.release()
     diffusion.prepare_linear(params)
-    gen_b = pipe.generate(params, torch.Generator().manual_seed(SEED + 304),
-                          2, label=labels)
+    captured = ops.CAPTURED["linear"]
+    gen_b = generate()
     same = bool(torch.equal(gen_a, gen_b))
     check(same and bool(torch.isfinite(gen_a).all()),
           "generate after training differs from generate on fresh halves")
-    del pipe, gen_a, gen_b, state
+    check(built > 0 and pipe.executor.graph_count("seg") == built
+          and ops.CAPTURED["linear"] > captured,
+          f"{built} step graphs, then {pipe.executor.graph_count('seg')}, "
+          "not captured anew on the fresh halves")
+    del gen_a, gen_b, state, pipe
     gemm.release()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5904,7 +6245,8 @@ def quickstart_phase(kernels):
     t0 = time.perf_counter()
     _reset_counts(ops)
     out = quickstart.run("cuda", log=lambda line: None)
-    launches = {k: ops.LAUNCHES[k] for k in ("linear", "flash_attention")}
+    launched = _launched(ops)
+    launches = {k: launched[k] for k in ("linear", "flash_attention")}
     gemm.release()
     losses = out["losses"]
     last20 = statistics.mean(losses[-20:])
@@ -6166,6 +6508,12 @@ def roofline_phase(counts):
                      "analytic_tflop": analytic,
                      "counted_over_analytic": t["flops"] / 1e12 / analytic,
                      "compute_fraction": m["compute_fraction"]}
+        if "walls" in m:
+            # the segment_graphs phase's A B B A walls, graphs on and off
+            bound = max(dit[name]["t_compute_s"], dit[name]["t_memory_s"])
+            dit[name]["walls_abba_s"] = m["walls"]
+            dit[name]["share_of_roofline_abba"] = {
+                k: [bound / w for w in v] for k, v in m["walls"].items()}
         check(0.8 <= dit[name]["counted_over_analytic"] <= 1.25,
               f"DiT-XL/2 {name}: counted / analytic FLOPs "
               f"{dit[name]['counted_over_analytic']}")
@@ -6292,13 +6640,17 @@ def main():
     dit_profile_phase(cfg, diffusion, params_gpu, ops)
     mark("dit_params_cross_check_profile")
 
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    _reset_counts(ops)
     torch.cuda.reset_peak_memory_stats()
     _, smooth_art = slice_phase(cfg, params_gpu, ops)
-    dit_launches = dict(ops.LAUNCHES)
+    # the segmented path's graph replays launch without a wrapper call:
+    # the slice's launches are its wrapper calls (calibration, the eager
+    # reference, the graphs' warm-ups) and its replays
+    dit_calls, dit_replayed = dict(ops.LAUNCHES), dict(ops.REPLAYED)
+    dit_launches = {k: dit_calls[k] + dit_replayed[k] for k in dit_calls}
     path = attention_path(cfg, diffusion, fa, params_gpu)
-    emit({"phase": "slice", "launches": dit_launches, "attention_path": path,
+    emit({"phase": "slice", "launches": dit_launches, "calls": dit_calls,
+          "replayed": dit_replayed, "attention_path": path,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     check(dit_launches["ssd"] == 0, "SSD launched in the DiT slice")
     check(path == {"arith": "3xtf32-mma.sync", "load": "cp.async"},
@@ -6312,6 +6664,8 @@ def main():
           f"a linear variant never launched in the DiT slice: "
           f"{dit_launches}")
     mark("dit_slice")
+    segment_graphs_phase(cfg, params_gpu, ops, smooth_art)
+    mark("segment_graphs")
     serve_launches, serve_calls, store = serve_phase(cfg, params_gpu, ops,
                                                      smooth_art)
     kernels["flash_attention"]["serve_launches"] = serve_launches

@@ -36,18 +36,20 @@ _UNSET = object()
 class DiffusionPipeline:
     """Owns an executor + a :class:`CachePolicy` + (optionally) a resolved
     :class:`CacheArtifact`, and exposes calibrate/generate.  Runs on
-    ``cuda`` unless ``device="cpu"`` is passed."""
+    ``cuda`` unless ``device="cpu"`` is passed; ``graphs=False`` runs the
+    segmented path's step uncaptured instead of step-graph replays (the
+    JAX package's ``jit=False``)."""
 
     def __init__(self, cfg, solver, policy: Union[str, dict, CachePolicy]
                  = "none", *, cfg_scale: Optional[float] = None,
-                 device=None):
+                 device=None, graphs: bool = True):
         if isinstance(solver, str):
             raise TypeError(
                 f"solver must be a Solver object, e.g. "
                 f"solvers.{solver}(num_steps); got the string {solver!r}")
         self.policy = registry.get(policy)
         self.executor = SmoothCacheExecutor(cfg, solver, cfg_scale=cfg_scale,
-                                            device=device)
+                                            device=device, graphs=graphs)
         self.artifact: Optional[CacheArtifact] = None
         self.per_sample: Optional[Dict[str, np.ndarray]] = None
         self._schedule: Optional[Schedule] = None

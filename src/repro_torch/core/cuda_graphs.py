@@ -92,15 +92,16 @@ def _release(device: int, pool, begins) -> None:
 
 
 class GraphCapture:
-    """What one owner's graphs share: the memory pool they capture into,
-    and the pool and streams their IF bodies capture from (a stream per
-    branch index, kept for the owner's life: cuBLAS keys its workspaces
-    by stream).  The body pool is released when the owner is dropped."""
+    """What one owner's graphs share: the memory pool they capture into
+    (``pool``, the owner's, which its plain graphs share too), and the
+    pool and streams their IF bodies capture from (a stream per branch
+    index, kept for the owner's life: cuBLAS keys its workspaces by
+    stream).  The body pool is released when the owner is dropped."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, pool):
         require()
         self.device = torch.device(device).index or 0
-        self.pool = torch.cuda.graph_pool_handle()
+        self.pool = pool
         self.body_pool = torch.cuda.graph_pool_handle()
         self.streams = []
         self._begins = [0]

@@ -14,9 +14,15 @@ Two static paths, bitwise equal on the same inputs:
 * ``sample_compiled`` — **segmented**: :mod:`repro_torch.core.plan` run-length
   encodes the schedule into constant-mask segments and computes branch
   liveness.  Types that are never read are never collected nor resident;
-  exact liveness is enforced at segment boundaries by dropping dead
-  entries.  A segment is a Python loop over its steps; ``start_run`` /
-  ``advance_run`` expose it one segment at a time.
+  exact liveness is enforced at segment boundaries by copying out only
+  the entries the next segment reads.  ``start_run`` / ``advance_run`` expose it one segment at a
+  time.  On a CUDA device a segment is replays of one captured CUDA graph
+  per plan signature (:mod:`repro_torch.core.segment_graph`, the
+  counterpart of the JAX package's jitted ``fori_loop`` segment
+  programs): the run state is copied into the graph's buffers, the graph
+  replays once a step, and the state is copied out, with no host read.
+  ``graphs=False`` runs the same step on the same buffers uncaptured,
+  launched from the host each step, for A/B runs.
 
 Two adaptive paths, bitwise equal on the same inputs:
 
@@ -39,12 +45,13 @@ its solo run does, bitwise: on a card the model's products go through the
 batch-invariant ``ops.linear`` kernel and the proxy's row sums through
 one fixed tree (``calibration.row_sums``).
 
-Eager PyTorch compiles nothing, so where the JAX package counts compiled
-programs the executor records every distinct model-call *variant* it
-dispatches, as ``(kind, signature, batch)`` with kinds ``"seg"``,
-``"sigstep"``, ``"eager"`` and ``"fused"`` (one per captured graph;
-``fn_keys``, ``compiled_variant_count``): the shapes a compiled version
-would specialize on, which the serving program budget bounds.
+Where the JAX package counts compiled programs the executor records
+every distinct model-call *variant* it dispatches, as ``(kind, signature,
+batch)`` with kinds ``"seg"``, ``"sigstep"``, ``"eager"`` and ``"fused"``
+(``fn_keys``, ``compiled_variant_count``): the shapes a compiled version
+specializes on, which the serving program budget bounds.  The step graphs
+it builds — one per ``"seg"`` variant and one per ``"fused"`` one — are
+counted by ``graph_count``, the counterpart of ``xla_program_count``.
 
 Classifier-free guidance doubles the batch ([cond; uncond]) exactly as in
 the paper's DiT-XL protocol; the cache covers both halves.  A
@@ -74,6 +81,7 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.core import calibration, cuda_graphs, fused
 from repro_torch.core import diffusion, plan as plan_lib, schedule as schedule_lib
+from repro_torch.core import segment_graph
 from repro_torch.core.fused import rows_finite
 from repro_torch.core.solvers import Solver, StepTable
 
@@ -191,21 +199,6 @@ def pruned_branch_caches(cfg: ModelConfig, computed, old, collect, live):
                     continue
                 d[name] = comp[name] if t in collect else old[si][bi][name]
             stage.append(d)
-        out.append(tuple(stage))
-    return out
-
-
-def prune_cache(cfg: ModelConfig, cache, live):
-    """Drop every cache entry whose type is not in ``live`` (segment
-    boundaries)."""
-    live = set(live)
-    out = []
-    for si, st in enumerate(cfg.stages):
-        stage = []
-        for bi, b in enumerate(st.unit):
-            types = dict(zip(b.branch_names(), b.branch_types()))
-            stage.append({n: v for n, v in cache[si][bi].items()
-                          if types[n] in live})
         out.append(tuple(stage))
     return out
 
@@ -373,23 +366,32 @@ class FusedAdaptiveRunState:
 
 
 class SmoothCacheExecutor:
-    """Owns the plan memo and the sampling loops for one model config,
-    solver and guidance scale, on one device (``cuda`` unless
-    ``device="cpu"`` is passed)."""
+    """Owns the plan memo, the step graphs and the sampling loops for one
+    model config, solver and guidance scale, on one device (``cuda``
+    unless ``device="cpu"`` is passed).  ``graphs=False`` runs the
+    segmented path's step uncaptured, launched from the host each step,
+    instead of graph replays (the counterpart of the JAX package's
+    ``jit=False``)."""
 
     def __init__(self, cfg: ModelConfig, solver: Solver, *,
-                 cfg_scale: Optional[float] = None, device=None):
+                 cfg_scale: Optional[float] = None, device=None,
+                 graphs: bool = True):
         if cfg.task != "diffusion":
             raise ValueError(f"{cfg.name} is not a diffusion config")
         self.cfg = cfg
         self.solver = solver
         self.cfg_scale = cfg_scale
         self.device = resolve_device(device)
+        self.graphs = bool(graphs)
         self._plans = {}
         self._variants = set()
         self._model_times = StepTable(solver.model_times.numpy()[None])
         self._fused: Dict[tuple, fused.FusedGraph] = {}
+        self._segments: Dict[tuple, segment_graph.SegmentGraph] = {}
+        self._seg_buffers: Dict[tuple, segment_graph.SegmentBuffers] = {}
         self._capture = None
+        self._pool = None
+        self._stream = None
         #: per-step device→host decision syncs of the host-dispatched
         #: adaptive loop (one per τ > 0 step); the fused path never
         #: increments it
@@ -430,6 +432,16 @@ class SmoothCacheExecutor:
         """Number of distinct model-call variants dispatched — the shapes
         a compiled version would build one program each for."""
         return len(self.fn_keys(kind))
+
+    def graph_count(self, kind: Optional[str] = None) -> int:
+        """Step graphs built so far (all kinds, ``"seg"`` or ``"fused"``):
+        on a CUDA device each is one captured CUDA graph, on the CPU the
+        buffered eager step that stands in for it — the counterpart of
+        the JAX package's ``xla_program_count``.  With ``graphs=False``
+        the segmented path builds none."""
+        counts = {"seg": len(self._segments) if self.graphs else 0,
+                  "fused": len(self._fused)}
+        return sum(counts.values()) if kind is None else counts.get(kind, 0)
 
     # -- plan resolution -----------------------------------------------------
 
@@ -613,43 +625,96 @@ class SmoothCacheExecutor:
             healthy=torch.ones(batch, dtype=torch.bool, device=self.device),
             noise_seed=noise_seed)
 
+    def segment_graph_for(self, params, rs: RunState
+                          ) -> segment_graph.SegmentGraph:
+        """The step graph of ``rs``'s next segment (built, and on a CUDA
+        device with ``graphs=True`` captured, on first use, and again once
+        it is stale: a weight changed in place, or a prepared copy it
+        captured was dropped).  Call it before a guarded region so that a
+        capture happens outside it."""
+        sig = rs.plan.runs[rs.run_index].sig
+        key = segment_graph.segment_key(rs, sig, params)
+        g = self._segments.get(key)
+        if g is None or g.stale():
+            buf = self._seg_buffers.get(key.buffers)
+            if buf is None:
+                buf = segment_graph.SegmentBuffers(self, rs)
+                self._seg_buffers[key.buffers] = buf
+            g = segment_graph.SegmentGraph(
+                self, params, rs, sig, buf,
+                capture=self.graphs and self.device.type == "cuda")
+            self._segments[key] = g
+        return g
+
+    def segment_graphs(self) -> List[dict]:
+        """One record per segment step graph built so far: batch, skipped
+        and collected types, scannable or model-only, buffer bytes, the
+        steps replayed and, on a CUDA device, the warm-up and capture
+        seconds, the kernel calls captured, the device memory reserved and
+        the copy-in / copy-out ms of its last boundaries timed under
+        ``segment_graph.timing_copies()`` (reading those waits for them;
+        none on the CPU).  None with ``graphs=False``."""
+        out = []
+        for g in self._segments.values() if self.graphs else ():
+            rec = dict(g.stats, replays=g.replays)
+            rec["copy_in_ms"], rec["copy_out_ms"] = g.copy_ms()
+            out.append(rec)
+        return out
+
+    def release_graphs(self) -> None:
+        """Drop every step graph, their buffers and memory pool (what a
+        process death frees)."""
+        self._segments.clear()
+        self._seg_buffers.clear()
+        self._fused.clear()
+        self._capture = self._pool = self._stream = None
+
     def advance_run(self, params, rs: RunState, *,
                     check: bool = False) -> RunState:
         """Advance an in-flight run by one plan segment: run the segment's
         steps under its signature (skipped types read the cache, the
-        canonical collect set writes fresh outputs), then enforce exact
-        liveness at the boundary."""
+        canonical collect set writes fresh outputs) through its step
+        graph, captured or (``graphs=False``, the CPU) not, which returns
+        exactly the ``live_out`` entries.  ``check=True`` holds that
+        against the run state: the segment reads only entries the last
+        boundary kept, and the next one's are exactly those it read or
+        wrote."""
         if rs.done:
             raise ValueError("run is already complete")
         run = rs.plan.runs[rs.run_index]
-        sig = run.sig
-        skip, collect = sig.skip, frozenset(sig.collect)
-        reads = any(skip.values())
-        x, cache, healthy, state = rs.x, rs.cache, rs.healthy, rs.state
-        self._dispatch("seg", sig, x.shape[0])
-        for s in range(run.start, run.start + run.length):
-            pred, computed = self._model_call(
-                params, x, self._times(s, x.shape[0]), rs.label, rs.memory,
-                cache if reads else None, skip=skip, collect=collect)
-            cache = pruned_branch_caches(self.cfg, computed, cache, collect,
-                                         sig.structure)
-            x, state = self._solver_step(x, pred, s, state, rs.noise_seed)
-            healthy = healthy & rows_finite(x)
-        cache = prune_cache(self.cfg, cache, run.live_out)
+        self._dispatch("seg", run.sig, rs.x.shape[0])
+        expect = cache_entry_names(self.cfg, run.live_out)
         if check:
-            expect = set(cache_entry_names(self.cfg, run.live_out))
-            got = {(si, bi, name)
-                   for si, stage in enumerate(cache)
-                   for bi, d in enumerate(stage)
-                   for name in d}
-            if got != expect:
-                raise AssertionError(
-                    f"liveness violation after steps "
-                    f"[{run.start}, {run.start + run.length}): resident "
-                    f"{sorted(got)} != live {sorted(expect)}")
-        return dataclasses.replace(rs, x=x, cache=cache, state=state,
-                                   run_index=rs.run_index + 1,
-                                   healthy=healthy)
+            self._check_liveness(rs, run, expect)
+        out = self.segment_graph_for(params, rs).run(self, rs, run, expect)
+        if check:
+            self._check_liveness(rs, run, expect, out["cache"])
+        return dataclasses.replace(rs, run_index=rs.run_index + 1, **out)
+
+    def _check_liveness(self, rs: RunState, run, expect, cache=None):
+        """Before the segment (``cache`` None): every entry of its mask's
+        ``live_in`` types is resident.  After it: the resident entries are
+        ``expect`` (``run.live_out``'s), each one the segment read or
+        wrote."""
+        def entries(c):
+            return {(si, bi, name) for si, stage in enumerate(c)
+                    for bi, d in enumerate(stage) for name in d}
+
+        reads = set(cache_entry_names(self.cfg, run.sig.live_in))
+        where = f"steps [{run.start}, {run.start + run.length})"
+        if cache is None:
+            missing = reads - entries(rs.cache)
+            if missing:
+                raise AssertionError(f"liveness violation before {where}: "
+                                     f"{sorted(missing)} read, not resident")
+            return
+        got = entries(cache)
+        made = reads | set(cache_entry_names(self.cfg, run.sig.collect))
+        if got != set(expect) or not got <= made:
+            raise AssertionError(
+                f"liveness violation after {where}: resident {sorted(got)} "
+                f"!= live {sorted(expect)}, or not read nor written "
+                f"{sorted(got - made)}")
 
     def sample_with_plan(self, params, generator, batch: int, *,
                          plan: plan_lib.ExecutionPlan, schedule=None,
@@ -887,12 +952,26 @@ class SmoothCacheExecutor:
             out.append(tuple(stage))
         return out
 
+    def _graph_pool(self):
+        """The memory pool every step graph of this executor captures into
+        (they replay one after another on one stream)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _graph_stream(self) -> torch.cuda.Stream:
+        """The side stream the segment graphs warm up and capture on."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
     def _graph_capture(self):
-        """What every fused graph of this executor shares (they replay one
-        after another on one stream): the memory pool, and the IF bodies'
-        pool and streams."""
+        """What every fused graph of this executor shares: the memory
+        pool (with the segment graphs), and the IF bodies' pool and
+        streams."""
         if self._capture is None:
-            self._capture = cuda_graphs.GraphCapture(self.device)
+            self._capture = cuda_graphs.GraphCapture(self.device,
+                                                     self._graph_pool())
         return self._capture
 
     def fused_graphs(self) -> List[dict]:
@@ -1210,8 +1289,9 @@ class SmoothCacheExecutor:
         under; every derived structure is rebuilt exactly as the matching
         ``start_*`` builds it, and every tensor lands on the device with
         its saved dtype, so advancing the restored state is bitwise
-        advancing the original (a fused run keeps its ``graph_key``: it
-        replays the graph this executor already holds, or captures one).
+        advancing the original (a fused run keeps its ``graph_key``, a
+        plan run its segments' keys: it replays the graphs this executor
+        already holds, or captures them on its first advance).
         Disagreements between the snapshot stamp and the entry are refused
         (``ValueError``), not absorbed — the caller quarantines and
         replays from the start.  ``params`` is unused (the run states hold

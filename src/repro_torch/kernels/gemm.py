@@ -208,6 +208,10 @@ _PREPARED: dict = {}
 # capture read is dropped when it is replaced, so that a training loop's
 # in-place updates keep one copy a weight.
 _RETIRED: list = []
+# copies dropped from ``_PREPARED`` so far (``release``, or a weight's copy
+# made anew): a holder of copies checks that they are current only when
+# this has moved
+_DROPPED = [0]
 
 
 def _key(w):
@@ -234,6 +238,7 @@ def prepare(w) -> Prepared:
             "diffusion.prepare_linear) on every weight before the capture")
     if hit is not None:
         del _PREPARED[key]
+        _DROPPED[0] += 1
         if hit.captured:
             _RETIRED.append(hit)
         hit = None  # the old halves go before the new ones are made
@@ -268,9 +273,25 @@ def retired_bytes() -> int:
 
 
 def release() -> None:
-    """Drop every prepared copy (and the hold on its weight)."""
+    """Drop every prepared copy (and the hold on its weight).  A holder of
+    copies, such as a captured graph that reads them, keeps its own alive
+    (see ``current``)."""
+    _DROPPED[0] += len(_PREPARED)
     _PREPARED.clear()
     _RETIRED.clear()
+
+
+def dropped() -> int:
+    """How many copies have been dropped so far: while it stands still,
+    every copy that ``prepare`` returned is still current."""
+    return _DROPPED[0]
+
+
+def current(p: Prepared) -> bool:
+    """Whether ``p`` is still its weight's prepared copy, at the weight's
+    version (not dropped by ``release``, not made anew)."""
+    return (p.version == p.weight._version
+            and _PREPARED.get(_key(p.weight)) is p)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ an entry.  It counts calls of the function, not CUDA launches: one
 ``linear_requests`` count the ``linear`` calls by variant.  A call made
 while the stream captures a CUDA graph launches nothing: it records the
 launch into the graph, and counts in ``CAPTURED`` instead.  A graph's
-replays make no call at all.
+replays make no call at all; those of the segmented path's step graphs
+are counted in ``REPLAYED``.
 
 On a CUDA tensor that requires a gradient (grad mode on), each op's forward
 is still its kernel, with the same launch and count, and its backward the
@@ -44,6 +45,11 @@ from repro_torch.kernels import ssd as _ssd
 LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0, "linear_tokens": 0,
             "linear_requests": 0, "rglru_scan": 0}
 CAPTURED = dict(LAUNCHES)
+#: the kernel calls that replays of the segmented path's step graphs
+#: launched (``core/segment_graph.py``: a replay launches the calls its
+#: graph captured, with no Python call); the fused adaptive graphs' replays
+#: take a branch only the device knows, and are not counted here
+REPLAYED = dict(LAUNCHES)
 #: callables ``meter(name, work, outputs)`` each meta stand-in reports to
 METERS: list = []
 

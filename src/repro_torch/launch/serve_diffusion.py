@@ -103,6 +103,7 @@ def serve_scenario(name, policies, *, executor, params, store, args, cfg):
           f"compute {rep['compute_fraction']:.2f} | "
           f"model variants {rep['compiles']['model_variants']}"
           f"≤{rep['program_budget']} | "
+          f"graphs {rep['compiles']['graphs']['total']} | "
           f"host syncs {executor.host_sync_count - syncs}")
     return rep
 

@@ -219,10 +219,10 @@ class ChaosExecutor:
 
     def __getattr__(self, name):
         attr = getattr(self._inner, name)
-        if name == "fused_step_for":
+        if name in ("fused_step_for", "segment_graph_for"):
             # takes a run state: the wrapped executor's step is keyed on
-            # the real one (present only where the wrapped executor has a
-            # fused step, as a serving engine probes for it)
+            # the real one (present only where the wrapped executor has
+            # step graphs, as a serving engine probes for them)
             return lambda params, rs: attr(
                 params, rs._inner if isinstance(rs, ChaosRun) else rs)
         return attr

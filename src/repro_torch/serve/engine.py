@@ -55,9 +55,9 @@ contract, not the bits, is the JAX package's.
 Program budget: model-call variants specialize on (signature, batch
 shape), so the variants the engine dispatches are bounded by |buckets| ×
 Σ per-entry signature pool — :meth:`ServeEngine.report` shows the
-executor's total ``model_variants`` against :meth:`program_budget`.
-Eager PyTorch compiles nothing: the count is of dispatched shapes, the
-programs a compiled version would build.
+executor's total ``model_variants`` and the step graphs it captured by
+kind (``graphs``: one per static ``seg`` variant, one per fused
+adaptive one) against :meth:`program_budget`.
 
 Fault recovery (``resilience=`` a
 :class:`~repro_torch.resilience.ResiliencePolicy`): health flags are
@@ -960,9 +960,13 @@ class ServeEngine:
         all route into the recovery path instead of propagating.  Returns
         True when the batch was aborted (``fl`` removed from flight)."""
         pol = self.resilience
-        build = getattr(self.executor, "fused_step_for", None)
-        if fl.kind == "adaptive_fused" and build is not None:
-            # a new fused step's warm-up and capture happen here, before
+        build = None
+        if fl.kind == "adaptive_fused":
+            build = getattr(self.executor, "fused_step_for", None)
+        elif fl.kind == "plan" and getattr(self.executor, "graphs", False):
+            build = getattr(self.executor, "segment_graph_for", None)
+        if build is not None:
+            # a new step graph's warm-up and capture happen here, before
             # the watchdog's clock starts: a capture is not a stall
             build(self.params, fl.rs)
         before = self.clock.now()
@@ -1452,11 +1456,21 @@ class ServeEngine:
     #: executor variant kinds that are *model* calls (the budgeted set)
     MODEL_PROGRAM_KINDS = ("seg", "sigstep", "eager", "fused")
 
+    #: step-graph kinds an executor builds (``graph_count``)
+    GRAPH_KINDS = ("seg", "fused")
+
     def report(self) -> Dict:
         counts = {kind: self.executor.compiled_variant_count(kind)
                   for kind in self.MODEL_PROGRAM_KINDS}
         variants = {kind: n for kind, n in counts.items() if n}
         variants["model_variants"] = sum(counts.values())
+        graph_count = getattr(self.executor, "graph_count", None)
+        if graph_count is not None:
+            # the captured step graphs, the counterpart of the JAX
+            # report's xla_programs, against the same budget
+            variants["graphs"] = {kind: graph_count(kind)
+                                  for kind in self.GRAPH_KINDS}
+            variants["graphs"]["total"] = graph_count()
         # export the calibrated per-step cost model as registry gauges
         snap = self.cost_model.snapshot()
         if snap["global"] is not None:

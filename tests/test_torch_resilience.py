@@ -671,6 +671,38 @@ def test_poisoning_never_writes_into_a_shared_latent():
     assert chaos.injected == {faults.NAN_LATENT: 1}
 
 
+def test_poisoned_latent_reaches_the_segment_graph():
+    """A NaN the harness writes into a run's latent between segments is
+    copied into the segment graph's buffers, and the graph's health fold
+    flips that row only: the other row stays healthy and bitwise its
+    clean run's."""
+    from repro_torch.cache import registry
+    from repro_torch.core import plan as plan_lib
+    _, params = smoke_params()
+    sch = registry.get("static:n=2").build(_executor().cfg.layer_types(),
+                                           STEPS)
+    plan = plan_lib.analyze(sch)
+
+    def run(poison):
+        ex = _executor()
+        chaos = ChaosExecutor(ex, FaultPlan(faults={0: FaultSpec(
+            faults.NAN_LATENT, row=0, chunk=1)} if poison else {}),
+            mark_flags=False)
+        rs = chaos.start_run(params, torch.Generator().manual_seed(0), 2,
+                             plan=plan, schedule=sch)
+        rs = chaos.advance_run(params, rs)
+        assert bool(rs._inner.healthy.all())     # struck after the advance
+        rs = chaos.advance_run(params, rs)
+        assert ex.graph_count("seg") == 2
+        return rs._inner
+
+    hit, clean = run(True), run(False)
+    assert hit.healthy.tolist() == [False, True]
+    assert bool(torch.isnan(hit.x[0]).all())
+    assert torch.equal(hit.x[1], clean.x[1])
+    assert bool(clean.healthy.all())
+
+
 def _static_engine(chaos, continuous=False, n=2, split=True):
     from repro_torch.core import solvers
     _, params = smoke_params()

@@ -735,9 +735,19 @@ def test_served_latents_bit_identical_to_generate(tmp_path):
     assert ex.compiled_variant_count("fused") > 0
     assert ex.compiled_variant_count("sigstep") == 0
     assert ex.host_sync_count == 0
+    # the static entry rides the segment graphs: one per (signature,
+    # batch) variant, reported by kind against the budget
+    graphs = rep["compiles"]["graphs"]
+    assert graphs["seg"] == ex.compiled_variant_count("seg") > 0
+    assert graphs["fused"] == ex.compiled_variant_count("fused")
+    assert 0 < graphs["total"] == ex.graph_count() <= rep["program_budget"]
+    assert sum(g["replays"] for g in ex.segment_graphs()) == sum(
+        r.num_steps for r in eng.records if r.group == "static2")
 
     static_pipe = DiffusionPipeline(cfg, solvers.ddim(steps), "static:n=2",
                                     cfg_scale=1.5, device="cpu")
+    loop_pipe = DiffusionPipeline(cfg, solvers.ddim(steps), "static:n=2",
+                                  cfg_scale=1.5, device="cpu", graphs=False)
     adaptive_pipe = DiffusionPipeline(cfg, solvers.ddim(steps), spec,
                                       cfg_scale=1.5, device="cpu")
     adaptive_pipe.load_artifact(path)
@@ -750,6 +760,9 @@ def test_served_latents_bit_identical_to_generate(tmp_path):
             assert dec == rec.decisions
         else:
             x = static_pipe.generate(params, gen, rec.bucket, label=lab)
+            assert torch.equal(x, loop_pipe.generate(
+                params, serve.batch_generator(rec.seeds), rec.bucket,
+                label=lab))
         for j, rid in enumerate(rec.rids):
             np.testing.assert_array_equal(x[j].numpy(), res[rid])
 
