@@ -62,8 +62,12 @@ exits non-zero:
    same prefill on the CPU (plain scan): logits and final states;
 8. the LM slice: ``launch.serve.generate`` on 4 prompts × 1024 tokens, 32
    new tokens, greedy — 24 SSD launches in the prefill and none in the
-   decode loop; then a card forward over prompt + the first 31 new tokens
-   whose logits must match the recurrent decode step's;
+   decode loop, whose steps replay one captured CUDA graph (every LM
+   phase's ``generate`` decodes so: ``launch/decode_graph.py``, one graph
+   per decode shape, built by a phase's first generate, its launches
+   counted as the calls captured × the replays); then a card forward over
+   prompt + the first 31 new tokens whose logits must match the recurrent
+   decode step's;
 9. a ``torch.profiler`` trace of one prefill and of 4 decode steps: device
    time by kernel, the SSD passes' time, and the device's idle share of the
    wall time;
@@ -207,7 +211,16 @@ exits non-zero:
    attention 8 launches in the prefill and none in the decode, linear 56
    in the prefill and 56 a decode step; the 31 generated tokens decoded
    teacher-forced against one forward over prompt + tokens (≤ 1e-4); a
-   traced prefill and 4 decode steps (``qwen3_profile``).
+   traced prefill and 4 decode steps (``qwen3_profile``).  The decode
+   graph against the same step launched from the host
+   (``qwen3_decode_graph``, also in the ``recurrentgemma`` and
+   ``musicgen`` phases, budget ``DECODE_AB_BUDGET_S``): ``generate``'s
+   prefill and decode, the decode graphed and with ``graphs=False`` in
+   the order A B B A, tokens and
+   logits bitwise, decode ms a step; the replays under the sync guard; a
+   traced graphed decode with its idle share (the uncaptured decode's is
+   the ``_profile`` line's); warm-up, capture, buffer and pool bytes,
+   peak; in ``qwen3`` a fault inside a capture raising from ``generate``.
 20. the Gemma-2 slice (``gemma2``, budget ~150 s, after ``qwen3`` and
    before the video phase, on weights of its own drawn on the card):
    Gemma-2-9B at its published widths (d 3584, 16 query heads × 256 over
@@ -411,7 +424,8 @@ SWEEP_REPS, SWEEP_PREFILL_ITERS = 3, 5
 # same run: the DiT slice's three generates (wall, schedule, compute
 # fraction), the qwen3 phase's prefill seconds, and the weight and
 # prepared-halves bytes each phase measured of its own weights
-MEASURED = {"dit_generate": {}, "qwen3_prefill_s": None, "params": {}}
+MEASURED = {"dit_generate": {}, "qwen3_prefill_s": None, "params": {},
+            "decode_graphs": {}}
 
 
 def emit(obj):
@@ -1264,6 +1278,36 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
+def free_lm_weights(gemm):
+    """Drop the decode graphs (each holds the prepared halves it
+    captured), then every prepared half, and give the memory
+    back to the card: what an LM phase does before the next one draws its
+    weights."""
+    from repro_torch.launch import decode_graph
+    decode_graph.release()
+    gemm.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_graph_row(cfg, params, batch, cache_len, memory=None):
+    """The record of the decode graph that ``generate`` used for this
+    shape (``launch/decode_graph.py``): its key's shape, warm-up and
+    capture seconds, the kernel calls captured a step (and the RG-LRU
+    library's launches by pass), buffer and pool bytes, replays.  Fails
+    unless the graph exists and was captured."""
+    from repro_torch.launch import decode_graph
+    g = decode_graph.lookup(decode_graph.decode_key(cfg, params, batch,
+                                                    cache_len, memory))
+    check(g is not None and g.graph is not None,
+          f"no captured decode graph for {cfg.name} at batch {batch}, "
+          f"cache_len {cache_len}")
+    keep = ("batch", "cache_len", "memory_shape", "warmup_s", "capture_s",
+            "warmup_launches", "captured", "captured_passes", "buffer_bytes",
+            "reserved_bytes")
+    return {**{k: g.stats[k] for k in keep}, "replays": g.replays}
+
+
 def lm_cross_check_phase(cfg, T, params_cpu, params_gpu):
     """Prefill of one 200-token prompt (a ragged last chunk): card against
     CPU, logits and every block's final states."""
@@ -1304,6 +1348,7 @@ def lm_slice_phase(cfg, T, serve, params, ops):
     toks = serve.generate(cfg, params, prompts, LM_GEN, on_phase=mark)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    graph = decode_graph_row(cfg, params, LM_BATCH, LM_PROMPT + LM_GEN)
     (t0, _), (t1, at_prefill), (t2, at_end) = (
         marks["start"], marks["prefill"], marks["decode"])
     steps = LM_GEN - 1
@@ -1314,7 +1359,8 @@ def lm_slice_phase(cfg, T, serve, params, ops):
            "tokens_per_s": LM_BATCH * LM_GEN / (t2 - t0),
            "ssd_launches_prefill": at_prefill["ssd"],
            "ssd_launches_decode": at_end["ssd"] - at_prefill["ssd"],
-           "launches": launches, "peak_device_bytes": peak}
+           "launches": launches, "peak_device_bytes": peak,
+           "decode_graph": graph}
     emit(row)
     check(at_prefill["ssd"] == cfg.num_layers,
           f"{at_prefill['ssd']} SSD launches in the prefill, expected "
@@ -1968,39 +2014,42 @@ def programs_generate(cfg, params, prompts, prefix, gen_len, cache_len,
     """Greedy generation through ``launch.programs``, the entry points that
     take a prefix: the prefill step over ``prefix`` + ``prompts`` (a MoE
     FFN ``dense``, as ``generate`` prefills) with ``cache_len`` slots, then
-    a serve step at each position P + L + i.  ``on_phase`` as
-    ``generate``'s.  Returns (B, gen_len) new tokens."""
-    from repro_torch.launch import programs
+    the decode graph of that shape from position P + L, one replay a step
+    (``launch/decode_graph.py``).  ``on_phase`` as ``generate``'s.
+    Returns (B, gen_len) new tokens."""
+    from repro_torch.launch import decode_graph, programs
     logits, caches = programs.make_prefill_step(
         cfg, cache_len, moe_strategy="dense")(params, prompts, prefix)
     tok = torch.argmax(logits, dim=-1)
+    del logits
     on_phase("prefill")
-    out, base = [tok], prefix.shape[1] + prompts.shape[1]
-    for i in range(gen_len - 1):
-        logits, caches = programs.make_serve_step(cfg, base + i)(
-            params, tok, caches)
-        tok = torch.argmax(logits, dim=-1)
-        out.append(tok)
+    out, _ = decode_graph.decode(cfg, params, tok, caches,
+                                 prefix.shape[1] + prompts.shape[1],
+                                 gen_len - 1, cache_len=cache_len)
     on_phase("decode")
-    return torch.cat(out, dim=1)
+    return out
 
 
 def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
                            passes=None, memory=None, prefix=None, **row):
     """The attention-LM main path: ``generate`` on ``shape`` = (prompts,
     prompt length, new tokens), greedy, cache_len prompt + new, after a
-    cold run of 2 tokens — the attention kernel once an attention block in
-    the prefill and never in the decode, and once a cross branch in both
-    (:func:`attn_calls_lm`), the RG-LRU scan once an RG-LRU
-    block in the prefill and in every decode step, the linear kernel once
-    per product (:func:`lm_linear_calls`) in the prefill and in every
-    decode step.  A codebook LM's prompts and tokens carry K codebooks;
+    cold run of 2 tokens, which builds and captures the decode graph of
+    that shape (``launch/decode_graph.py``) — the attention kernel once an
+    attention block in the prefill and never in the decode, and once a
+    cross branch in both (:func:`attn_calls_lm`), the RG-LRU scan once an
+    RG-LRU block in the prefill and in every decode step, the linear
+    kernel once per product (:func:`lm_linear_calls`) in the prefill and
+    in every decode step.  The timed run's decode replays the cold run's
+    graph: its launches are the graph's captured calls × the replays
+    (``ops.REPLAYED``), and it makes no kernel call from the host.  A codebook LM's prompts and tokens carry K codebooks;
     ``memory`` goes to ``generate``; with ``prefix`` (B, P, d) the run is
     :func:`programs_generate` instead, its caches P + prompt + new.
-    ``passes``, where given, reads a kernel library's own launch counts by
-    pass ({pass: launches}); the timed run's prefill and decode counts go
-    into the row as ``passes_prefill`` and ``passes_decode``.  Emits
-    ``<tag>_generate`` with ``row`` added."""
+    ``passes``, where given, reads a kernel library's launch counts by
+    pass ({pass: launches}, its host launches and the graphs' replays);
+    the timed run's prefill and decode counts go into the row as
+    ``passes_prefill`` and ``passes_decode``.  Emits ``<tag>_generate``
+    with ``row`` and the decode graph's record added."""
     batch, plen, gen_len = shape
     n_pre = 0 if prefix is None else prefix.shape[1]
     cache_len = n_pre + plen + gen_len
@@ -2012,8 +2061,8 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
 
     def mark(phase):
         torch.cuda.synchronize()
-        marks[phase] = (time.perf_counter(), dict(ops.LAUNCHES),
-                        passes() if passes else {})
+        marks[phase] = (time.perf_counter(), _launched(ops),
+                        passes() if passes else {}, dict(ops.LAUNCHES))
 
     def run(n):
         if prefix is not None:
@@ -2033,11 +2082,13 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
     torch.cuda.reset_peak_memory_stats()
     mark("start")
     toks = run(gen_len)
-    launches = dict(ops.LAUNCHES)
-    (t0, _, p0), (t1, pre, p1), (t2, end, p2) = (
+    launches = _launched(ops)
+    (t0, _, p0, _), (t1, pre, p1, c1), (t2, end, p2, c2) = (
         marks["start"], marks["prefill"], marks["decode"])
     steps = gen_len - 1
     dec = {k: end[k] - pre[k] for k in end}
+    dec_calls = {k: c2[k] - c1[k] for k in c2}
+    graph = decode_graph_row(cfg, params, batch, cache_len, memory)
     lin_pre, lin_step = lm_linear_calls(cfg)
     row = {"phase": f"{tag}_generate", "arch": cfg.name,
            "blocks": cfg.num_layers, "batch": batch, "prompt": plen,
@@ -2052,9 +2103,11 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
            **({"passes_prefill": {k: p1[k] - p0[k] for k in p1},
                "passes_decode": {k: p2[k] - p1[k] for k in p2}}
               if passes else {}),
-           "cold": cold,
+           "cold": cold, "decode_graph": graph,
            "peak_device_bytes": torch.cuda.max_memory_allocated(), **row}
     emit(row)
+    MEASURED["decode_graphs"][tag] = {"captured": graph["captured"],
+                                      "replays": steps}
     n_attn, n_rec = mixer_blocks(cfg)
     attn_pre, attn_step = attn_calls_lm(cfg)
     want = {"flash_attention": (attn_pre, attn_step * steps),
@@ -2066,10 +2119,158 @@ def attn_lm_generate_phase(cfg, serve, params, ops, shape, seed, tag,
         check(pre[name] == n_pre and dec[name] == n_dec,
               f"{name}: {pre[name]} launches in the prefill, {dec[name]} in "
               f"the decode; expected {n_pre}, {n_dec}")
+    check(not any(dec_calls.values()),
+          f"the timed decode called kernels from the host: {dec_calls}")
     check(tuple(toks.shape) == (batch, gen_len) + cb, f"tokens {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "token out of range")
     return prompts, toks, launches, row
+
+
+# seconds each LM phase's decode-graph A/B may take: 1.5× the most it
+# took on the card (7.1, 13.0 and 17.8 s)
+DECODE_AB_BUDGET_S = {"qwen3": 11, "recurrentgemma": 20, "musicgen": 27}
+
+
+class CaptureBroken(RuntimeError):
+    """The fault :func:`failed_capture_raises` injects into a capture."""
+
+
+def failed_capture_raises(cfg, serve, T, params, prompts):
+    """A decode step that fails while its graph captures (the fault raised
+    inside the capture, before any CUDA call it would break): ``generate``
+    raises it, with no fallback to the uncaptured step.  A new shape (one
+    prompt) makes a new graph; every decode graph is dropped after."""
+    from repro_torch.launch import decode_graph
+    real = T.decode_step
+
+    def step(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise CaptureBroken("a fault inside the decode graph's capture")
+        return real(*a, **kw)
+
+    T.decode_step, raised = step, False
+    try:
+        serve.generate(cfg, params, prompts[:1], 3)
+    except CaptureBroken:
+        raised = True
+    finally:
+        T.decode_step = real
+    torch.cuda.synchronize()
+    broken = decode_graph.lookup(decode_graph.decode_key(
+        cfg, params, 1, prompts.shape[1] + 3))
+    decode_graph.release()
+    check(raised and broken is not None and broken.graph is None,
+          "a fault in the decode graph's capture did not raise from "
+          "generate")
+    return raised
+
+
+def decode_graph_ab_phase(cfg, serve, T, params, ops, prompts, gen_len, tag,
+                          memory=None, break_capture=False):
+    """The decode graph against the same step launched from the host, on
+    the phase's weights and prompts: ``generate``'s two halves, its
+    prefill and its greedy decode (``decode_graph.decode``), the decode
+    graphed and with ``graphs=False`` in the order A B B A, the tokens and
+    the last step's logits bitwise equal across all four, prefill s and
+    decode ms a step; then, from one prefill, the graph's steps replayed
+    under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read) and the
+    graphed decode traced (again, up to ``TRACE_TRIES`` times, until the
+    trace holds every linear, attention and RG-LRU launch; its device ms
+    and idle share null if none does, and no more records than launches:
+    the uncaptured decode's are the ``<tag>_profile`` line's);
+    the graph's warm-up, capture, buffer and pool bytes; the peak; with
+    ``break_capture``, :func:`failed_capture_raises`.  Emits
+    ``<tag>_decode_graph``, held to ``DECODE_AB_BUDGET_S[tag]``."""
+    from repro_torch.launch import decode_graph
+    t_phase = time.perf_counter()
+    batch, plen = prompts.shape[:2]
+    cache_len, steps = plen + gen_len, gen_len - 1
+    key = decode_graph.decode_key(cfg, params, batch, cache_len, memory)
+
+    def prefill():
+        # generate's prefill and greedy first token
+        logits, caches = T.prefill(cfg, params, prompts, cache_len=cache_len,
+                                   memory=memory, moe_strategy="dense")
+        return torch.argmax(logits[:, -1:], dim=-1), caches
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for graphs in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = prefill()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, logits = decode_graph.decode(cfg, params, tok, caches, plen,
+                                           steps, cache_len=cache_len,
+                                           memory=memory, graphs=graphs)
+        torch.cuda.synchronize()
+        runs.append({"tokens": toks, "logits": logits, "prefill_s": t1 - t0,
+                     "decode_ms": 1e3 * (time.perf_counter() - t1) / steps})
+    bitwise = all(torch.equal(r["tokens"], runs[0]["tokens"])
+                  and torch.equal(r["logits"], runs[0]["logits"])
+                  for r in runs[1:])
+    g = decode_graph.lookup(key)
+    # the decode alone, from one prefill
+    tok, caches = prefill()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        guarded, _ = g.run(params, caches, tok, plen, steps, memory=memory)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    families = {"linear": tuple(LINEAR_KERNELS.values()),
+                "flash_attention": ("attn_fwd",),
+                "rglru_scan": tuple(SASS_KERNELS["rglru"])}
+    for tries in range(1, TRACE_TRIES + 1):
+        before = _launched(ops)
+        wall_us, prof = _profiled(lambda: g.run(params, caches, tok, plen,
+                                                steps, memory=memory))
+        busy, in_trace = _device_us_by(prof, families)
+        issued = {k: _launched(ops)[k] - before[k] for k in families}
+        complete = all(in_trace[k][1] == issued[k] for k in families)
+        if complete:
+            break
+    traced = {"wall_ms": wall_us / 1e3, "ms_per_step": wall_us / 1e3 / steps,
+              "trace_complete": complete, "traces": tries,
+              "device_ms": busy / 1e3 if complete else None,
+              "idle_share": 1 - busy / wall_us if complete else None,
+              "launches": issued,
+              "kernels_in_trace": {k: v[1] for k, v in in_trace.items()}}
+    check(busy > 0, f"{tag}: the profiler saw no device time")
+    del caches
+    raised = (failed_capture_raises(cfg, serve, T, params, prompts)
+              if break_capture else None)
+    st = g.stats
+    seconds = time.perf_counter() - t_phase
+    row = {"phase": f"{tag}_decode_graph", "arch": cfg.name,
+           "blocks": cfg.num_layers, "batch": batch, "prompt": plen,
+           "steps": steps, "order": ["graphs", "off", "off", "graphs"],
+           "decode_ms_per_step": [r["decode_ms"] for r in runs],
+           "prefill_s": [r["prefill_s"] for r in runs],
+           "bitwise_tokens_and_logits": bitwise,
+           "sync_guarded_replays": steps, "traced_graphed_decode": traced,
+           "failed_capture_raises": raised,
+           "warmup_s": st["warmup_s"], "capture_s": st["capture_s"],
+           "captured": st["captured"],
+           "captured_passes": st["captured_passes"],
+           "buffer_bytes": st["buffer_bytes"],
+           "pool_bytes": st["reserved_bytes"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": seconds, "budget_s": DECODE_AB_BUDGET_S[tag]}
+    emit(row)
+    check(bitwise, f"{tag}: graphed and uncaptured decodes differ")
+    check(torch.equal(guarded, runs[0]["tokens"]),
+          f"{tag}: the sync-guarded replays gave other tokens")
+    check(all(in_trace[k][1] <= issued[k] for k in families),
+          f"{tag}: the traced graphed decode's trace holds "
+          f"{traced['kernels_in_trace']} kernels of {issued} launched")
+    check(seconds <= DECODE_AB_BUDGET_S[tag],
+          f"the {tag} decode-graph A/B took {seconds} s of its "
+          f"{DECODE_AB_BUDGET_S[tag]}")
+    return row
 
 
 def attn_lm_profile_phase(cfg, T, params, prompts, toks, ops, tag,
@@ -2200,6 +2401,8 @@ def qwen3_phase(peaks, kernels, sass):
         cfg, serve, params, ops, (LM_BATCH, LM_PROMPT, LM_GEN), SEED + 83,
         "qwen3", weight_bytes=weight_bytes, prepared_bytes=prepared)
     MEASURED["qwen3_prefill_s"] = row["prefill_s"]
+    ab = decode_graph_ab_phase(cfg, serve, T, params, ops, prompts, LM_GEN,
+                               "qwen3", break_capture=True)
     lm_decode_consistency_phase(cfg, T, params, prompts, toks,
                                 name="qwen3_decode_consistency")
     profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
@@ -2211,12 +2414,10 @@ def qwen3_phase(peaks, kernels, sass):
         profile["prefill"]["ms"]["linear"]}
     kernels["linear"]["qwen3_launches"] = launches["linear"]
     del params, prompts, toks
-    gemm.release()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)
     seconds = time.perf_counter() - t_phase
     emit({"phase": "qwen3", "seconds": seconds, "budget_s": QWEN3_BUDGET_S,
-          "launches": launches})
+          "launches": launches, "decode_graph_ab_s": ab["seconds"]})
 
 
 GEMMA2_BLOCKS = 12        # of 42: weights and prepared halves take ~32 GB
@@ -2288,9 +2489,7 @@ def gemma2_phase(peaks, kernels, sass):
         profile["prefill"]["ms"]["linear"]}
     kernels["linear"]["gemma2_launches"] = launches["linear"]
     del params, prompts, toks
-    gemm.release()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)
     seconds = time.perf_counter() - t_phase
     emit({"phase": "gemma2", "seconds": seconds,
           "budget_s": GEMMA2_BUDGET_S, "launches": launches,
@@ -2398,9 +2597,7 @@ def minicpm3_phase(peaks, kernels, sass):
         profile["prefill"]["ms"]["linear"]}
     kernels["linear"]["minicpm3_launches"] = launches["linear"]
     del params, prompts, toks
-    gemm.release()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)
     seconds = time.perf_counter() - t_phase
     emit({"phase": "minicpm3", "seconds": seconds,
           "budget_s": MINICPM3_BUDGET_S, "launches": launches,
@@ -2739,9 +2936,7 @@ def deepseek3_phase(peaks, kernels, sass):
         "profile_prefill_linear_ms": profile["prefill"]["ms"]["linear"]}
     kernels["linear"]["deepseek3_launches"] = launches["linear"]
     del params, prompts, toks
-    gemm.release()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)
     seconds = time.perf_counter() - t_phase
     emit({"phase": "deepseek3", "seconds": seconds,
           "budget_s": DEEPSEEK3_BUDGET_S, "launches": launches,
@@ -2953,6 +3148,14 @@ def recurrentgemma_conv_ms(cfg, params):
             "decode_step": n * device_ms(lambda: rglru._conv(p, win, 1))}
 
 
+def rglru_passes(rglru):
+    """A reader of the RG-LRU library's launches by pass: its own (host
+    launches, a capture's recorded ones among them) and the decode graphs'
+    replays of captured ones (``rglru.REPLAYED``)."""
+    return lambda: {k: v + rglru.REPLAYED[k]
+                    for k, v in rglru.launched().items()}
+
+
 def recurrentgemma_phase(peaks, kernels, sass):
     """The hybrid serving path at RecurrentGemma-2B's published widths and
     all 26 blocks — (rec, rec, local MQA) × 8 + (rec, rec): d 2560, the
@@ -2986,7 +3189,8 @@ def recurrentgemma_phase(peaks, kernels, sass):
     width = cfg.d_model
     prompts, toks, launches, row = attn_lm_generate_phase(
         cfg, serve, params, ops, (b, plen, RECURRENTGEMMA_GEN), SEED + 124,
-        "recurrentgemma", passes=rglru.launched, weight_bytes=weight_bytes,
+        "recurrentgemma", passes=rglru_passes(rglru),
+        weight_bytes=weight_bytes,
         prepared_bytes=prepared,
         # per RG-LRU block: the conv tail (3 steps) and h, f32; per
         # attention block: k and v over the window's 2048 slots
@@ -3006,6 +3210,8 @@ def recurrentgemma_phase(peaks, kernels, sass):
                                  for k in rglru.PASSES},
               f"rglru scan in the generate's {part}: launches per call "
               f"{per_call[part]}, the plan {rglru.plan(l)}")
+    ab = decode_graph_ab_phase(cfg, serve, T, params, ops, prompts,
+                               RECURRENTGEMMA_GEN, "recurrentgemma")
     lm_decode_consistency_phase(cfg, T, params, prompts, toks,
                                 name="recurrentgemma_decode_consistency")
     profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
@@ -3038,16 +3244,16 @@ def recurrentgemma_phase(peaks, kernels, sass):
         profile["prefill"]["ms"]["linear"]}
     kernels["linear"]["recurrentgemma_launches"] = launches["linear"]
     del params, prompts, toks
-    gemm.release()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)
     seconds = time.perf_counter() - t_phase
-    emit({"phase": "recurrentgemma", "seconds": seconds,
-          "budget_s": RECURRENTGEMMA_BUDGET_S, "launches": launches,
-          "peak_device_bytes": row["peak_device_bytes"]})
-    check(seconds <= RECURRENTGEMMA_BUDGET_S,
-          f"the recurrentgemma phase took {seconds} s of its "
-          f"{RECURRENTGEMMA_BUDGET_S}")
+    # the phase's budget and its decode-graph A/B's
+    budget = RECURRENTGEMMA_BUDGET_S + DECODE_AB_BUDGET_S["recurrentgemma"]
+    emit({"phase": "recurrentgemma", "seconds": seconds, "budget_s": budget,
+          "launches": launches,
+          "peak_device_bytes": row["peak_device_bytes"],
+          "decode_graph_ab_s": ab["seconds"]})
+    check(seconds <= budget,
+          f"the recurrentgemma phase took {seconds} s of its {budget}")
 
 
 # MusicGen-medium, InternVL2-1B and Llama-4: the codebook and prefix LMs
@@ -3119,9 +3325,7 @@ def _lm_phase_end(tag, kernels, launches, attn, products, profile, row,
                         profile["prefill"]["ms"]["linear"]}
                        if profile else {})}
     kernels["linear"][tag + "_launches"] = launches["linear"]
-    gemm.release()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)
     seconds = time.perf_counter() - t_phase
     emit({"phase": tag, "seconds": seconds, "budget_s": budget,
           "launches": launches,
@@ -3173,14 +3377,18 @@ def musicgen_phase(peaks, kernels, sass):
         cfg, serve, params, ops, (LM_BATCH, LM_PROMPT, LM_GEN), SEED + 134,
         "musicgen", memory=memory, weight_bytes=weight_bytes,
         prepared_bytes=prepared)
+    ab = decode_graph_ab_phase(cfg, serve, T, params, ops, prompts, LM_GEN,
+                               "musicgen", memory=memory)
     lm_decode_consistency_phase(cfg, T, params, prompts, toks,
                                 name="musicgen_decode_consistency",
                                 memory=memory)
     profile = attn_lm_profile_phase(cfg, T, params, prompts, toks, ops,
                                     "musicgen", memory=memory)
     del params, prompts, toks, memory
+    # the phase's budget and its decode-graph A/B's
     _lm_phase_end("musicgen", kernels, launches, attn, {}, profile, row,
-                  MUSICGEN_BUDGET_S, t_phase, gemm)
+                  MUSICGEN_BUDGET_S + DECODE_AB_BUDGET_S["musicgen"],
+                  t_phase, gemm, decode_graph_ab_s=ab["seconds"])
 
 
 def internvl2_phase(peaks, kernels, sass):
@@ -6716,9 +6924,7 @@ def main():
     lm_profile_phase(cfg, T, params_gpu, prompts, toks)
     mark("mamba2")
     del params_gpu, prompts, toks
-    gemm.release()
-    gc.collect()              # the Mamba weights go before the qwen3 phases
-    torch.cuda.empty_cache()
+    free_lm_weights(gemm)     # the Mamba weights go before the qwen3 phases
     qwen3_phase(peaks, kernels, sass)
     mark("qwen3")
     gemma2_phase(peaks, kernels, sass)
@@ -6750,6 +6956,14 @@ def main():
         roofline_phase(counts)
         mark("roofline")
 
+    # the decode graphs: each kernel's calls captured a step × the timed
+    # generate's replays, by LM phase
+    for name, k in (("flash_attention", "flash_attention"),
+                    ("linear", "linear"), ("rglru_scan", "rglru_scan")):
+        kernels[name]["decode_captured_per_graph_x_replays"] = {
+            tag: [g["captured"][k], g["replays"]]
+            for tag, g in MEASURED["decode_graphs"].items()
+            if g["captured"][k]}
     emit({"phase": "script_marks", "seconds_since_build": marks})
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",

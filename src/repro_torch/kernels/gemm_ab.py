@@ -348,16 +348,19 @@ def lm_generate_ab(model: str, sums: dict) -> dict:
         torch.cuda.synchronize()
         marks[phase] = time.perf_counter()
 
-    # a cold generate first: the first call of each routine stays out
+    # a cold generate first: the first call of each routine stays out.
+    # The decode steps are launched from the host (graphs=False): a
+    # captured decode graph keeps the widths planned at its capture
     serve.generate(cfg, params, prompts.cuda(), 2, cache_len=plen + new,
-                   on_phase=mark)
+                   on_phase=mark, graphs=False)
     runs, tokens = {"base": [], "tiles": []}, {}
     try:
         for which in ("base", "tiles", "tiles", "base", "base", "tiles"):
             with gemm.token_widths(tiles if which == "tiles" else {}):
                 mark("start")
                 toks = serve.generate(cfg, params, prompts.cuda(), new,
-                                      cache_len=plen + new, on_phase=mark)
+                                      cache_len=plen + new, on_phase=mark,
+                                      graphs=False)
             runs[which].append({
                 "prefill_s": marks["prefill"] - marks["start"],
                 "decode_ms": 1e3 * (marks["decode"] - marks["prefill"])

@@ -13,7 +13,7 @@ an entry.  It counts calls of the function, not CUDA launches: one
 while the stream captures a CUDA graph launches nothing: it records the
 launch into the graph, and counts in ``CAPTURED`` instead.  A graph's
 replays make no call at all; those of the segmented path's step graphs
-are counted in ``REPLAYED``.
+and of the LM decode graphs are counted in ``REPLAYED``.
 
 On a CUDA tensor that requires a gradient (grad mode on), each op's forward
 is still its kernel, with the same launch and count, and its backward the
@@ -46,8 +46,9 @@ LAUNCHES = {"flash_attention": 0, "ssd": 0, "linear": 0, "linear_tokens": 0,
             "linear_requests": 0, "rglru_scan": 0}
 CAPTURED = dict(LAUNCHES)
 #: the kernel calls that replays of the segmented path's step graphs
-#: launched (``core/segment_graph.py``: a replay launches the calls its
-#: graph captured, with no Python call); the fused adaptive graphs' replays
+#: (``core/segment_graph.py``) and of the LM decode graphs
+#: (``launch/decode_graph.py``) launched: a replay launches the calls its
+#: graph captured, with no Python call; the fused adaptive graphs' replays
 #: take a branch only the device knows, and are not counted here
 REPLAYED = dict(LAUNCHES)
 #: callables ``meter(name, work, outputs)`` each meta stand-in reports to

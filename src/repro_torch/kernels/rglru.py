@@ -12,7 +12,8 @@ model is ``ref.rglru_scan_chunked_ref``): a call over L > ``CHUNK`` steps
 is three launches — chunk summaries, the carries, the output — and one of
 L <= ``CHUNK`` steps, a decode step's, is one (:func:`plan`).  The library
 counts the launches it makes of each pass (:func:`launched`), so that what
-a call ran is read, not reckoned.
+a call ran is read, not reckoned; a captured graph's replays are counted
+beside it (:data:`REPLAYED`).
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ MAX_GRID_X = 2**31 - 1  # blocks of the one-dimensional grid
 # trace name them
 PASSES = ("rglru_summary", "rglru_carry", "rglru_output")
 _LIB = None
+#: {pass: launches} made by replays of captured graphs (the decode graphs,
+#: ``launch/decode_graph.py``): the captured launches times the replays
+REPLAYED = dict.fromkeys(PASSES, 0)
 
 
 def work(b: int, l: int, w: int, h0: bool = False) -> tuple:
@@ -85,9 +89,14 @@ def plan(l: int) -> tuple:
 
 def launched() -> dict:
     """{pass: launches} this source's library has made since it was
-    loaded, counted in ``rglru.cu`` where each launch reported no error."""
+    loaded, counted in ``rglru.cu`` where each launch reported no error
+    (zeros before it is loaded).  A launch recorded by a CUDA graph's
+    capture counts here once; the graph's replays make no call into the
+    library, and their launches are counted in :data:`REPLAYED`."""
+    if _LIB is None:
+        return dict.fromkeys(PASSES, 0)
     out = (ctypes.c_longlong * len(PASSES))()
-    _library().rglru_launched(out)
+    _LIB.rglru_launched(out)
     return dict(zip(PASSES, out))
 
 

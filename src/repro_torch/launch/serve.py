@@ -23,7 +23,8 @@ with cross-attention (``cond_dim``) gets a 16-token text-memory stub.  As
 in the JAX package, ``generate`` takes no prefix embeddings: a prefix
 model (InternVL2, Llama-4) generates from its tokens alone here, and with
 a prefix through ``launch.programs``.  Runs on ``cuda`` unless ``--device
-cpu``.
+cpu``; there each decode step replays one captured CUDA graph, or, with
+``--no-graphs``, is launched from the host.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.data.synthetic import TokenStream, text_memory
+from repro_torch.launch import decode_graph
 from repro_torch.models import transformer as T
 
 
@@ -66,19 +68,26 @@ def _pick(logits, temperature: float, generator):
 def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
              memory=None, cache_len: Optional[int] = None,
              temperature: float = 0.0, generator=None, device=None,
-             on_phase=None):
+             on_phase=None, graphs: Optional[bool] = None):
     """Greedy or temperature batched generation on ``device`` (default
     ``cuda``), where ``params`` must lie.  prompts: (B, L) tokens, or (B, L,
     K) for K codebooks.  Returns (B, gen_len[, K]) new tokens; decode step
     i runs at position L + i against KV caches of ``cache_len`` slots
-    (default L + gen_len; a state-cache model has none).  ``memory`` (B,
-    Lm, cond_dim) feeds the cross-attention branches in the prefill and in
-    every decode step.  Sampling (``temperature > 0``) needs an explicit
-    ``torch.Generator``.  ``on_phase``, if given, is called with
-    ``"prefill"`` once the prompts are prefilled and the first token is
-    picked, and with ``"decode"`` at the end.  As in the JAX package, a
-    mixture-of-experts FFN prefills with ``dense`` dispatch (no token
-    dropped) and decodes with ``gshard`` (``decode_step``'s default)."""
+    (default L + gen_len; a state-cache model has none).
+    ``memory`` (B, Lm, cond_dim) feeds the cross-attention branches in the
+    prefill and in every decode step.  Sampling (``temperature > 0``)
+    needs an explicit ``torch.Generator``.  ``on_phase``, if given, is
+    called with ``"prefill"`` once the prompts are prefilled and the first
+    token is picked, and with ``"decode"`` at the end.  As in the JAX
+    package, a mixture-of-experts FFN prefills with ``dense`` dispatch (no
+    token dropped) and decodes with ``gshard`` (``decode_step``'s default).
+
+    The prefill runs eagerly; the decode steps go through the decode
+    graph of their shape (``launch/decode_graph.py``, the counterpart of
+    the JAX package's jitted step): on a card one captured CUDA graph
+    replayed a step, ``graphs=False`` the same step launched from the
+    host; on the CPU always the latter.  A sampled token is drawn from
+    ``generator`` between the steps."""
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"parameters are on {params['embed'].device}, "
@@ -87,21 +96,24 @@ def generate(cfg: ModelConfig, params, prompts, gen_len: int, *,
         raise ValueError("sampling at temperature > 0 needs a generator")
     prompts = prompts.to(params["embed"].device)
     plen = prompts.shape[1]
-    logits, caches = T.prefill(cfg, params, prompts,
-                               cache_len=cache_len or plen + gen_len,
+    cache_len = cache_len or plen + gen_len
+    logits, caches = T.prefill(cfg, params, prompts, cache_len=cache_len,
                                memory=memory, moe_strategy="dense")
     tok = _pick(logits[:, -1:], temperature, generator)
+    del logits
     if on_phase is not None:
         on_phase("prefill")
-    out = [tok]
-    for i in range(gen_len - 1):
-        lg, caches = T.decode_step(cfg, params, tok, caches, pos=plen + i,
-                                   memory=memory)
-        tok = _pick(lg, temperature, generator)
-        out.append(tok)
+    out = tok
+    if gen_len > 1:
+        pick = (None if temperature <= 0 else
+                lambda lg: _pick(lg, temperature, generator))
+        out, _ = decode_graph.decode(cfg, params, tok, caches, plen,
+                                     gen_len - 1, cache_len=cache_len,
+                                     memory=memory, pick=pick,
+                                     graphs=graphs)
     if on_phase is not None:
         on_phase("decode")
-    return torch.cat(out, dim=1)
+    return out
 
 
 def main(argv=None):
@@ -115,6 +127,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--no-graphs", action="store_true",
+                    help="launch each decode step from the host instead of "
+                         "replaying its captured CUDA graph")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -138,7 +153,8 @@ def main(argv=None):
     mark("start")
     toks = generate(cfg, params, prompts, args.gen, memory=memory,
                     temperature=args.temperature, generator=gen,
-                    device=dev, on_phase=mark)
+                    device=dev, on_phase=mark,
+                    graphs=False if args.no_graphs else None)
     prefill_s = marks["prefill"] - marks["start"]
     decode_s = marks["decode"] - marks["prefill"]
     steps = max(args.gen - 1, 1)

@@ -14,7 +14,11 @@ too, whose rows do not depend on the batch shape (the row contract).
 as an independent reference for the kernel path.  Decode attention is the
 JAX package's einsum ``_decode_sdpa`` over the cache layouts, in f32 plain
 PyTorch on both devices (the JAX package computes it outside any kernel
-too).  Caches are functional: a decode step returns a new cache.
+too).  A decode step writes its new key and value into the cache it was
+given, at a slot computed on the device from the position, a ``(1,)``
+int64 tensor (an int is taken to one), as the JAX package's jitted step
+writes at a traced position: one captured CUDA graph serves every
+position (``launch/decode_graph.py``).
 
 MLA (DeepSeek-style latent-KV attention, MiniCPM3): the full mode expands
 the latent into per-head keys and values and runs the same kernel, with
@@ -185,30 +189,46 @@ def _gqa_full(spec: AttentionSpec, params, x, positions=None, memory=None):
     return out, (k, v)
 
 
-def decode_slot(spec: AttentionSpec, pos: int, cache_len: int) -> int:
+def as_position(pos, device) -> torch.Tensor:
+    """A decode position as the ``(1,)`` int64 tensor on ``device`` that
+    the decode step computes with; a tensor passes through as it is (a
+    captured graph reads it from its buffer)."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
+def decode_slot(spec: AttentionSpec, pos, cache_len: int):
     """The cache slot that takes position ``pos``: a ring (``pos % S``) for a
-    window that fits the cache, else ``min(pos, S - 1)``."""
-    if spec.window is not None and spec.window <= cache_len:
-        return pos % cache_len
-    return min(pos, cache_len - 1)
+    window that fits the cache, else ``min(pos, S - 1)``.  An int gives an
+    int; a ``(1,)`` int64 tensor gives one, computed on its device (which
+    of the two is a static test on the spec)."""
+    ring = spec.window is not None and spec.window <= cache_len
+    if isinstance(pos, torch.Tensor):
+        return (torch.remainder(pos, cache_len) if ring
+                else pos.clamp_max(cache_len - 1))
+    return pos % cache_len if ring else min(pos, cache_len - 1)
 
 
-def _gqa_decode(spec: AttentionSpec, params, x, pos: int, cache, slot_pos):
-    """x: (B, 1, D) at position ``pos``; cache k (B, KV, dh, S), v (B, KV,
-    S, dh); slot_pos (S,): the position each slot holds (-1 = empty).
-    Returns ``(out, cache)``: the cache with ``slots``, its k, v and slot_pos
-    updated in place (the JAX step returns new arrays; a copy here would
-    move the whole cache every step)."""
+def _gqa_decode(spec: AttentionSpec, params, x, pos, cache, slot_pos):
+    """x: (B, 1, D) at position ``pos`` (a ``(1,)`` int64 tensor or an
+    int); cache k (B, KV, dh, S), v (B, KV, S, dh); slot_pos (S,): the
+    position each slot holds (-1 = empty).  Returns ``(out, cache)``: the
+    cache with ``slots``, its k, v and slot_pos updated in place (the JAX
+    step returns new arrays; a copy here would move the whole cache every
+    step)."""
+    pos = as_position(pos, x.device)
     q, k_new, v_new = _gqa_qkv(spec, params, x)
-    posb = torch.full((x.shape[0], 1), pos, device=x.device)
+    posb = pos.expand(x.shape[0], 1)
     if spec.pos_emb == "rope":
         q, k_new = _rope(spec, q, k_new, posb)
     k, v, slots = cache["k"], cache["v"], slot_pos
     slot = decode_slot(spec, pos, k.shape[-1])
-    # (B, 1, KV, dh) → a column of k's layout and a row of v's
-    k[..., slot] = k_new[:, 0].to(k.dtype)
-    v[:, :, slot] = v_new[:, 0].to(v.dtype)
-    slots[slot] = pos
+    # (B, 1, KV, dh) → a column of k's layout and a row of v's, written at
+    # the device slot
+    k.index_copy_(3, slot, k_new.permute(0, 2, 3, 1).to(k.dtype))
+    v.index_copy_(2, slot, v_new.transpose(1, 2).to(v.dtype))
+    slots.index_copy_(0, slot, pos.to(slots.dtype))
     bias = _mask_bias(posb, slots[None, :], causal=spec.causal,
                       window=spec.window, k_valid=(slots >= 0)[None, :])
     out = _decode_sdpa(spec, q, k, v, bias,
@@ -275,24 +295,26 @@ def _mla_full(spec: AttentionSpec, params, x, positions=None):
     return out, (ckv, krope)
 
 
-def _mla_decode(spec: AttentionSpec, params, x, pos: int, cache, slot_pos):
-    """Absorbed decode: x (B, 1, D) at position ``pos`` attends in the
-    latent space against ckv (B, S, kv_lora) and krope (B, S, rope), with
-    ``wkv_b``'s key half folded into the query and its value half into the
-    output; slot ``min(pos, S - 1)``.  Returns ``(out, cache)``: the cache
-    with ``slots``, its leaves updated in place (as :func:`_gqa_decode`)."""
+def _mla_decode(spec: AttentionSpec, params, x, pos, cache, slot_pos):
+    """Absorbed decode: x (B, 1, D) at position ``pos`` (a ``(1,)`` int64
+    tensor or an int) attends in the latent space against ckv (B, S,
+    kv_lora) and krope (B, S, rope), with ``wkv_b``'s key half folded into
+    the query and its value half into the output; slot ``min(pos, S -
+    1)``, on the device.  Returns ``(out, cache)``: the cache with
+    ``slots``, its leaves updated in place (as :func:`_gqa_decode`)."""
     b = x.shape[0]
     h, nope = spec.num_heads, spec.nope_head_dim
-    posb = torch.full((b, 1), pos, device=x.device)
+    pos = as_position(pos, x.device)
+    posb = pos.expand(b, 1)
     angles = L.rope_angles(posb, spec.rope_head_dim, spec.rope_theta)
     qn, qr = _mla_q(spec, params, x)                 # (B, 1, H, *)
     qr = L.apply_rope(qr, posb, angles=angles)
     ckv_new, kr_new = _mla_latent(spec, params, x, angles)
     ckv, krope, slots = cache["ckv"], cache["krope"], slot_pos
-    slot = min(pos, ckv.shape[1] - 1)
-    ckv[:, slot] = ckv_new[:, 0].to(ckv.dtype)
-    krope[:, slot] = kr_new[:, 0].to(krope.dtype)
-    slots[slot] = pos
+    slot = pos.clamp_max(ckv.shape[1] - 1)
+    ckv.index_copy_(1, slot, ckv_new.to(ckv.dtype))
+    krope.index_copy_(1, slot, kr_new.to(krope.dtype))
+    slots.index_copy_(0, slot, pos.to(slots.dtype))
     wkv_b = params["wkv_b"].reshape(spec.kv_lora_rank, h,
                                     nope + spec.v_head_dim)
     wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]
@@ -323,7 +345,7 @@ def apply(spec: AttentionSpec, params, x, *, positions=None, mode="full",
     "spatial" attends within each frame, as (B·T, S) with positions
     ``arange(S)``; "temporal" within each spatial location, as (B·S, T)
     with positions ``arange(T)``.  Decode mode: x (B, 1, D) at position
-    ``pos`` (an int) against ``cache`` with ``slot_pos``; a cross layer's
+    ``pos`` (a ``(1,)`` int64 tensor or an int) against ``cache`` with ``slot_pos``; a cross layer's
     one row over the whole ``memory``, its cache returned as given (the
     blocks run the cross branch in full mode, which computes the same)."""
     if spec.kind not in ("gqa", "mla"):

@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import AttentionSpec, BlockSpec, ModelConfig, MoESpec
 from repro_torch.kernels import gemm, ops
-from repro_torch.models import blocks, layers as L
+from repro_torch.models import attention, blocks, layers as L
 
 
 def tree_map(fn, tree):
@@ -455,25 +455,29 @@ def prefill(cfg: ModelConfig, params, tokens, *,
 
 
 def decode_step(cfg: ModelConfig, params, token, caches, *,
-                pos: Optional[int] = None, memory=None):
+                pos=None, memory=None):
     """One AR decode step.  token: (B, 1) or (B, 1, K) at position ``pos``
-    (an int; an attention model, or sinusoidal positions, need it);
-    ``memory`` feeds the cross-attention branches over the whole memory.
-    Returns (logits (B, 1, V) or (B, 1, K, V), caches); an attention
-    model's KV caches are the given ones, updated in place."""
+    (an attention model, or sinusoidal positions, need it): an int, or a
+    ``(1,)`` int64 tensor on the parameters' device, which the step reads
+    only on the device (the JAX package's traced position: a captured
+    graph of the step serves every position); ``memory`` feeds the
+    cross-attention branches over the whole memory.  Returns (logits (B,
+    1, V) or (B, 1, K, V), caches); an attention model's KV caches are the
+    given ones, updated in place, a state cache's leaves new tensors."""
     attn = any(isinstance(b.mixer, AttentionSpec)
                for _, _, _, b in cfg.blocks())
     if pos is None and (attn or cfg.pos_emb == "sinusoidal"):
         raise ValueError("an attention model's decode step needs pos=")
     x = embed_tokens(cfg, params, token)
+    if pos is not None:
+        pos = attention.as_position(pos, x.device)
     if cfg.pos_emb == "sinusoidal":
         # embed_tokens added position 0's sinusoid: swap in pos's, in the
         # JAX package's order (subtract, then add)
         d, dev = cfg.d_model, x.device
         x = x - L.sinusoidal_embedding(torch.arange(1, device=dev),
                                        d)[None].to(x.dtype)
-        x = x + L.sinusoidal_embedding(torch.full((1,), pos, device=dev),
-                                       d)[None].to(x.dtype)
+        x = x + L.sinusoidal_embedding(pos, d)[None].to(x.dtype)
     x, _, new_caches, _ = apply_stages(cfg, params, x, mode="decode",
                                        pos=pos, caches=caches, memory=memory)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
